@@ -1,0 +1,22 @@
+"""BICM / Gray-code tables (host numpy, copied from the JAX package).
+
+The binary-reflected Gray code of symbol ``s`` is ``s ^ (s >> 1)``; column
+``k`` of the symbol->bits table is bit ``k`` of that value.
+"""
+
+import numpy as np
+
+__all__ = ["generate_table_s_to_b"]
+
+
+def generate_table_s_to_b(log_order: int) -> np.ndarray:
+    """Symbol-index -> Gray bit table, shape [2**log_order, log_order], uint8.
+
+    ``table[s, k]`` is bit ``k`` of the binary-reflected Gray code of ``s``.
+    """
+    if log_order <= 0:
+        raise ValueError(f"log_order ({log_order}) must be a positive integer")
+    s = np.arange(1 << log_order, dtype=np.int64)
+    gray = s ^ (s >> 1)
+    k = np.arange(log_order, dtype=np.int64)
+    return ((gray[:, None] >> k[None, :]) & 1).astype(np.uint8)

@@ -1,0 +1,365 @@
+"""Quasi-cyclic LDPC syndrome decoder: dense flooding BP on tensors.
+
+The parity-check matrix is a grid of z x z circulant permutations, given as
+base edges ``(check_block, var_block, shift)``: variable ``vb*z + k`` meets
+check ``cb*z + ((k + shift) % z)``.  The decode state keeps the JAX
+package's layouts (frames last): totals ``[nb_v, z, B]``, messages
+``[nb_c, dc, z, B]``.  Each BP iteration gathers the totals into the message
+layout, runs the fused check phase (ops/kernels.bp_check_phase_qc: the CUDA
+kernel on the card, its plain version on the CPU) and sums the new messages
+back per variable in a fixed order.
+
+Same flooding schedule and (success, iters, final) semantics as
+``qamreconciliation_tpu.models.qc_decoder.QCDecoder``'s dense path; min-sum
+is bit-identical to it, sum-product agrees to float rounding.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import DEFAULT_DTYPE, as_dtype, not_ported
+from ..ops.boxplus import BIG, MINSUM_ALPHA
+from ..ops.kernels import bp_check_phase_qc
+
+__all__ = ["QCDecoder", "make_qc_ldpc", "save_qc_csv", "load_qc_csv"]
+
+
+def make_qc_ldpc(nb_v: int, z: int, dv: int = 3, dc: int = 6, seed: int = 0):
+    """Random (dv, dc)-regular quasi-cyclic LDPC code.
+
+    The base graph is a (dv, dc)-regular bipartite configuration model on
+    ``nb_v`` variable blocks and ``nb_v * dv / dc`` check blocks; every base
+    edge carries a uniform circulant shift in [0, z).  N = nb_v * z.
+
+    Returns ``(base_edges, vid, cid)``: the base-edge list
+    ``[(check_block, var_block, shift), ...]`` for :class:`QCDecoder` and the
+    expanded edge list (edge between variable ``vb*z + k`` and check
+    ``cb*z + ((k + shift) % z)`` for every k).
+    """
+    if (nb_v * dv) % dc != 0:
+        raise ValueError("nb_v*dv must be divisible by dc")
+    nb_c = nb_v * dv // dc
+    rng = np.random.default_rng(seed)
+    # configuration model on the base graph, repaired to avoid duplicate
+    # (check_block, var_block, shift) triples (parallel circulants with the
+    # same shift would cancel)
+    vb = np.repeat(np.arange(nb_v), dv)
+    cb = np.repeat(np.arange(nb_c), dc)
+    vb = vb[rng.permutation(vb.size)]
+    shifts = rng.integers(0, z, vb.size)
+    for _ in range(1000):
+        key = (cb.astype(np.int64) * nb_v + vb) * z + shifts
+        _, first = np.unique(key, return_index=True)
+        dup = np.ones(key.size, bool)
+        dup[first] = False
+        if not dup.any():
+            break
+        shifts[dup] = rng.integers(0, z, int(dup.sum()))
+    else:
+        raise RuntimeError(
+            "could not avoid duplicate circulants (parallel base edges with "
+            "equal shifts cancel mod 2); increase z or reduce dv/dc"
+        )
+    base_edges = [(int(c), int(v), int(s)) for c, v, s in zip(cb, vb, shifts)]
+    vid, cid = _expand(base_edges, z)
+    return base_edges, vid, cid
+
+
+def _expand(base_edges, z: int):
+    """Expanded ``(vid, cid)`` edge list of a base-edge list."""
+    k = np.arange(z)
+    vid = np.concatenate([v * z + k for (_, v, _) in base_edges])
+    cid = np.concatenate([c * z + (k + s) % z for (c, _, s) in base_edges])
+    return vid, cid
+
+
+def save_qc_csv(path: str, base_edges, z: int):
+    """Write a QC base-edge CSV: header ``eid,cb,vb,shift``, first data row
+    carries the totals ``(n_base_edges, z, nb_c, 0)``."""
+    nb_c = max(c for c, _, _ in base_edges) + 1
+    lines = ["eid,cb,vb,shift", f"{len(base_edges)},{z},{nb_c},0"]
+    lines.extend(
+        f"{i},{c},{v},{s}" for i, (c, v, s) in enumerate(base_edges)
+    )
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def load_qc_csv(path: str):
+    """Load a QC base-edge CSV -> ``(base_edges, z)``."""
+    data = np.loadtxt(path, delimiter=",", skiprows=1, dtype=np.int64, ndmin=2)
+    declared_e, z = int(data[0, 0]), int(data[0, 1])
+    rows = data[1:]
+    if rows.shape[0] != declared_e:
+        raise ValueError(
+            f"QC file declares {declared_e} base edges but contains "
+            f"{rows.shape[0]}"
+        )
+    base_edges = [(int(c), int(v), int(s)) for _, c, v, s in rows]
+    return base_edges, z
+
+
+class QCDecoder:
+    """Dense flooding BP syndrome decoder over a quasi-cyclic graph.
+
+    Args:
+      base_edges: ``[(check_block, var_block, shift), ...]``.  Check-block
+        degrees may differ: short rows pad to the max degree with a +1e30
+        sentinel slab, the neutral element of every magnitude rule.
+        Parallel circulants (two base edges in one (cb, vb) cell with
+        different shifts) are supported.
+      z: circulant size.
+      dtype: message dtype: float32, bfloat16 or float64 (float64 runs on
+        the CPU only).
+      device: where the decode state lives.
+      check_rule: "sumproduct" or "minsum" (normalized/offset min-sum).
+      check_phi: sum-product magnitude form, "phi" or "tanhfb".
+      minsum_alpha, minsum_beta: min-sum magnitude ``max(alpha*m - beta, 0)``
+        (alpha defaults to 13/16).
+      totals_dtype: "storage" (totals in the message dtype) or "float32"
+        (f32 totals over narrower messages).
+      schedule, resident, compressed, sr_messages: the JAX decoder's other
+        paths; only their defaults are ported.
+    """
+
+    def __init__(self, base_edges, z: int, dtype=DEFAULT_DTYPE, *,
+                 device="cuda",
+                 check_rule: str = "sumproduct",
+                 check_phi: str = "phi",
+                 minsum_alpha: float | None = None,
+                 minsum_beta: float = 0.0,
+                 totals_dtype: str = "storage",
+                 schedule: str = "flooding",
+                 resident: bool | None = None,
+                 compressed: bool | None = None,
+                 sr_messages: bool = False):
+        self.z = int(z)
+        self.dtype = as_dtype(dtype)
+        self.device = torch.device(device)
+        if check_rule not in ("sumproduct", "minsum"):
+            raise ValueError(f"unknown check_rule {check_rule!r}")
+        self.check_rule = check_rule
+        if schedule not in ("flooding", "layered"):
+            raise ValueError(f"unknown schedule {schedule!r}")
+        if schedule == "layered":
+            raise not_ported("schedule='layered'", "8 (layered schedule)")
+        if resident:
+            raise not_ported("resident=True",
+                             "7 (resident flooding decoder)")
+        if compressed:
+            raise not_ported("compressed=True",
+                             "15 (compressed-state min-sum)")
+        if sr_messages:
+            raise not_ported("sr_messages=True", "15 (sr_messages)")
+        if totals_dtype not in ("storage", "float32"):
+            raise ValueError(f"unknown totals_dtype {totals_dtype!r}")
+        self.totals_dtype = totals_dtype
+        if check_phi not in ("phi", "tanhfb"):
+            raise ValueError(f"unknown check_phi {check_phi!r}")
+        self.check_phi = check_phi
+        self.minsum_alpha = float(
+            MINSUM_ALPHA if minsum_alpha is None else minsum_alpha
+        )
+        self.minsum_beta = float(minsum_beta)
+        if self.minsum_beta < 0:
+            raise ValueError("minsum_beta must be >= 0")
+
+        self.base_edges = [(int(c), int(v), int(s)) for c, v, s in base_edges]
+        self.nb_c = max(c for c, _, _ in self.base_edges) + 1
+        self.nb_v = max(v for _, v, _ in self.base_edges) + 1
+        self.vnum = self.nb_v * self.z
+        self.cnum = self.nb_c * self.z
+
+        self._rows = [[] for _ in range(self.nb_c)]
+        for c, v, s in self.base_edges:
+            self._rows[c].append((v, s))
+        self.row_degrees = [len(r) for r in self._rows]
+        if min(self.row_degrees) < 1:
+            raise ValueError("empty check block (gap in check-block ids)")
+        self.dc = max(self.row_degrees)
+        if self.check_rule == "minsum" and min(self.row_degrees) < 2:
+            raise ValueError(
+                "check_rule='minsum' requires check-block degree >= 2 "
+                "(degree-1 checks have no finite min-sum extrinsic)"
+            )
+        self.rule = (
+            "tanhfb"
+            if check_rule == "sumproduct" and check_phi == "tanhfb"
+            else check_rule
+        )
+        # accumulation dtypes: totals (and the gathered t) ride acc_dtype;
+        # the per-variable message sums run in at least f32, rounded once
+        f64 = self.dtype == torch.float64
+        self.acc_dtype = (
+            torch.float32 if totals_dtype == "float32" and not f64
+            else self.dtype
+        )
+        self.sum_dtype = torch.float64 if f64 else torch.float32
+        self.vid, self.cid = _expand(self.base_edges, self.z)
+        self._build_indices()
+        # the fused check phase; a test may put the plain version
+        # (ops/kernels.bp_check_phase_qc_ref) here to run it on the card
+        self.check_phase = bp_check_phase_qc
+        # BP loop iterations (check-phase calls) run by this decoder
+        self.iterations_run = 0
+
+    def _build_indices(self):
+        """Host-built gather indices, moved to the device once.
+
+        Gather: ``t[cb, d, j] = total[vb, (j - s) % z]`` over the flattened
+        totals, padded slots pointing at one appended sentinel row.
+        Scatter: for each variable block its incoming messages
+        ``c2v[cb, d, (k + s) % z]`` in (cb ascending, slot ascending) order,
+        variable blocks grouped by degree so every group stacks
+        rectangularly.
+        """
+        z, dc = self.z, self.dc
+        j = np.arange(z)
+        gidx = np.full((self.nb_c, dc, z), self.vnum, np.int64)
+        incoming = [[] for _ in range(self.nb_v)]
+        for cb, row in enumerate(self._rows):
+            for d, (v, s) in enumerate(row):
+                gidx[cb, d] = v * z + (j - s) % z
+                incoming[v].append((cb * dc + d) * z + (j + s) % z)
+        dev = self.device
+        self._gather_idx = torch.as_tensor(gidx.reshape(-1), device=dev)
+        by_deg = {}
+        for v, parts in enumerate(incoming):
+            if parts:
+                by_deg.setdefault(len(parts), []).append(v)
+        self._scatter_groups = [
+            (torch.as_tensor(vbs, device=dev),
+             torch.as_tensor(np.stack([np.stack(incoming[v]) for v in vbs])
+                             .reshape(-1), device=dev),
+             deg)
+            for deg, vbs in sorted(by_deg.items())
+        ]
+        self._full_cover = (
+            len(self._scatter_groups) == 1
+            and len(self._scatter_groups[0][0]) == self.nb_v
+        )
+
+    def _gather(self, total, pad_value):
+        """[nb_v, z, B] -> [nb_c, dc, z, B] by the circulant index, padded
+        slots filled with ``pad_value``."""
+        B = total.shape[-1]
+        flat = torch.cat([
+            total.reshape(self.vnum, B),
+            torch.full((1, B), pad_value, dtype=total.dtype,
+                       device=total.device),
+        ])
+        return flat.index_select(0, self._gather_idx).view(
+            self.nb_c, self.dc, self.z, B
+        )
+
+    def gather_totals(self, total):
+        """total [nb_v, z, B] -> t [nb_c, dc, z, B]; padded slots of short
+        rows hold the +1e30 sentinel."""
+        return self._gather(total, BIG)
+
+    def scatter_partials(self, c2v):
+        """c2v [nb_c, dc, z, B] -> per-variable sums [nb_v, z, B] in
+        ``sum_dtype``: a left fold over each variable's messages in
+        (cb, slot) order.  No atomics, so the sum is deterministic."""
+        B = c2v.shape[-1]
+        flat = c2v.reshape(-1, B)
+        acc = None
+        for vbs, idx, deg in self._scatter_groups:
+            g = flat.index_select(0, idx).view(len(vbs), deg, self.z, B)
+            g = g.to(self.sum_dtype)
+            s = g[:, 0]
+            for i in range(1, deg):
+                s = s + g[:, i]
+            if self._full_cover:
+                return s
+            if acc is None:
+                acc = torch.zeros((self.nb_v, self.z, B),
+                                  dtype=self.sum_dtype, device=c2v.device)
+            acc.index_copy_(0, vbs, s)
+        return acc
+
+    def syndrome_from_bits(self, bits):
+        """Syndrome via the circulant index: [V, B] int (0/1) -> [C, B]
+        int32 (XOR parity of each check's variables)."""
+        w = bits.to(torch.int32).reshape(self.nb_v, self.z, -1)
+        t = self._gather(w, 0)
+        return (torch.sum(t, dim=1, dtype=torch.int32) & 1).reshape(
+            self.cnum, -1
+        )
+
+    def _consistent(self, t, synd):
+        """[B] bool: every check's hard-decision parity equals synd."""
+        parity = torch.sum((t < 0).to(torch.int32), dim=1) & 1
+        return torch.all((parity == synd).reshape(-1, t.shape[-1]), dim=0)
+
+    def decode_batched(self, prior_vb, synd_cb, max_iterations: int):
+        """prior [V, B], synd [C, B] -> (success [B], iters [B] int32,
+        final [V, B]), on the decoder's device.
+
+        Flooding BP until every frame's hard decision satisfies its
+        syndrome or ``max_iterations`` iterations ran.  A frame's ``iters``
+        is the 0-based iteration at which it first satisfied its syndrome;
+        ``final`` holds its totals from that moment.  Failed frames report
+        ``max_iterations`` and their last totals.
+        """
+        z, B = self.z, prior_vb.shape[1]
+        max_iterations = int(max_iterations)
+        prior = prior_vb.to(self.device, self.dtype).to(self.acc_dtype) \
+            .reshape(self.nb_v, z, B)
+        synd = synd_cb.to(self.device, torch.int32).reshape(
+            self.nb_c, z, B).contiguous()
+
+        c2v = torch.zeros((self.nb_c, self.dc, z, B), dtype=self.dtype,
+                          device=self.device)
+        total = prior
+        final = prior
+        done = torch.zeros(B, dtype=torch.bool, device=self.device)
+        iters = torch.zeros(B, dtype=torch.int32, device=self.device)
+        it = 0
+        all_done = False
+        while it < max_iterations and not all_done:
+            t = self.gather_totals(total)
+            c2v, viol = self.check_phase(
+                t, c2v, synd, rule=self.rule, ms_alpha=self.minsum_alpha,
+                ms_beta=self.minsum_beta,
+            )
+            conv = viol.sum(0) == 0
+            newly = conv & ~done
+            iters = torch.where(newly, it, iters)
+            done = done | conv
+            # one host read per iteration: skip the snapshot when no frame
+            # newly converged, stop when all have
+            any_new, all_done = torch.stack(
+                [newly.any(), done.all()]
+            ).tolist()
+            if any_new:
+                final = torch.where(newly, total, final)
+            total = (
+                prior.to(self.sum_dtype) + self.scatter_partials(c2v)
+            ).to(self.acc_dtype)
+            it += 1
+            self.iterations_run += 1
+
+        conv = self._consistent(self.gather_totals(total), synd)
+        newly = conv & ~done
+        iters = torch.where(newly, min(it, max_iterations), iters)
+        final = torch.where(newly, total, final)
+        done = done | conv
+        iters = torch.where(done, iters, max_iterations)
+        final = torch.where(done, final, total)
+        return done, iters, final.reshape(self.vnum, B)
+
+    def _build_decode(self):
+        """The [V, B] decode entry the engine calls."""
+        return self.decode_batched
+
+    def decode_batch(self, lappr, synd, max_iterations: int):
+        """lappr [B, V], synd [B, C] -> (success [B], iters [B], final [B, V])."""
+        lappr, synd = torch.as_tensor(lappr), torch.as_tensor(synd)
+        success, iters, total = self.decode_batched(
+            lappr.to(self.device, self.dtype).T, synd.to(self.device).T,
+            max_iterations,
+        )
+        return success, iters, total.T

@@ -1,0 +1,124 @@
+"""Belief-propagation message math on tensors (check-node magnitudes).
+
+Box-plus over a set S, excluding element e, in the sign/phi decomposition:
+
+    magnitude:  phi( sum_{s in S} phi(|m_s|) - phi(|m_e|) )
+    sign:       (-1)^(parity(S) - neg_e)
+
+with ``phi(x) = -log(tanh(x/2))``, a self-inverse involution.  The tanh
+forward/backward form and normalized/offset min-sum are the two other
+magnitude rules.  Each function keeps the JAX package's operation order, so
+min-sum is bit-identical to it and the sum-product forms agree to float
+rounding.
+"""
+
+import math
+
+import torch
+
+__all__ = [
+    "MINSUM_ALPHA",
+    "minsum_mag",
+    "phi_llr",
+    "minsum_extrinsic_mag",
+    "tanhfb_extrinsic_mag",
+    "fb_allbutone_list",
+]
+
+# Normalized min-sum scale (13/16); exactly representable in bf16/f32.
+MINSUM_ALPHA = 0.8125
+
+# Magnitude of the padded-slot sentinel (never wins a min; tanh -> 1).
+BIG = 1e30
+
+# tanh-F/B output of a degree-1 check (empty product, u = 1), in float64.
+TANHFB_SAT = math.log1p(1.0 - 6e-8) - math.log1p(-(1.0 - 6e-8))
+
+
+def minsum_mag(m, alpha: float, beta: float):
+    """Normalized/offset min-sum magnitude: ``max(alpha*m - beta, 0)``.
+
+    alpha=13/16, beta=0 is the normalized default; alpha=1 with beta>0 is
+    classic offset min-sum.  beta=0 is a bare multiply.
+    """
+    scaled = alpha * m
+    if beta:
+        return torch.clamp_min(scaled - beta, 0.0)
+    return scaled
+
+
+def phi_llr(x, tiny: float = 1e-30):
+    """phi(x) = -log(tanh(x/2)) for x > 0, numerically stable, self-inverse.
+
+    Inputs are clamped to ``[tiny, inf)``, which bounds outputs at
+    ``phi(tiny)`` (~69 for tiny=1e-30).  Two regimes for full relative
+    accuracy: below 10, -log(tanh(x/2)); from 10 up,
+    ``log1p(e^-x) - log1p(-e^-x)`` (no cancellation).
+    """
+    x = torch.clamp_min(x, tiny)
+    ex = torch.exp(-torch.clamp_min(x, 10.0))
+    big = torch.log1p(ex) - torch.log1p(-ex)
+    small = -torch.log(torch.tanh(torch.clamp_max(x, 10.0) / 2.0))
+    return torch.where(x < 10.0, small, big)
+
+
+def minsum_extrinsic_mag(absm, axis: int):
+    """Per-slot min over the OTHER slots of ``axis`` (exact, tie-correct).
+
+    The unique argmin slot sees the second-smallest value; every other slot
+    (including every slot of a tied minimum) sees the minimum.  Padded slots
+    carry a large sentinel and never win the min.
+    """
+    big = torch.tensor(BIG, dtype=absm.dtype, device=absm.device)
+    min1 = torch.amin(absm, dim=axis, keepdim=True)
+    is_min = absm == min1
+    cnt = torch.sum(is_min, dim=axis, keepdim=True)
+    min2 = torch.amin(torch.where(is_min, big, absm), dim=axis, keepdim=True)
+    return torch.where(is_min & (cnt == 1), min2, min1)
+
+
+def tanhfb_extrinsic_mag(absm, axis: int):
+    """Exact sum-product all-but-one magnitude via tanh forward/backward
+    products: ``mag_i = 2 artanh(prod_{j!=i} tanh(absm_j / 2))``.
+
+    With e_j = exp(-x_j), u_i = P_i/Q_i for P_i = prod_{j!=i}(1-e_j) and
+    Q_i = prod_{j!=i}(1+e_j), and 2 artanh(u_i) = log((Q_i+P_i)/(Q_i-P_i)).
+    The (Q-P) floor saturates the output near -log(6e-8) ~= 16.6.  Padded
+    slots carry a large sentinel, so tanh -> 1 is the neutral element.
+    """
+    x = torch.movedim(absm, axis, 0)
+    dc = x.shape[0]
+    if dc == 1:
+        # empty all-but-one product: the neutral element u = 1, saturated
+        return torch.movedim(torch.full_like(x, TANHFB_SAT), 0, axis)
+    e = torch.exp(-x)
+    pm = [1.0 - e[d] for d in range(dc)]
+    qm = [1.0 + e[d] for d in range(dc)]
+    P = torch.stack(fb_allbutone_list(pm)[0])
+    Q = torch.stack(fb_allbutone_list(qm)[0])
+    mag = torch.log((Q + P) / torch.maximum(Q - P, 6e-8 * Q))
+    return torch.movedim(mag, 0, axis)
+
+
+def fb_allbutone_list(terms):
+    """All-but-one products of a list of same-shape tensors via serial
+    forward/backward prefix chains (the P/Q product order every tanh-F/B
+    path shares).
+
+    Returns ``(allbutone, full)``: ``allbutone[i] = prod_{j != i} terms[j]``
+    (length-1 input gives the neutral ``[ones]``) and
+    ``full = prod_j terms[j]``.
+    """
+    n = len(terms)
+    if n == 1:
+        return [torch.ones_like(terms[0])], terms[0]
+    F = [terms[0]]
+    for d in range(1, n):
+        F.append(F[-1] * terms[d])
+    Bk = [terms[n - 1]]
+    for d in range(n - 2, -1, -1):
+        Bk.append(Bk[-1] * terms[d])
+    Bk = Bk[::-1]
+    out = [Bk[1]] + [F[d - 1] * Bk[d + 1] for d in range(1, n - 1)] \
+        + [F[n - 2]]
+    return out, F[n - 1]

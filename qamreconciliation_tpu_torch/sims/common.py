@@ -1,0 +1,138 @@
+"""Shared CLI plumbing for the sweep CLIs."""
+
+from __future__ import annotations
+
+import argparse
+
+from ..config import as_dtype, not_ported
+
+__all__ = ["add_engine_args", "add_qc_arg", "engine_kwargs", "load_decoder"]
+
+
+def add_engine_args(parser: argparse.ArgumentParser):
+    """Engine flags shared by the sweep CLIs."""
+    parser.add_argument(
+        "--device", default="cuda",
+        help="Torch device of the decode state and every round (default "
+        "cuda; 'cpu' runs the kernels' plain versions)",
+    )
+    parser.add_argument(
+        "--batch", type=int, default=128,
+        help="Frames per round",
+    )
+    parser.add_argument(
+        "--dtype", choices=["float32", "float64", "bfloat16"], default="float32",
+        help="LLR/message dtype (float64 runs on the CPU only)",
+    )
+    parser.add_argument(
+        "--devices", type=int, default=1,
+        help="Shard each round over this many devices (not ported yet)",
+    )
+    parser.add_argument(
+        "--llr-exact", action="store_true",
+        help="Use the exact Newton g^-1 in LLR generation (not ported yet)",
+    )
+    parser.add_argument(
+        "--llr-mode", choices=["poly", "table", "interp", "search"],
+        default=None,
+        help="Softening LLR path: 'poly' (piecewise-Chebyshev fit of the "
+        "LLR curves, default) or 'table' (precomputed (n,j)->LLR map); "
+        "'interp' and 'search' are not ported yet.  Overrides --llr-exact.",
+    )
+    parser.add_argument(
+        "--fy-mode", choices=["erf", "erf_flat", "poly"], default="erf",
+        help="Marginal-CDF implementation for the softening metric: 'erf' "
+        "(exact mixture, default); the others are not ported yet",
+    )
+    parser.add_argument(
+        "--check-rule", choices=["sumproduct", "minsum"],
+        default="sumproduct",
+        help="Check-node update rule: 'sumproduct' or 'minsum' (normalized "
+        "min-sum, alpha=13/16)",
+    )
+    parser.add_argument(
+        "--minsum-alpha", type=float, default=None,
+        help="Min-sum normalization scale (default 13/16); "
+        "mag = max(alpha*min - beta, 0)",
+    )
+    parser.add_argument(
+        "--minsum-beta", type=float, default=0.0,
+        help="Min-sum offset correction (default 0)",
+    )
+    parser.add_argument(
+        "--check-phi", choices=["phi", "tanhfb"], default="phi",
+        help="Sum-product magnitude form: 'phi' (default) or 'tanhfb' "
+        "(tanh forward/backward products; saturates near 16.6)",
+    )
+    parser.add_argument("--seed", type=int, default=0, help="Sweep PRNG seed")
+    parser.add_argument(
+        "--resume", action="store_true",
+        help="Resume a partially completed sweep from the .partial.jsonl journal",
+    )
+
+
+def engine_kwargs(args):
+    if args.devices > 1:
+        raise not_ported("--devices > 1", "14 (multi-GPU)")
+    llr_mode = args.llr_mode or ("search" if args.llr_exact else "poly")
+    return dict(
+        batch=args.batch,
+        dtype=as_dtype(args.dtype),
+        llr_mode=llr_mode,
+        fy_mode=args.fy_mode,
+    )
+
+
+def add_qc_arg(parser: argparse.ArgumentParser):
+    """Decoder-selection flags."""
+    parser.add_argument(
+        "--qc", action="store_true",
+        help="Treat EDGEFILE as a quasi-cyclic base-edge CSV "
+        "(eid,cb,vb,shift with a (n_edges,z,nb_c) totals row) and decode "
+        "with the QCDecoder",
+    )
+    parser.add_argument(
+        "--schedule", choices=["flooding", "layered"], default="flooding",
+        help="BP update schedule; only 'flooding' is ported yet",
+    )
+    parser.add_argument(
+        "--resident", action="store_true",
+        help="Multi-iteration resident decode kernel (not ported yet)",
+    )
+    parser.add_argument(
+        "--totals-dtype", choices=["storage", "float32"], default="storage",
+        help="Dtype of the running LLR totals: 'storage' keeps them in "
+        "--dtype; 'float32' keeps f32 totals over narrower messages",
+    )
+    parser.add_argument(
+        "--sr-messages", action="store_true",
+        help="Stochastically rounded bf16 messages (not ported yet)",
+    )
+    parser.add_argument(
+        "--lift-qc", action="store_true",
+        help="Detect circulant structure in an expanded edge list (not "
+        "ported yet)",
+    )
+
+
+def load_decoder(args):
+    """Build the decoder named by ``args.edgefile`` (``--qc`` only).
+
+    Returns ``(dec, vid, cid)`` with the expanded edge list.
+    """
+    if not getattr(args, "qc", False):
+        item = ("10 (generic decoder and matrix)"
+                if not getattr(args, "lift_qc", False)
+                else "3 (QC dense flooding decoder: detect_qc / --lift-qc)")
+        raise not_ported("a code without --qc", item)
+    from ..models.qc_decoder import QCDecoder, load_qc_csv
+
+    base_edges, z = load_qc_csv(args.edgefile)
+    dec = QCDecoder(
+        base_edges, z, dtype=as_dtype(args.dtype), device=args.device,
+        check_rule=args.check_rule, check_phi=args.check_phi,
+        minsum_alpha=args.minsum_alpha, minsum_beta=args.minsum_beta,
+        totals_dtype=args.totals_dtype, schedule=args.schedule,
+        resident=args.resident, sr_messages=args.sr_messages,
+    )
+    return dec, dec.vid, dec.cid

@@ -1,0 +1,251 @@
+"""Monte-Carlo reconciliation sweep engine, batched (soft reverse path).
+
+Each round processes a batch of ``B`` frames in the decoder's layouts
+(samples ``[S, B]``, bits and LLRs ``[N, B]``): symbol sampling and AWGN,
+Bob's hard decision and softening metric, the Gray-bit word and its
+syndrome, Alice's softening LLRs, the syndrome BP decode and four exact
+integer counters.  After each round the host applies the batch-granular
+early-exit rule ``frame_errors >= ferr_count_min and frames > simloops/20``.
+Randomness comes from one ``torch.Generator`` per (seed, round).
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..config import DEFAULT_DTYPE, as_dtype, not_ported
+from ..models.alphabet import PAMAlphabet
+from ..models.matrix import Matrix
+from ..models.noisemapper import NoiseMapper
+
+__all__ = ["ReconciliationEngine", "PointResult", "round_generator"]
+
+
+@dataclass
+class PointResult:
+    """Per-SNR-point result (CSV columns ``EsN0dB,ber,fer,iters``)."""
+
+    snr_dB: float
+    ber: float
+    fer: float
+    iters: float
+    frames: int = 0
+    frames_per_s: float = 0.0
+    bp_iterations: int = 0
+
+    def as_tuple(self):
+        return (self.snr_dB, self.ber, self.fer, self.iters)
+
+
+def round_generator(seed: int, r: int, device) -> torch.Generator:
+    """The generator of round ``r`` of a sweep seeded ``seed``."""
+    state = np.random.SeedSequence([int(seed), int(r)]).generate_state(
+        1, np.uint64
+    )[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
+class ReconciliationEngine:
+    """Batched Monte-Carlo engine bound to (code, alphabet).
+
+    Args:
+      dec: QC decoder (its ``device`` is the engine's device).
+      mat: parity matrix (sizes).
+      pa: alphabet.
+      batch: frames per round.
+      dtype: LLR/sample dtype.
+      llr_mode: "poly" (piecewise-Chebyshev LLR fit, default) or "table"
+        (tabulated (n, j) -> LLR map + lerp).
+      fy_mode: marginal-CDF form of the softening metric ("erf").
+    """
+
+    def __init__(self, dec, mat: Matrix, pa: PAMAlphabet, batch: int = 128,
+                 dtype=DEFAULT_DTYPE, llr_mode: str = "poly",
+                 fy_mode: str = "erf"):
+        if mat.vnum % pa.bit_per_symbol != 0:
+            raise ValueError(
+                f"code length {mat.vnum} not divisible by bits/symbol "
+                f"{pa.bit_per_symbol}"
+            )
+        if llr_mode not in ("poly", "table"):
+            raise not_ported(f"llr_mode={llr_mode!r}",
+                             "12 (rest of NoiseMapper)")
+        if fy_mode != "erf":
+            raise not_ported(f"fy_mode={fy_mode!r}",
+                             "12 (rest of NoiseMapper)")
+        self.dec = dec
+        self.mat = mat
+        self.pa = pa
+        self.device = dec.device
+        self.batch = int(batch)
+        self.dtype = as_dtype(dtype)
+        self.llr_mode = llr_mode
+        self.fy_mode = fy_mode
+        self.N = mat.vnum
+        self.K = mat.vnum - mat.cnum
+        self.N_symb = mat.vnum // pa.bit_per_symbol
+        if self.batch * self.K >= 2 ** 31:
+            raise ValueError(
+                "batch * K must stay below 2^31 (int32 bit-error counts)"
+            )
+        self.frames_per_round = self.batch
+        self._s2b = torch.as_tensor(pa.s_to_b.astype(np.int32),
+                                    device=self.device)
+
+    # -- layout-native helpers: samples live as [S, B], bits/LLRs as [N, B]
+
+    def _bits_nb(self, table_col_fn, idx_sb):
+        """Per-bit columns + leading-axis interleave: [S, B] -> [N, B]."""
+        cols = [table_col_fn(b, idx_sb) for b in range(self.pa.bit_per_symbol)]
+        return torch.stack(cols, dim=1).reshape(self.N, -1)
+
+    def _decode_and_count_nb(self, lappr_nb, word_nb, max_iterations):
+        """[N, B] decode + the four counters as one int64 tensor
+        ``[bit errors, frame errors, iterations of successes, successes]``.
+
+        Bit errors are an exact integer XOR count, never a sum in the LLR
+        dtype (bf16 sums round above ~256)."""
+        synd = self.dec.syndrome_from_bits(word_nb.to(torch.int32))
+        success, iters, final = self.dec._build_decode()(
+            lappr_nb, synd, max_iterations
+        )
+        K = self.K
+        errb = (final[:K] < 0).to(torch.int32) ^ word_nb[:K].to(torch.int32)
+        errors = torch.sum(errb, dim=0)
+        return torch.stack([
+            torch.sum(errors),
+            torch.sum(errors > 0),
+            torch.sum(torch.where(success, iters, 0)),
+            torch.sum(success),
+        ])
+
+    def _sample_sb(self, generator, sigma):
+        """Shaped PAM symbols x [S, B] and their AWGN samples y."""
+        shape = (self.N_symb, self.batch)
+        x = self.pa.random_symbols(generator, shape, self.device)
+        noise = torch.randn(shape, generator=generator, device=self.device,
+                            dtype=self.dtype)
+        sigma = torch.tensor(sigma, dtype=self.dtype)
+        y = self.pa.index_to_value(x, self.dtype) + sigma * noise
+        return x, y
+
+    def _softening_inputs(self, nm, x, y, alpha):
+        """Bob's word [N, B] and Alice's softening LLRs [N, B] from the
+        transmitted symbols x and received samples y ([S, B])."""
+        x_hat = nm.hard_decide_index(y)
+        n_hat = nm.map_noise(y, x_hat)
+        word = self._bits_nb(
+            lambda b, idx: self._s2b[:, b][idx.long()], x_hat
+        )
+        llr_fn = (nm._poly_llr_bits if self.llr_mode == "poly"
+                  else nm._table_llr_bits)
+        llr_bits = llr_fn(n_hat, x)
+        alpha = torch.tensor(alpha, dtype=self.dtype)
+        lappr = alpha * self._bits_nb(lambda b, _: llr_bits[b], x_hat)
+        return lappr, word
+
+    def softening_round(self, nm, sigma, alpha, max_iterations,
+                        generator=None, xy=None):
+        """One softening round -> counters [4].  ``xy=(x, y)`` injects the
+        symbols and samples in place of drawing them from ``generator``."""
+        x, y = xy if xy is not None else self._sample_sb(generator, sigma)
+        lappr, word = self._softening_inputs(nm, x, y, alpha)
+        return self._decode_and_count_nb(lappr, word, max_iterations)
+
+    def make_noisemapper(self, snr_dB: float, nmconfig=None) -> NoiseMapper:
+        """The point's NoiseMapper, its LLR fit or table built."""
+        nm = NoiseMapper(self.pa, self.noise_var(snr_dB), nmconfig,
+                         dtype=self.dtype, device=self.device,
+                         fy_mode=self.fy_mode)
+        if self.llr_mode == "table":
+            nm._ensure_llr_tab()
+        else:
+            nm._ensure_llr_poly()
+        return nm
+
+    def noise_var(self, snr_dB: float) -> float:
+        """N0 at Es/N0 ``snr_dB``: ``N0 = Es * 10^(-snr/10) / 2``."""
+        return self.pa.variance * (10.0 ** (-snr_dB / 10.0)) / 2.0
+
+    # ------------------------------------------------------------------ #
+
+    def run_point(
+        self,
+        mode: str,
+        snr_dB: float,
+        decoder_iterations: int,
+        simulation_loops: int,
+        ferr_count_min: int,
+        alpha: float = 1.0,
+        nmconfig=None,
+        seed: int = 0,
+    ) -> PointResult:
+        """Run one SNR point until the frame budget or the early-exit rule.
+
+        Each round's counters are read after the next round was issued, so
+        the early-exit decision lags one round (the rounds already issued
+        are counted).
+        """
+        if mode != "softening":
+            raise not_ported(f"mode {mode!r}",
+                             "11 (bit channels and the other engine modes)")
+        N0 = self.noise_var(snr_dB)
+        sigma = math.sqrt(N0)
+        nm = self.make_noisemapper(snr_dB, nmconfig)
+
+        err_count = 0
+        frame_error_count = 0
+        decoding_iterations = 0
+        successful_decoding = 0
+        frames = 0
+        n_rounds = max(1, math.ceil(simulation_loops / self.frames_per_round))
+        it0 = self.dec.iterations_run
+
+        def accumulate(out):
+            nonlocal err_count, frame_error_count
+            nonlocal decoding_iterations, successful_decoding, frames
+            errs, ferrs, iters, succ = out.tolist()   # one host read
+            err_count += errs
+            frame_error_count += ferrs
+            decoding_iterations += iters
+            successful_decoding += succ
+            frames += self.frames_per_round
+
+        t0 = time.perf_counter()
+        pending = None
+        for r in range(n_rounds):
+            out = self.softening_round(
+                nm, sigma, alpha, decoder_iterations,
+                generator=round_generator(seed, r, self.device),
+            )
+            if pending is not None:
+                accumulate(pending)
+                if (
+                    frame_error_count >= ferr_count_min
+                    and frames > simulation_loops / 20
+                ):
+                    pending = out
+                    break
+            pending = out
+        if pending is not None:
+            accumulate(pending)
+        elapsed = time.perf_counter() - t0
+
+        return PointResult(
+            snr_dB=snr_dB,
+            ber=err_count / (frames * self.K),
+            fer=frame_error_count / frames,
+            iters=(
+                0.0
+                if successful_decoding == 0
+                else decoding_iterations / successful_decoding
+            ),
+            frames=frames,
+            frames_per_s=frames / elapsed if elapsed > 0 else 0.0,
+            bp_iterations=self.dec.iterations_run - it0,
+        )

@@ -1,0 +1,138 @@
+"""Reconciliation BER/FER sweep CLI (soft reverse reconciliation).
+
+    python -m qamreconciliation_tpu_torch.sims.sim_reconciliation EDGEFILE \
+        --qc [--out out.csv] [--maxiter 50] [--ferr-count-min 100]
+        [--alpha 1.0] [--simloops 5000] [--snr 0 5] [--nsnr 11] [--bps 2]
+        [--configuration-base] [--device cuda] ...
+
+Output CSV: an unnamed index column then ``EsN0dB,ber,fer,iters``.  SNR
+points run sequentially; each point processes a frame batch per round.
+"""
+
+import argparse
+import csv
+
+import numpy as np
+
+from ..config import not_ported
+from ..models.alphabet import PAMAlphabet
+from ..models.matrix import Matrix
+from ..utils.checkpoint import SweepState
+from .common import add_engine_args, add_qc_arg, engine_kwargs, load_decoder
+from .engine import PointResult, ReconciliationEngine
+
+__all__ = ["build_parser", "main", "write_csv"]
+
+
+def build_parser():
+    parser = argparse.ArgumentParser(
+        prog="decode",
+        description="Evaluate BER for LDPC codes vs Raw BER",
+    )
+    parser.add_argument(
+        "edgefile",
+        help="Quasi-cyclic base-edge CSV (with --qc)",
+    )
+    add_qc_arg(parser)
+    parser.add_argument("--out", default="out.csv")
+    parser.add_argument("--maxiter", default=50, type=int,
+                        help="Maximum number of iterations for the decoder")
+    parser.add_argument("--ferr-count-min", default=100, type=int,
+                        help="Minimum number of frame errors for early exit")
+    parser.add_argument("--alpha", type=float, default=1.0,
+                        help="Extra multiplicative coefficient for the LLR")
+    parser.add_argument("--simloops", default=5000, type=int,
+                        help="Number of frames per SNR point")
+    parser.add_argument("--snr", type=float, nargs=2, default=[0, 5],
+                        help="Initial and final SNR [dB] values of the range "
+                        "to evaluate the BER at")
+    parser.add_argument("--nsnr", type=int, default=11,
+                        help="Number of equally spaced SNR [dB] points to "
+                        "evaluate the BER at")
+    parser.add_argument("--bps", type=int, default=2,
+                        help="Bit Per Symbol (=log_2(PAM Order))")
+    parser.add_argument("--hard", action="store_true",
+                        help="Simulate hard reverse reconciliation (not "
+                        "ported yet)")
+    parser.add_argument("--direct", action="store_true",
+                        help="Simulate the soft direct reconciliation (not "
+                        "ported yet)")
+    parser.add_argument("--configuration-base", action="store_true",
+                        help="Instead of the Alternating configuration, use "
+                        "the Base configuration")
+    parser.add_argument("--graph-shard", action="store_true",
+                        help="Partition the Tanner graph over devices (not "
+                        "ported yet)")
+    parser.add_argument("--point-batch", action="store_true",
+                        help="Advance all SNR points per dispatch (not "
+                        "ported yet)")
+    add_engine_args(parser)
+    return parser
+
+
+def write_csv(path: str, rows):
+    """Write ``rows`` of (EsN0dB, ber, fer, iters) with an index column."""
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["", "EsN0dB", "ber", "fer", "iters"])
+        for i, row in enumerate(rows):
+            w.writerow([i, *(float(v) for v in row)])
+
+
+def main(argv=None):
+    """Run the sweep; returns the list of per-point :class:`PointResult`."""
+    args = build_parser().parse_args(argv)
+    for flag, item in (("graph_shard", "14 (multi-GPU)"),
+                       ("point_batch", "5 (run_sweep_batched)"),
+                       ("hard", "11 (the other engine modes)"),
+                       ("direct", "11 (the other engine modes)")):
+        if getattr(args, flag):
+            raise not_ported(f"--{flag.replace('_', '-')}", item)
+    eng_kw = engine_kwargs(args)
+    dec, vid, cid = load_decoder(args)
+    mat = Matrix(vid, cid)
+    pa = PAMAlphabet(args.bps, 2)
+
+    nmconfig = np.zeros(pa.order, dtype=np.uint8)
+    if not args.configuration_base:
+        nmconfig[1::2] = 1  # Alternating configuration
+
+    eng = ReconciliationEngine(dec, mat, pa, **eng_kw)
+    state = SweepState(args.out, resume=args.resume)
+
+    results = []
+    for i, snr in enumerate(np.linspace(args.snr[0], args.snr[1], args.nsnr)):
+        prev = state.done(snr)
+        if prev is not None:
+            results.append(PointResult(
+                prev["point"], prev["ber"], prev["fer"], prev["iters"],
+                frames=prev.get("frames", 0),
+                frames_per_s=prev.get("frames_per_s", 0.0),
+            ))
+            continue
+        r = eng.run_point(
+            "softening",
+            float(snr),
+            args.maxiter,
+            args.simloops,
+            args.ferr_count_min,
+            alpha=args.alpha,
+            nmconfig=nmconfig,
+            seed=args.seed + 1000003 * i,
+        )
+        print(
+            f"[EsN0dB={snr:.3f}] frames={r.frames} ber={r.ber:.3e} "
+            f"fer={r.fer:.3e} iters={r.iters:.2f} "
+            f"({r.frames_per_s:.1f} frames/s)"
+        )
+        state.record(snr, dict(ber=r.ber, fer=r.fer, iters=r.iters,
+                               frames=r.frames, frames_per_s=r.frames_per_s))
+        results.append(r)
+
+    write_csv(args.out, [r.as_tuple() for r in results])
+    state.cleanup()
+    return results
+
+
+if __name__ == "__main__":
+    main()
