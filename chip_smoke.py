@@ -4,18 +4,33 @@
 
 Phases (each must pass, or the script exits non-zero):
   1. environment: torch version, the card, its power limit (nvidia-smi);
-  2. build: the CUDA kernels from qamreconciliation_tpu_torch/csrc with nvcc;
-  3. kernel against its plain PyTorch version on the card, at the headline
-     check-phase shape [90, 6, 360, 128], every rule and dtype pair, plus a
-     case with +1e30 padded slots; CUDA-event times of both;
-  4. decoder: the headline code decoded on the card (kernel) and on the CPU
-     (plain version) from the same softening LLRs;
-  5. main path: the soft reverse-reconciliation sweep CLI on the headline
-     code, counting the kernel's launches.
-The last two lines are the kernels' JSON record and
-{"ok": true, "device": {...}}.  Needs CUDA; exits 2 without it.
+  2. build: the CUDA kernels from qamreconciliation_tpu_torch/csrc with nvcc,
+     one nvcc per source, all started together;
+  3. kernel 1 (bp_check_phase_qc) against its plain PyTorch version on the
+     card, at the headline check-phase shape [90, 6, 360, 128], every rule
+     and dtype pair, plus a case with +1e30 padded slots;
+  4. kernel 2 (bp_decode_rounds_qc) against its plain version: one K = 8
+     step at the headline shape [180, 360, 128] (E = 540) from a mid-decode
+     state, for each rule and dtype pair the decoders use;
+  5. kernel 3 (bp_layered_sweeps_qc) against its plain version: one K = 4
+     step on the headline code and on a z = 360 QC-IRA code (both hold rows
+     with a repeated variable block);
+  6. decoders: the dense headline decode on the card (kernel) against the
+     plain check phase and the CPU; resident min-sum against dense min-sum
+     and resident layered min-sum against the plain serial layered loop,
+     bit for bit;
+  7. main paths, each with every launch count set to 0 just before it and
+     read just after: the dense, resident and resident-layered soft
+     reverse-reconciliation sweep CLIs on the headline code;
+  8. quality watch: the knee FERs of the resident and resident-layered
+     decoders at the JAX package's knee configuration, held to its figures
+     where they are comparable (see phase_knee).
+Kernel and plain times are CUDA-event medians, taken in turns.  The last two
+lines are the kernels' JSON record and {"ok": true, "device": {...}}.  Needs
+CUDA; exits 2 without it.
 """
 
+import concurrent.futures
 import csv
 import json
 import math
@@ -31,9 +46,20 @@ import torch
 
 SHAPE = (90, 6, 360, 128)              # [nb_c, dc, z, B] of the headline code
 CODE = dict(nb_v=180, z=360, dv=3, dc=6, seed=12345)
+# the JAX package's knee configuration (BASELINE.md, docs/img/r5_knee.jsonl):
+# QC(3,6) at z = 1800, 1024 frames at 3.5 dB, maxiter 50, early exit off
+KNEE_CODE = dict(nb_v=36, z=1800, dv=3, dc=6, seed=12345)
+# its FERs (flooding: dense, which the JAX resident decoder equals)
+KNEE_FER = {("flooding", "float32"): 0.4170, ("layered", "float32"): 0.1328,
+            ("flooding", "bfloat16"): 0.5889, ("layered", "bfloat16"): 0.2783}
 ALTERNATING = np.array([0, 1, 0, 1], np.uint8)
-KERNEL_SOURCE = "qamreconciliation_tpu_torch/csrc/bp_check_phase_qc.cu"
-REPLACES = "qamreconciliation_tpu/ops/pallas_kernels.py:158"
+CSRC = "qamreconciliation_tpu_torch/csrc"
+PALLAS = "qamreconciliation_tpu/ops/pallas_kernels.py"
+KERNELS = {
+    "bp_check_phase_qc": f"{PALLAS}:158",
+    "bp_decode_rounds_qc": f"{PALLAS}:580",
+    "bp_layered_sweeps_qc": f"{PALLAS}:1185",
+}
 
 
 def log(msg):
@@ -79,6 +105,71 @@ def time_pair(fn_a, fn_b, reps=20, warmup=3):
     return statistics.median(times[0]), statistics.median(times[1])
 
 
+def reset_counts():
+    from qamreconciliation_tpu_torch.ops import kernels as K
+
+    for name in KERNELS:
+        fn = getattr(K, name)
+        fn.launches = 0
+        if hasattr(fn, "iterations"):
+            fn.iterations = 0
+
+
+def counts():
+    from qamreconciliation_tpu_torch.ops import kernels as K
+
+    return {name: getattr(K, name).launches for name in KERNELS}
+
+
+def record(kernels, name, **kw):
+    kernels.setdefault(name, dict(
+        name=name, route="cuda", source=f"{CSRC}/{name}.cu",
+        replaces=KERNELS[name], launches=None,
+    )).update(kw)
+
+
+def build_all():
+    from qamreconciliation_tpu_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        libs = list(pool.map(cuda_build.build, KERNELS))
+    for name in KERNELS:
+        cuda_build.load_library(name)
+    log(f"[build] {', '.join(lib.name for lib in libs)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def softening_llrs(base, z, groups, seed=7):
+    """Softening LLRs [V, B] and syndromes [C, B] on the card, frames drawn
+    in groups of (snr_dB, frames) so that a batch mixes frames that
+    converge at once, within a few iterations, and not at all."""
+    from qamreconciliation_tpu_torch.models.alphabet import PAMAlphabet
+    from qamreconciliation_tpu_torch.models.matrix import Matrix
+    from qamreconciliation_tpu_torch.models.qc_decoder import QCDecoder
+    from qamreconciliation_tpu_torch.sims.engine import (
+        ReconciliationEngine, round_generator,
+    )
+
+    dec = QCDecoder(base, z, device="cuda")
+    llrs, synds = [], []
+    for i, (snr, frames) in enumerate(groups):
+        eng = ReconciliationEngine(dec, Matrix(dec.vid, dec.cid),
+                                   PAMAlphabet(2, 2.0), batch=frames)
+        nm = eng.make_noisemapper(snr, ALTERNATING)
+        x, y = eng._sample_sb(round_generator(seed, i, "cuda"),
+                              math.sqrt(eng.noise_var(snr)))
+        lappr, word = eng._softening_inputs(nm, x, y, 1.0)
+        llrs.append(lappr)
+        synds.append(dec.syndrome_from_bits(word))
+    return torch.cat(llrs, 1), torch.cat(synds, 1), dec
+
+
+# mixed-SNR frames of the kernel phases: 7 dB converges at once, 4.5 dB
+# within a few iterations, 2.5 dB not at all
+MIXED = ((7.0, 32), (4.5, 64), (2.5, 32))
+
+
 def phase_kernel(kernels):
     from qamreconciliation_tpu_torch.ops.kernels import (
         bp_check_phase_qc, bp_check_phase_qc_ref,
@@ -106,7 +197,7 @@ def phase_kernel(kernels):
             cases.append((rule, kw, td, md, t))
         cases.append((rule, kw, torch.float32, torch.float32, t_irr))
 
-    record = None
+    rec = None
     for rule, kw, td, md, tt in cases:
         args = (tt.to(td).contiguous(), c2v.to(md).contiguous(), synd)
         got, gviol = bp_check_phase_qc(*args, rule=rule, **kw)
@@ -124,17 +215,164 @@ def phase_kernel(kernels):
         irr = " padded" if tt is t_irr else ""
         name = (f"{rule}{'(a=1,b=0.3)' if kw else ''} "
                 f"t={str(td)[6:]} c2v={str(md)[6:]}{irr}")
-        log(f"[kernel] {name:45s} max|diff|={err:.3e} "
-            f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
-        if record is None:           # the headline case: f32 phi
-            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        log(f"[kernel1] {name:45s} max|diff|={err:.3e} bit-equal="
+            f"{torch.equal(got, want)} kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms")
+        if rec is None:              # the headline case: f32 phi
+            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
     bytes_moved = 3 * t.numel() * 4 + synd.numel() * 4
-    log(f"[kernel] headline f32 phi: {bytes_moved / 1e6:.1f} MB moved, "
-        f"{bytes_moved / record['ms'] / 1e6:.1f} GB/s")
-    kernels["bp_check_phase_qc"] = dict(
-        name="bp_check_phase_qc", route="cuda", source=KERNEL_SOURCE,
-        replaces=REPLACES, launches=None, **record,
+    log(f"[kernel1] headline f32 phi: {bytes_moved / 1e6:.1f} MB moved, "
+        f"{bytes_moved / rec['ms'] / 1e6:.1f} GB/s")
+    record(kernels, "bp_check_phase_qc", **rec)
+
+
+def compare_state(got, want, rule, m_dtype, what):
+    """Bit-equality of the integer state and of min-sum; the sum-product
+    state after K steps within rtol/atol 1e-4 (f32) or 2^-6 (bf16 storage):
+    the kernel and its plain version share the operation order and the
+    card's libm, so they are expected bit-equal, and the tolerance only
+    bounds a difference the compiler's code for expf/logf could make.
+    Returns (max |diff| of the float state, bit-equal)."""
+    err, same = 0.0, True
+    for g, w in zip(got, want):
+        if g.dtype == torch.int32:
+            assert torch.equal(g, w), f"{what}: done/iters differ"
+            continue
+        same = same and torch.equal(g, w)
+        g, w = g.float(), w.float()
+        err = max(err, float((g - w).abs().max()))
+        if rule == "minsum":
+            assert torch.equal(g, w), f"{what}: min-sum state not bit-equal"
+        else:
+            tol = 2 ** -6 if m_dtype == torch.bfloat16 else 1e-4
+            assert bool(((g - w).abs() <= tol + tol * w.abs()).all()), \
+                f"{what}: beyond rtol/atol {tol}"
+    return err, same
+
+
+def phase_rounds(kernels):
+    """Kernel 2 at the headline shape from a mid-decode state (5 plain
+    iterations on mixed-SNR softening LLRs), one K = 8 step."""
+    from qamreconciliation_tpu_torch.models.qc_decoder import make_qc_ldpc
+    from qamreconciliation_tpu_torch.ops.kernels import (
+        bp_decode_rounds_qc, bp_decode_rounds_qc_ref,
     )
+
+    base, _, _ = make_qc_ldpc(CODE["nb_v"], CODE["z"], CODE["dv"],
+                              CODE["dc"], seed=CODE["seed"])
+    lappr, synd, dec = softening_llrs(base, CODE["z"], MIXED)
+    tables = dec.tables
+    z, B, K, warm = CODE["z"], lappr.shape[1], 8, 5
+    synd8 = synd.reshape(tables.nb_c, z, B).to(torch.int8).contiguous()
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("minsum", f32, f32), ("minsum", bf16, bf16),
+             ("tanhfb", bf16, bf16), ("sumproduct", f32, f32),
+             ("tanhfb", f32, bf16)]
+    for rule, td, md in cases:
+        prior = lappr.to(md).reshape(tables.nb_v, z, B).contiguous()
+        state = [prior.to(td, copy=True),
+                 torch.zeros((tables.E, z, B), dtype=md, device="cuda"),
+                 prior, synd8,
+                 torch.zeros(B, dtype=torch.int32, device="cuda"),
+                 torch.zeros(B, dtype=torch.int32, device="cuda")]
+        bp_decode_rounds_qc_ref(tables, 0, 50, *state, rule=rule,
+                                k_rounds=warm)
+        done0 = int(state[4].sum())
+        want = [x.clone() for x in state]
+        bp_decode_rounds_qc(tables, warm, 50, *state, rule=rule, k_rounds=K)
+        bp_decode_rounds_qc_ref(tables, warm, 50, *want, rule=rule,
+                                k_rounds=K)
+        torch.cuda.synchronize()
+        done1 = int(want[4].sum())
+        # frozen frames and undecided frames both occur in the step
+        assert 0 < done0 <= done1 < B, (done0, done1)
+        err, same = compare_state(state[:2] + state[4:], want[:2] + want[4:],
+                                  rule, md, f"kernel2 {rule}")
+        scratch = [x.clone() for x in state]
+        ms, plain_ms = time_pair(
+            lambda: bp_decode_rounds_qc(tables, warm, 50, *scratch,
+                                        rule=rule, k_rounds=K),
+            lambda: bp_decode_rounds_qc_ref(tables, warm, 50, *scratch,
+                                            rule=rule, k_rounds=K),
+            reps=10, warmup=2,
+        )
+        ms, plain_ms = ms / K, plain_ms / K
+        name = f"{rule} total={str(td)[6:]} c2v={str(md)[6:]}"
+        log(f"[kernel2] {name:36s} done {done0}->{done1}/{B} "
+            f"max|diff|={err:.3e} bit-equal={same} per iteration: kernel "
+            f"{ms:.4f} ms  plain {plain_ms:.4f} ms")
+        if rule == "tanhfb" and td == md == bf16:     # the headline engine
+            record(kernels, "bp_decode_rounds_qc", max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms)
+
+
+def phase_sweeps(kernels):
+    """Kernel 3, one K = 4 step on the headline code and a z = 360 QC-IRA
+    code, from mixed-SNR softening LLRs after the plain sweeps that leave
+    the first frames done."""
+    from qamreconciliation_tpu_torch.models.qc_decoder import (
+        make_qc_ira, make_qc_ldpc,
+    )
+    from qamreconciliation_tpu_torch.ops.kernels import (
+        bp_layered_sweeps_qc, bp_layered_sweeps_qc_ref,
+    )
+
+    codes = {
+        "headline": make_qc_ldpc(CODE["nb_v"], CODE["z"], CODE["dv"],
+                                 CODE["dc"], seed=CODE["seed"])[0],
+        "ira z=360": make_qc_ira(120, 60, CODE["z"], dv=3, seed=1)[0],
+    }
+    z, K, bf16, f32 = CODE["z"], 4, torch.bfloat16, torch.float32
+    for label, base in codes.items():
+        lappr, synd, dec = softening_llrs(base, z, MIXED)
+        tables = dec.tables
+        B = lappr.shape[1]
+        assert tables.n_defer_slots > 0, "no repeated-variable-block row"
+        log(f"[kernel3] {label}: {tables.nb_c} rows in "
+            f"{len(tables.levels)} levels, dc_max {tables.dc_max}, "
+            f"{tables.n_defer_slots} deferred slots")
+        synd8 = synd.reshape(tables.nb_c, z, B).to(torch.int8).contiguous()
+        for rule, md in (("minsum", f32), ("minsum", bf16),
+                         ("sumproduct", f32), ("tanhfb", bf16)):
+            state = [lappr.float().reshape(tables.nb_v, z, B).contiguous(),
+                     torch.zeros((tables.E, z, B), dtype=md, device="cuda"),
+                     synd8, torch.zeros(B, dtype=torch.int32, device="cuda"),
+                     torch.zeros(B, dtype=torch.int32, device="cuda")]
+            # plain sweeps until the first frames are done (frozen)
+            warm = 0
+            while warm < 6 and (warm == 0 or not bool(state[3].any())):
+                bp_layered_sweeps_qc_ref(tables, warm, 50, *state,
+                                         rule=rule, k_sweeps=1)
+                warm += 1
+            done0 = int(state[3].sum())
+            want = [x.clone() for x in state]
+            bp_layered_sweeps_qc(tables, warm, 50, *state, rule=rule,
+                                 k_sweeps=K)
+            bp_layered_sweeps_qc_ref(tables, warm, 50, *want, rule=rule,
+                                     k_sweeps=K)
+            torch.cuda.synchronize()
+            done1 = int(want[3].sum())
+            if label == "headline":
+                assert 0 < done0 <= done1 < B, (done0, done1)
+            err, same = compare_state(state[:2] + state[3:],
+                                      want[:2] + want[3:], rule, md,
+                                      f"kernel3 {label} {rule}")
+            scratch = [x.clone() for x in state]
+            ms, plain_ms = time_pair(
+                lambda: bp_layered_sweeps_qc(tables, warm, 50, *scratch,
+                                             rule=rule, k_sweeps=K),
+                lambda: bp_layered_sweeps_qc_ref(tables, warm, 50, *scratch,
+                                                 rule=rule, k_sweeps=K),
+                reps=5, warmup=1,
+            )
+            ms, plain_ms = ms / K, plain_ms / K
+            log(f"[kernel3] {label} {rule} c2v={str(md)[6:]:9s} done "
+                f"{done0}->{done1}/{B} max|diff|={err:.3e} bit-equal="
+                f"{same} per sweep: kernel {ms:.4f} ms  plain "
+                f"{plain_ms:.4f} ms")
+            if label == "headline" and rule == "minsum" and md == bf16:
+                record(kernels, "bp_layered_sweeps_qc", max_abs_err=err,
+                       ms=ms, plain_ms=plain_ms)
 
 
 def phase_decoder():
@@ -194,49 +432,179 @@ def phase_decoder():
         rel = float(((fg - fc).abs() / fc.abs().clamp_min(1.0)).max())
         if label == "minsum":
             assert torch.equal(fg, fc), "min-sum totals differ from CPU"
-        log(f"[decoder] {label}: B={B} {snr} dB: {int(sc.sum())}/{B} "
+        log(f"[decoder] dense {label}: B={B} {snr} dB: {int(sc.sum())}/{B} "
             f"decoded, iters {ic.tolist()}; kernel == plain on the card "
             f"(bit-equal); vs CPU max rel total diff {rel:.3e}; "
             f"card kernel {1e3 * (t1 - t0):.1f} ms, card plain "
             f"{1e3 * (t2 - t1):.1f} ms, CPU {1e3 * (t3 - t2):.1f} ms")
 
 
-def phase_main_path(kernels):
+def phase_resident_decoders():
+    """At the headline code, 3.5 dB, B = 128, bf16 min-sum: resident ==
+    dense (kernel 2 against kernel 1) and resident layered == the plain
+    serial layered loop, bit for bit on (success, iters, final)."""
     from qamreconciliation_tpu_torch.models.qc_decoder import (
-        make_qc_ldpc, save_qc_csv,
+        QCDecoder, make_qc_ldpc,
     )
-    from qamreconciliation_tpu_torch.ops.kernels import bp_check_phase_qc
+
+    base, _, _ = make_qc_ldpc(CODE["nb_v"], CODE["z"], CODE["dv"],
+                              CODE["dc"], seed=CODE["seed"])
+    lappr, synd, _ = softening_llrs(base, CODE["z"], ((3.5, 128),), seed=11)
+    kw = dict(dtype="bfloat16", device="cuda", check_rule="minsum")
+    pairs = (
+        ("resident == dense", dict(resident=True, resident_chunk=50),
+         dict()),
+        ("resident layered == serial plain layered",
+         dict(schedule="layered", resident=True),
+         dict(schedule="layered", layered_groups=False)),
+    )
+    for label, kw_a, kw_b in pairs:
+        out, ms = [], []
+        for extra in (kw_a, kw_b):
+            dec = QCDecoder(base, CODE["z"], **kw, **extra)
+            t0 = time.perf_counter()
+            out.append(dec.decode_batched(lappr, synd, 50))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        for a, b in zip(*out):
+            assert torch.equal(a, b), f"{label}: not bit-equal"
+        s, i, _ = out[0]
+        log(f"[decoder] {label} (bf16 min-sum, B=128, 3.5 dB): bit-equal; "
+            f"{int(s.sum())}/128 decoded, mean iters of the decoded "
+            f"{float(i[s].float().mean()) if bool(s.any()) else 0:.2f}; "
+            f"{ms[0]:.1f} ms vs {ms[1]:.1f} ms (first calls)")
+
+
+def run_cli(code_base, z, flags, label):
+    """sim_reconciliation on a saved code with ``flags``; counts reset just
+    before and read just after.  Returns (results, launches)."""
+    from qamreconciliation_tpu_torch.models.qc_decoder import save_qc_csv
+    from qamreconciliation_tpu_torch.ops import kernels as K
     from qamreconciliation_tpu_torch.sims import sim_reconciliation
 
     with tempfile.TemporaryDirectory() as tmp:
         code = os.path.join(tmp, "code.csv")
         out = os.path.join(tmp, "out.csv")
-        base, _, _ = make_qc_ldpc(CODE["nb_v"], CODE["z"], CODE["dv"],
-                                  CODE["dc"], seed=CODE["seed"])
-        save_qc_csv(code, base, CODE["z"])
-        bp_check_phase_qc.launches = 0
-        results = sim_reconciliation.main([
-            code, "--qc", "--snr", "3.5", "4.0", "--nsnr", "2",
-            "--simloops", "512", "--batch", "128", "--maxiter", "50",
-            "--bps", "2", "--device", "cuda", "--out", out,
-        ])
-        launches = bp_check_phase_qc.launches
+        save_qc_csv(code, code_base, z)
+        reset_counts()
+        results = sim_reconciliation.main(
+            [code, "--qc", "--batch", "128", "--maxiter", "50", "--bps",
+             "2", "--device", "cuda", "--out", out, *flags])
+        launches = counts()
+        device_iters = {n: getattr(K, n).iterations for n in
+                        ("bp_decode_rounds_qc", "bp_layered_sweeps_qc")}
         with open(out) as f:
             rows = list(csv.reader(f))
-    iterations = sum(r.bp_iterations for r in results)
+    assert rows[0] == ["", "EsN0dB", "ber", "fer", "iters"]
+    assert len(rows) == 1 + len(results)
     for r in results:
-        log(f"[main] {r.snr_dB} dB: ber={r.ber:.4e} fer={r.fer:.4f} "
+        log(f"[{label}] {r.snr_dB} dB: ber={r.ber:.4e} fer={r.fer:.4f} "
             f"mean iters={r.iters:.2f} frames={r.frames} "
-            f"{r.frames_per_s:.1f} frames/s, {r.bp_iterations} BP iterations")
-    log(f"[main] kernel launches {launches}, BP iterations {iterations}")
-    assert iterations > 0 and launches >= iterations
-    assert rows[0] == ["", "EsN0dB", "ber", "fer", "iters"] and len(rows) == 3
-    for r in results:
-        # the early-exit rule may stop a point after whole rounds
-        assert 0 < r.frames <= 512 and r.frames % 128 == 0
-        assert 0.0 <= r.ber <= 1.0
-    assert results[1].fer <= results[0].fer + 0.05
-    kernels["bp_check_phase_qc"]["launches"] = launches
+            f"{r.frames_per_s:.1f} frames/s, {r.bp_iterations} BP "
+            f"iterations on the device")
+        assert 0 < r.frames and r.frames % 128 == 0
+        assert 0.0 <= r.ber <= 1.0 and 0.0 <= r.fer <= 1.0
+    log(f"[{label}] launches {launches}, device iterations {device_iters}")
+    return results, launches, device_iters
+
+
+def phase_main_paths(kernels):
+    from qamreconciliation_tpu_torch.models.qc_decoder import make_qc_ldpc
+
+    base, _, _ = make_qc_ldpc(CODE["nb_v"], CODE["z"], CODE["dv"],
+                              CODE["dc"], seed=CODE["seed"])
+    z = CODE["z"]
+    # dense f32 sum-product (kernel 1)
+    res, launches, _ = run_cli(base, z, [
+        "--snr", "3.5", "4.0", "--nsnr", "2", "--simloops", "256"], "main dense")
+    iterations = sum(r.bp_iterations for r in res)
+    assert iterations > 0 and launches["bp_check_phase_qc"] == iterations
+    assert res[1].fer <= res[0].fer + 0.05
+    record(kernels, "bp_check_phase_qc",
+           launches=launches["bp_check_phase_qc"])
+    # resident bf16 (kernel 2; tanh-F/B by the auto rule), the JAX
+    # package's headline engine
+    res, launches, dev = run_cli(base, z, [
+        "--resident", "--dtype", "bfloat16", "--snr", "3.5", "4.0",
+        "--nsnr", "2", "--simloops", "512"], "main resident")
+    assert launches["bp_decode_rounds_qc"] > 0
+    assert dev["bp_decode_rounds_qc"] > 0
+    assert dev["bp_decode_rounds_qc"] == sum(r.bp_iterations for r in res)
+    assert launches["bp_check_phase_qc"] == 0
+    assert res[1].fer <= res[0].fer + 0.05
+    record(kernels, "bp_decode_rounds_qc",
+           launches=launches["bp_decode_rounds_qc"])
+    # the cost of chunk-granular early exit: chunk 10 against 50 at 4.0 dB
+    res10, _, _ = run_cli(base, z, [
+        "--resident", "--resident-chunk", "10", "--dtype", "bfloat16",
+        "--snr", "4.0", "4.0", "--nsnr", "1", "--simloops", "512"],
+        "main resident chunk 10")
+    log(f"[main resident] 4.0 dB frames/s: chunk 50 "
+        f"{res[1].frames_per_s:.1f}, chunk 10 {res10[0].frames_per_s:.1f}")
+    # resident layered bf16 min-sum (kernel 3)
+    res, launches, dev = run_cli(base, z, [
+        "--schedule", "layered", "--resident", "--check-rule", "minsum",
+        "--dtype", "bfloat16", "--snr", "3.5", "3.5", "--nsnr", "1",
+        "--simloops", "256"], "main layered")
+    assert launches["bp_layered_sweeps_qc"] > 0
+    assert dev["bp_layered_sweeps_qc"] > 0
+    assert launches["bp_check_phase_qc"] == 0
+    record(kernels, "bp_layered_sweeps_qc",
+           launches=launches["bp_layered_sweeps_qc"])
+
+
+def phase_knee():
+    """Quality watch at the JAX package's knee configuration.
+
+    The JAX figures are 1024-frame estimates like the port's, so a port FER
+    agrees when it lies within 4 standard errors of their difference,
+    4 * sqrt(2 p (1 - p) / 1024).  Held to them: the resident flooding and
+    resident layered CLIs in float32, and the same bf16 decoders fed
+    float32-sampled frames (the decoders' bf16 precision alone).  The bf16
+    CLI runs are printed beside the JAX bf16 figures but not held to them:
+    with --dtype bfloat16 the engine also draws the channel samples in
+    bf16, and that draw sets the FER there (the bf16 sigma alone is 0.017 dB
+    less noise), so the TPU's bf16 figures measure its bf16 sampling, which
+    the card does not reproduce."""
+    from qamreconciliation_tpu_torch.models.alphabet import PAMAlphabet
+    from qamreconciliation_tpu_torch.models.matrix import Matrix
+    from qamreconciliation_tpu_torch.models.qc_decoder import (
+        QCDecoder, make_qc_ldpc,
+    )
+    from qamreconciliation_tpu_torch.sims.engine import ReconciliationEngine
+
+    z = KNEE_CODE["z"]
+    base, vid, cid = make_qc_ldpc(KNEE_CODE["nb_v"], z, KNEE_CODE["dv"],
+                                  KNEE_CODE["dc"], seed=KNEE_CODE["seed"])
+    common = ["--snr", "3.5", "3.5", "--nsnr", "1", "--simloops", "1024",
+              "--ferr-count-min", "1000000000"]
+    schedules = {"flooding": (["--resident"], dict(resident=True,
+                                                    resident_chunk=50)),
+                 "layered": (["--schedule", "layered", "--resident"],
+                             dict(schedule="layered", resident=True))}
+
+    def check(label, key, fer, held=True):
+        p = KNEE_FER[key]
+        bound = 4 * math.sqrt(2 * p * (1 - p) / 1024)
+        log(f"[knee] {label:44s} FER {fer:.4f}  JAX {key[1]} {p} "
+            f"(bound +-{bound:.4f}{'' if held else ', not held'})")
+        if held:
+            assert abs(fer - p) <= bound, (label, fer, p, bound)
+
+    for sched, (flags, kw) in schedules.items():
+        for dtype in ("float32", "bfloat16"):
+            res, _, _ = run_cli(base, z, flags + ["--dtype", dtype] + common,
+                                f"knee {sched} {dtype}")
+            assert res[0].frames == 1024
+            check(f"{sched} CLI --dtype {dtype}", (sched, dtype),
+                  res[0].fer, held=dtype == "float32")
+        dec = QCDecoder(base, z, "bfloat16", device="cuda", **kw)
+        r = ReconciliationEngine(dec, Matrix(vid, cid), PAMAlphabet(2, 2.0),
+                                 batch=128, dtype=torch.float32).run_point(
+            "softening", 3.5, 50, 1024, 10 ** 9, nmconfig=ALTERNATING,
+            seed=0)
+        check(f"{sched} bf16 decoder, float32 samples",
+              (sched, "float32"), r.fer)
 
 
 def main():
@@ -245,7 +613,6 @@ def main():
               "NVIDIA GPU", file=sys.stderr)
         return 2
     import qamreconciliation_tpu_torch  # noqa: F401  (fails outside the repo)
-    from qamreconciliation_tpu_torch.ops import cuda_build
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -256,23 +623,22 @@ def main():
         f"device {torch.cuda.get_device_name(0)}")
     log(smi)
 
-    t0 = time.perf_counter()
-    lib = cuda_build.build("bp_check_phase_qc")
-    cuda_build.load_library("bp_check_phase_qc")
-    log(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s")
-
+    t_all = time.perf_counter()
+    build_all()
     kernels = {}
-    t0 = time.perf_counter()
-    phase_kernel(kernels)
-    log(f"[kernel] phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    phase_decoder()
-    log(f"[decoder] phase {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    phase_main_path(kernels)
-    log(f"[main] phase {time.perf_counter() - t0:.1f} s")
+    for phase, args in ((phase_kernel, (kernels,)),
+                        (phase_rounds, (kernels,)),
+                        (phase_sweeps, (kernels,)),
+                        (phase_decoder, ()),
+                        (phase_resident_decoders, ()),
+                        (phase_main_paths, (kernels,)),
+                        (phase_knee, ())):
+        t0 = time.perf_counter()
+        phase(*args)
+        log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
+    log(f"[total] {time.perf_counter() - t_all:.1f} s")
 
-    print(json.dumps({"kernels": list(kernels.values())}))
+    print(json.dumps({"kernels": [kernels[n] for n in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

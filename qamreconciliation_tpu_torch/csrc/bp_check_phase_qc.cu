@@ -34,40 +34,18 @@
 // block, then added to viol with one integer atomicAdd per (block, frame).
 // Integer atomics are order-free, so the result is deterministic.
 //
-// Numerics: expf/logf/log1pf/tanhf, no fast-math intrinsics; alpha*m - beta
-// uses __fmul_rn/__fsub_rn so the compiler cannot contract it into an FMA.
+// The magnitude rules, loads/stores and the block reduction live in
+// bp_common.cuh, shared with the multi-iteration kernels.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bp_common.cuh"
 
 namespace {
+
+using namespace bp;
 
 constexpr int kBT = 32;    // frames per block (threadIdx.x)
 constexpr int kJT = 8;     // circulant rows per pass (threadIdx.y)
 constexpr int kJLOOP = 8;  // passes per block: a block covers 64 rows
-constexpr int kMaxDc = 32;
-
-enum Rule { kPhi = 0, kTanhFB = 1, kMinSum = 2 };
-enum DType { kF32 = 0, kBF16 = 1 };
-
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// phi(x) = -log(tanh(x/2)), two regimes split at 10 (ops/boxplus.phi_llr).
-__device__ __forceinline__ float phi_llr(float x, float tiny) {
-  x = fmaxf(x, tiny);
-  const float ex = expf(-fmaxf(x, 10.0f));
-  const float big = log1pf(ex) - log1pf(-ex);
-  const float small = -logf(tanhf(fminf(x, 10.0f) / 2.0f));
-  return x < 10.0f ? small : big;
-}
 
 template <typename TT, typename TM, int MAXD>
 __global__ void __launch_bounds__(kBT * kJT)
@@ -102,118 +80,29 @@ check_phase_kernel(const TT* __restrict__ t, const TM* __restrict__ c2v,
       }
       nviol += (tpar != s);
 
-      // all-but-one magnitudes, written over v's magnitude in mag[]
       float mag[MAXD];
-      if (rule == kMinSum) {
-        float m1 = INFINITY;
-#pragma unroll
-        for (int d = 0; d < MAXD; ++d)
-          if (d < dc) m1 = fminf(m1, fabsf(v[d]));
-        int cnt = 0;
-        float m2 = INFINITY;
-#pragma unroll
-        for (int d = 0; d < MAXD; ++d) {
-          if (d < dc) {
-            const bool is_min = fabsf(v[d]) == m1;
-            cnt += is_min;
-            m2 = fminf(m2, is_min ? 1e30f : fabsf(v[d]));
-          }
-        }
-#pragma unroll
-        for (int d = 0; d < MAXD; ++d) {
-          if (d < dc) {
-            const float m = (fabsf(v[d]) == m1 && cnt == 1) ? m2 : m1;
-            float scaled = __fmul_rn(alpha, m);
-            if (beta != 0.0f) scaled = fmaxf(__fsub_rn(scaled, beta), 0.0f);
-            mag[d] = scaled;
-          }
-        }
-      } else if (rule == kTanhFB) {
-        if (dc == 1) {
-          mag[0] = tanh_sat;
-        } else {
-          // P/Q all-but-one products by serial forward/backward chains
-          float pm[MAXD], qm[MAXD], fp[MAXD], fq[MAXD], bp[MAXD], bq[MAXD];
-#pragma unroll
-          for (int d = 0; d < MAXD; ++d) {
-            if (d < dc) {
-              const float e = expf(-fabsf(v[d]));
-              pm[d] = 1.0f - e;
-              qm[d] = 1.0f + e;
-              fp[d] = d == 0 ? pm[0] : fp[d > 0 ? d - 1 : 0] * pm[d];
-              fq[d] = d == 0 ? qm[0] : fq[d > 0 ? d - 1 : 0] * qm[d];
-            }
-          }
-#pragma unroll
-          for (int d = MAXD - 1; d >= 0; --d) {
-            if (d < dc) {
-              const int dn = d + 1 < MAXD ? d + 1 : d;
-              bp[d] = d == dc - 1 ? pm[d] : bp[dn] * pm[d];
-              bq[d] = d == dc - 1 ? qm[d] : bq[dn] * qm[d];
-            }
-          }
-#pragma unroll
-          for (int d = 0; d < MAXD; ++d) {
-            if (d < dc) {
-              const int dp = d > 0 ? d - 1 : 0;
-              const int dn = d + 1 < MAXD ? d + 1 : d;
-              float P, Q;
-              if (d == 0) {
-                P = bp[1 < MAXD ? 1 : 0];
-                Q = bq[1 < MAXD ? 1 : 0];
-              } else if (d == dc - 1) {
-                P = fp[dp];
-                Q = fq[dp];
-              } else {
-                P = fp[dp] * bp[dn];
-                Q = fq[dp] * bq[dn];
-              }
-              mag[d] = logf((Q + P) / fmaxf(Q - P, 6e-8f * Q));
-            }
-          }
-        }
-      } else {
-        float sum = 0.0f;
-#pragma unroll
-        for (int d = 0; d < MAXD; ++d) {
-          if (d < dc) {
-            mag[d] = phi_llr(fabsf(v[d]), tiny);
-            sum += mag[d];
-          }
-        }
-#pragma unroll
-        for (int d = 0; d < MAXD; ++d)
-          if (d < dc) mag[d] = phi_llr(sum - mag[d], tiny);
-      }
+      check_magnitudes<MAXD>(v, dc, rule, tiny, alpha, beta, tanh_sat, mag);
 
       // sign, syndrome prefactor, store in the message dtype
       const float pref = (float)(1 - 2 * s);
 #pragma unroll
       for (int d = 0; d < MAXD; ++d) {
         if (d < dc) {
-          const float sg = (float)(1 - 2 * (vpar ^ (v[d] < 0.0f)));
-          store_f(out + base + d * slot, (sg * pref) * mag[d]);
+          store_f(out + base + d * slot,
+                  signed_message(vpar, v[d], pref, mag[d]));
         }
       }
     }
   }
 
-  __shared__ int red[kJT][kBT];
-  red[threadIdx.y][threadIdx.x] = nviol;
-  __syncthreads();
-  if (threadIdx.y == 0 && b < B) {
-    int sum = 0;
-#pragma unroll
-    for (int y = 0; y < kJT; ++y) sum += red[y][threadIdx.x];
-    if (sum) atomicAdd(viol + (long long)cb * B + b, sum);
-  }
+  add_block_counts<kBT, kJT>(nviol, b, B, viol + (long long)cb * B);
 }
 
 template <typename TT, typename TM>
 void launch_typed(const void* t, const void* c2v, const void* synd, void* out,
                   void* viol, int nb_c, int dc, int z, int B, int rule,
                   float tiny, float alpha, float beta, cudaStream_t stream) {
-  const float tanh_sat = (float)(log1p(1.0 - 6e-8) - log1p(-(1.0 - 6e-8)));
+  const float tanh_sat = tanh_saturation();
   const dim3 block(kBT, kJT);
   const dim3 grid((B + kBT - 1) / kBT, (z + kJT * kJLOOP - 1) / (kJT * kJLOOP),
                   nb_c);

@@ -333,10 +333,19 @@ class NoiseMapper:
 
     def F_Y(self, y):
         """Marginal CDF of Y, probability-weighted (the exact M-component
-        erf mixture; any sample shape)."""
+        erf mixture; any sample shape).
+
+        Evaluated in at least float32, as the JAX package does: its
+        denominator multiplies a float64 numpy scalar, which promotes bf16
+        samples to float32, so a bf16 mapper returns a float32 CDF (and
+        softening metric).  The differences ``y - c`` and the weights
+        ``p / 2`` are still formed in the sample dtype first."""
         y = y.to(self.dtype)
-        z = (y[..., None] - self._c) / (math.sqrt(2.0) * self._sigma_dev)
-        return torch.sum(self._p * 0.5 * (1.0 + torch.erf(z)), dim=-1)
+        wide = torch.float64 if self.dtype == torch.float64 else torch.float32
+        z = (y[..., None] - self._c).to(wide) / (
+            math.sqrt(2.0) * self._sigma_dev.to(wide))
+        return torch.sum((self._p * 0.5).to(wide) * (1.0 + torch.erf(z)),
+                         dim=-1)
 
     def hard_decide_index(self, y_samples):
         """Decision-interval index of each sample: #{interior thresholds

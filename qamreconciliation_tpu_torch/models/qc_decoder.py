@@ -1,17 +1,26 @@
-"""Quasi-cyclic LDPC syndrome decoder: dense flooding BP on tensors.
+"""Quasi-cyclic LDPC syndrome decoder: flooding and layered BP on tensors.
 
 The parity-check matrix is a grid of z x z circulant permutations, given as
 base edges ``(check_block, var_block, shift)``: variable ``vb*z + k`` meets
 check ``cb*z + ((k + shift) % z)``.  The decode state keeps the JAX
 package's layouts (frames last): totals ``[nb_v, z, B]``, messages
-``[nb_c, dc, z, B]``.  Each BP iteration gathers the totals into the message
-layout, runs the fused check phase (ops/kernels.bp_check_phase_qc: the CUDA
-kernel on the card, its plain version on the CPU) and sums the new messages
-back per variable in a fixed order.
+``[nb_c, dc, z, B]`` (dense path) or flat ``[E, z, B]`` (resident and
+layered paths).  Four decode loops, as in
+``qamreconciliation_tpu.models.qc_decoder.QCDecoder``:
 
-Same flooding schedule and (success, iters, final) semantics as
-``qamreconciliation_tpu.models.qc_decoder.QCDecoder``'s dense path; min-sum
-is bit-identical to it, sum-product agrees to float rounding.
+* dense flooding: per iteration the totals are gathered into the message
+  layout, the fused check phase runs (ops/kernels.bp_check_phase_qc) and
+  the new messages are summed back per variable in a fixed order;
+* resident flooding: ``resident_chunk`` iterations per call of
+  ops/kernels.bp_decode_rounds_qc, with one host read per call;
+* layered: serial-C sweeps over the block rows in plain PyTorch, the
+  counterpart of the JAX package's XLA layered loop;
+* resident layered: ``layered_chunk`` sweeps per call of
+  ops/kernels.bp_layered_sweeps_qc.
+
+Each kernel runs on the card and its plain version on the CPU.  Same
+(success, iters, final) semantics as the JAX decoder; min-sum is
+bit-identical to it, sum-product agrees to float rounding.
 """
 
 from __future__ import annotations
@@ -21,9 +30,13 @@ import torch
 
 from ..config import DEFAULT_DTYPE, as_dtype, not_ported
 from ..ops.boxplus import BIG, MINSUM_ALPHA
-from ..ops.kernels import bp_check_phase_qc
+from ..ops.kernels import (
+    QCTables, bp_check_phase_qc, bp_decode_rounds_qc, bp_layered_sweeps_qc,
+    layered_sweep,
+)
 
-__all__ = ["QCDecoder", "make_qc_ldpc", "save_qc_csv", "load_qc_csv"]
+__all__ = ["QCDecoder", "make_qc_ldpc", "make_qc_ira", "color_disjoint_rows",
+           "layered_plan", "save_qc_csv", "load_qc_csv"]
 
 
 def make_qc_ldpc(nb_v: int, z: int, dv: int = 3, dc: int = 6, seed: int = 0):
@@ -67,6 +80,82 @@ def make_qc_ldpc(nb_v: int, z: int, dv: int = 3, dc: int = 6, seed: int = 0):
     return base_edges, vid, cid
 
 
+def make_qc_ira(nb_info: int, nb_acc: int, z: int, dv: int = 3,
+                seed: int = 0):
+    """Irregular QC-IRA code: configuration-model information part plus a
+    circulant staircase accumulator.
+
+    ``nb_info`` information variable blocks of degree ``dv`` (uniform-shift
+    circulants onto random check blocks, duplicate-repaired like
+    :func:`make_qc_ldpc`) and ``nb_acc`` parity blocks: check block i
+    carries ``I + P^1`` on parity block i (two base edges in one cell,
+    shifts {0, 1}) and ``I`` on parity block i-1.  Check-block degrees are
+    irregular.  Returns ``(base_edges, vid, cid)`` as :func:`make_qc_ldpc`.
+    """
+    if nb_acc < 2:
+        raise ValueError("need nb_acc >= 2 for a staircase accumulator")
+    rng = np.random.default_rng(seed)
+    vb = np.repeat(np.arange(nb_info), dv)
+    vb = vb[rng.permutation(vb.size)]
+    cb = rng.integers(0, nb_acc, vb.size)
+    shifts = rng.integers(0, z, vb.size)
+    for _ in range(1000):
+        key = (cb.astype(np.int64) * nb_info + vb) * z + shifts
+        _, first = np.unique(key, return_index=True)
+        dup = np.ones(key.size, bool)
+        dup[first] = False
+        if not dup.any():
+            break
+        shifts[dup] = rng.integers(0, z, int(dup.sum()))
+        cb[dup] = rng.integers(0, nb_acc, int(dup.sum()))
+    else:
+        raise RuntimeError("could not avoid duplicate circulants")
+    base_edges = [(int(c), int(v), int(s)) for c, v, s in zip(cb, vb, shifts)]
+    for i in range(nb_acc):
+        p = nb_info + i
+        base_edges.append((i, p, 0))
+        base_edges.append((i, p, 1))          # I + P^1 cell
+        if i > 0:
+            base_edges.append((i, nb_info + i - 1, 0))
+    base_edges.sort()
+    vid, cid = _expand(base_edges, z)
+    return base_edges, vid, cid
+
+
+def color_disjoint_rows(rows):
+    """Greedy first-fit coloring of block rows: rows sharing a variable
+    block get different colors, so the rows of one color touch pairwise
+    disjoint variable blocks and their layered updates commute exactly.
+
+    Returns a list of colors, each a list of row indices (ascending).
+    """
+    colors = []          # [(touched_vb_set, [row_idx, ...]), ...]
+    for cb, row in enumerate(rows):
+        vbs = {v for (v, _) in row}
+        for used, members in colors:
+            if not (used & vbs):
+                used |= vbs
+                members.append(cb)
+                break
+        else:
+            colors.append((set(vbs), [cb]))
+    return [members for _, members in colors]
+
+
+def layered_plan(rows):
+    """``(degree, [row_idx...])`` batches of the grouped layered sweep: the
+    :func:`color_disjoint_rows` colors split by row degree.  Their
+    concatenation is the equivalent serial row order."""
+    plan = []
+    for members in color_disjoint_rows(rows):
+        by_deg = {}
+        for cb in members:
+            by_deg.setdefault(len(rows[cb]), []).append(cb)
+        for dcr, cbs in sorted(by_deg.items()):
+            plan.append((dcr, cbs))
+    return plan
+
+
 def _expand(base_edges, z: int):
     """Expanded ``(vid, cid)`` edge list of a base-edge list."""
     k = np.arange(z)
@@ -102,26 +191,49 @@ def load_qc_csv(path: str):
 
 
 class QCDecoder:
-    """Dense flooding BP syndrome decoder over a quasi-cyclic graph.
+    """Flooding or layered BP syndrome decoder over a quasi-cyclic graph.
 
     Args:
       base_edges: ``[(check_block, var_block, shift), ...]``.  Check-block
-        degrees may differ: short rows pad to the max degree with a +1e30
-        sentinel slab, the neutral element of every magnitude rule.
-        Parallel circulants (two base edges in one (cb, vb) cell with
-        different shifts) are supported.
+        degrees may differ: in the dense path short rows pad to the max
+        degree with a +1e30 sentinel slab, the neutral element of every
+        magnitude rule; the resident and layered paths run each row at its
+        own degree.  Parallel circulants (two base edges in one (cb, vb)
+        cell with different shifts) are supported.
       z: circulant size.
       dtype: message dtype: float32, bfloat16 or float64 (float64 runs on
         the CPU only).
       device: where the decode state lives.
       check_rule: "sumproduct" or "minsum" (normalized/offset min-sum).
-      check_phi: sum-product magnitude form, "phi" or "tanhfb".
+      check_phi: sum-product magnitude form of the dense and layered paths,
+        "phi" or "tanhfb".
       minsum_alpha, minsum_beta: min-sum magnitude ``max(alpha*m - beta, 0)``
         (alpha defaults to 13/16).
       totals_dtype: "storage" (totals in the message dtype) or "float32"
-        (f32 totals over narrower messages).
-      schedule, resident, compressed, sr_messages: the JAX decoder's other
-        paths; only their defaults are ported.
+        (f32 totals over narrower messages).  The layered schedule always
+        keeps f32 totals (f64 for float64 messages).
+      schedule: "flooding" or "layered" (serial-C sweeps over the block
+        rows; ``iters`` counts sweeps from 1).
+      layered_chunk: sweeps per host check of "all done?" in the layered
+        schedule (and per kernel call when resident).
+      layered_groups: layered schedule without ``resident``: process the
+        variable-disjoint batches of :func:`layered_plan` (bit-equivalent
+        to that reordered serial sweep); None = on when there are >= 32
+        block rows.  The resident layered kernel always sweeps in row order.
+      resident: run ``resident_chunk`` flooding iterations (or
+        ``layered_chunk`` layered sweeps) per kernel call, with the
+        convergence test, ``iters`` and the freeze of converged frames
+        inside the kernel and one host read per call.
+      resident_chunk: flooding iterations per resident kernel call.
+      resident_phi: sum-product magnitude of the resident flooding kernel:
+        "phi", "tanhfb" or "auto" (tanhfb when ``check_phi == "tanhfb"`` or
+        the messages are bf16, phi otherwise).
+      resident_double, resident_zchunk, resident_rowgroup: accepted for
+        the JAX decoder's signature and without effect: they are TPU
+        devices (a doubled VMEM totals buffer, the VMEM z-chunk and the
+        register-pressure row split), and the Hopper kernels pick their
+        own launch shapes.  ``resident_rowgroup == 1`` is still refused.
+      compressed, sr_messages: the JAX decoder's other paths; not ported.
     """
 
     def __init__(self, base_edges, z: int, dtype=DEFAULT_DTYPE, *,
@@ -132,7 +244,14 @@ class QCDecoder:
                  minsum_beta: float = 0.0,
                  totals_dtype: str = "storage",
                  schedule: str = "flooding",
+                 layered_chunk: int = 4,
+                 layered_groups: bool | None = None,
                  resident: bool | None = None,
+                 resident_chunk: int = 16,
+                 resident_phi: str = "auto",
+                 resident_double: bool | None = None,
+                 resident_zchunk: int | None = None,
+                 resident_rowgroup: int | None = None,
                  compressed: bool | None = None,
                  sr_messages: bool = False):
         self.z = int(z)
@@ -143,11 +262,32 @@ class QCDecoder:
         self.check_rule = check_rule
         if schedule not in ("flooding", "layered"):
             raise ValueError(f"unknown schedule {schedule!r}")
-        if schedule == "layered":
-            raise not_ported("schedule='layered'", "8 (layered schedule)")
-        if resident:
-            raise not_ported("resident=True",
-                             "7 (resident flooding decoder)")
+        if schedule == "layered" and compressed:
+            raise ValueError("compressed=True supports only the flooding "
+                             "schedule")
+        self.schedule = schedule
+        if int(layered_chunk) < 1:
+            raise ValueError("layered_chunk must be >= 1")
+        self.layered_chunk = int(layered_chunk)
+        self.layered_groups = layered_groups
+        if resident and compressed:
+            raise ValueError("resident=True is incompatible with "
+                             "compressed=True")
+        self.resident = bool(resident)
+        if int(resident_chunk) < 1:
+            raise ValueError("resident_chunk must be >= 1")
+        self.resident_chunk = int(resident_chunk)
+        if resident_phi not in ("auto", "phi", "tanhfb"):
+            raise ValueError(f"unknown resident_phi {resident_phi!r}")
+        self.resident_phi = resident_phi
+        self.resident_double = resident_double
+        self.resident_zchunk = resident_zchunk
+        if resident_rowgroup is not None and int(resident_rowgroup) == 1:
+            raise ValueError("resident_rowgroup must be None (auto), 0 "
+                             "(off), or >= 2")
+        self.resident_rowgroup = (
+            None if resident_rowgroup is None else int(resident_rowgroup)
+        )
         if compressed:
             raise not_ported("compressed=True",
                              "15 (compressed-state min-sum)")
@@ -165,6 +305,13 @@ class QCDecoder:
         self.minsum_beta = float(minsum_beta)
         if self.minsum_beta < 0:
             raise ValueError("minsum_beta must be >= 0")
+        f64 = self.dtype == torch.float64
+        if schedule == "layered" and self.resident and f64:
+            raise ValueError(
+                "resident layered supports float32/bfloat16 message "
+                "storage (the in-kernel totals are float32); use the "
+                "layered loop without resident for float64 parity runs"
+            )
 
         self.base_edges = [(int(c), int(v), int(s)) for c, v, s in base_edges]
         self.nb_c = max(c for c, _, _ in self.base_edges) + 1
@@ -184,14 +331,27 @@ class QCDecoder:
                 "check_rule='minsum' requires check-block degree >= 2 "
                 "(degree-1 checks have no finite min-sum extrinsic)"
             )
+        # magnitude rule of the dense and layered paths
         self.rule = (
             "tanhfb"
             if check_rule == "sumproduct" and check_phi == "tanhfb"
             else check_rule
         )
+        # ... and of the resident flooding kernel
+        phi_impl = resident_phi
+        if phi_impl == "auto":
+            phi_impl = (
+                "tanhfb"
+                if check_phi == "tanhfb" or self.dtype == torch.bfloat16
+                else "phi"
+            )
+        self._resident_phi_resolved = phi_impl
+        self.resident_rule = (
+            check_rule if check_rule == "minsum"
+            else ("tanhfb" if phi_impl == "tanhfb" else "sumproduct")
+        )
         # accumulation dtypes: totals (and the gathered t) ride acc_dtype;
         # the per-variable message sums run in at least f32, rounded once
-        f64 = self.dtype == torch.float64
         self.acc_dtype = (
             torch.float32 if totals_dtype == "float32" and not f64
             else self.dtype
@@ -199,11 +359,26 @@ class QCDecoder:
         self.sum_dtype = torch.float64 if f64 else torch.float32
         self.vid, self.cid = _expand(self.base_edges, self.z)
         self._build_indices()
+        self.tables = QCTables(self._rows, self.z)
+        use_groups = (
+            layered_groups if layered_groups is not None else self.nb_c >= 32
+        )
+        self._layered_batches = (
+            [cbs for _, cbs in layered_plan(self._rows)] if use_groups
+            else self.tables.levels
+        )
         # the fused check phase; a test may put the plain version
         # (ops/kernels.bp_check_phase_qc_ref) here to run it on the card
         self.check_phase = bp_check_phase_qc
-        # BP loop iterations (check-phase calls) run by this decoder
+        # BP iterations (or layered sweeps) run on the device by this decoder
         self.iterations_run = 0
+
+    def _resident_layout(self, B: int):
+        """``(doubled, totals_f32)`` of the resident flooding state: the
+        doubled buffer is a TPU device and always off; f32 totals under
+        ``totals_dtype="float32"`` widen bf16 messages only."""
+        return False, (self.totals_dtype == "float32"
+                       and self.dtype == torch.bfloat16)
 
     def _build_indices(self):
         """Host-built gather indices, moved to the device once.
@@ -298,12 +473,25 @@ class QCDecoder:
         """prior [V, B], synd [C, B] -> (success [B], iters [B] int32,
         final [V, B]), on the decoder's device.
 
-        Flooding BP until every frame's hard decision satisfies its
-        syndrome or ``max_iterations`` iterations ran.  A frame's ``iters``
-        is the 0-based iteration at which it first satisfied its syndrome;
-        ``final`` holds its totals from that moment.  Failed frames report
-        ``max_iterations`` and their last totals.
+        BP until every frame's hard decision satisfies its syndrome or
+        ``max_iterations`` iterations (layered: sweeps) ran.  A frame's
+        ``iters`` is the iteration at which it first satisfied its syndrome
+        (flooding: 0-based; layered: the 1-based sweep, 0 for a consistent
+        prior); ``final`` holds its totals from that moment.  Failed frames
+        report ``max_iterations`` and their totals after the last one.
         """
+        if self.schedule == "layered":
+            if self.resident:
+                return self._decode_resident_layered(prior_vb, synd_cb,
+                                                     max_iterations)
+            return self._decode_layered(prior_vb, synd_cb, max_iterations)
+        if self.resident:
+            return self._decode_resident(prior_vb, synd_cb, max_iterations)
+        return self._decode_dense(prior_vb, synd_cb, max_iterations)
+
+    def _decode_dense(self, prior_vb, synd_cb, max_iterations: int):
+        """The dense flooding loop: one check-phase kernel call and one
+        host read per iteration."""
         z, B = self.z, prior_vb.shape[1]
         max_iterations = int(max_iterations)
         prior = prior_vb.to(self.device, self.dtype).to(self.acc_dtype) \
@@ -350,6 +538,122 @@ class QCDecoder:
         iters = torch.where(done, iters, max_iterations)
         final = torch.where(done, final, total)
         return done, iters, final.reshape(self.vnum, B)
+
+    def _consistent_flat(self, total, synd):
+        """[B] bool: the hard decision of total [nb_v, z, B] satisfies the
+        syndrome [nb_c, z, B]."""
+        return self.tables.syndrome_violations(total, synd) == 0
+
+    def _decode_resident(self, prior_vb, synd_cb, max_iterations: int):
+        """Resident flooding loop: ``resident_chunk`` iterations per call of
+        ``bp_decode_rounds_qc`` (convergence, ``iters`` and the freeze of
+        converged frames in the kernel), one host read of "all done?" per
+        call, then the dense path's consistency tail for frames that
+        converge on the last update."""
+        z, B = self.z, prior_vb.shape[1]
+        maxiter = int(max_iterations)
+        K = self.resident_chunk
+        totals_f32 = self._resident_layout(B)[1]
+        dev = self.device
+        prior = prior_vb.to(dev, self.dtype).reshape(
+            self.nb_v, z, B).contiguous()
+        synd = synd_cb.to(dev, torch.int32).reshape(self.nb_c, z, B)
+        synd8 = synd.to(torch.int8).contiguous()
+        total = prior.to(torch.float32 if totals_f32 else self.dtype,
+                         copy=True)
+        c2v = torch.zeros((self.tables.E, z, B), dtype=self.dtype,
+                          device=dev)
+        done = torch.zeros(B, dtype=torch.int32, device=dev)
+        iters = torch.zeros(B, dtype=torch.int32, device=dev)
+        it = 0
+        while it < maxiter:
+            bp_decode_rounds_qc(
+                self.tables, it, maxiter, total, c2v, prior, synd8, done,
+                iters, rule=self.resident_rule, k_rounds=K,
+                ms_alpha=self.minsum_alpha, ms_beta=self.minsum_beta,
+            )
+            self.iterations_run += min(K, maxiter - it)
+            it += K
+            if bool(done.all()):        # the one host read per call
+                break
+        # total IS final for every frame: frozen at convergence in done
+        # frames, after the last iteration in the others
+        conv = self._consistent_flat(total, synd)
+        done = done.bool()
+        iters = torch.where(conv & ~done, min(it, maxiter), iters)
+        done = done | conv
+        iters = torch.where(done, iters, maxiter)
+        return done, iters, total.reshape(self.vnum, B)
+
+    def _decode_layered(self, prior_vb, synd_cb, max_iterations: int):
+        """Layered loop in plain PyTorch (the JAX package's XLA layered
+        loop): f32 totals including the prior, updated by the deltas of the
+        stored messages; ``layered_chunk`` sweeps per host read, the
+        syndrome tested after every sweep; ``final`` captured at
+        convergence or at the ``max_iterations`` sweep; a consistent prior
+        passes through with ``iters == 0``."""
+        z, B = self.z, prior_vb.shape[1]
+        maxiter = int(max_iterations)
+        dev = self.device
+        acc = torch.float64 if self.dtype == torch.float64 else torch.float32
+        prior = prior_vb.to(dev, acc).reshape(self.nb_v, z, B)
+        synd = synd_cb.to(dev, torch.int32).reshape(self.nb_c, z, B)
+        groups = self.tables.row_groups(self._layered_batches, dev)
+        total = prior.clone(memory_format=torch.contiguous_format)
+        final = prior
+        c2v = torch.zeros((self.tables.E, z, B), dtype=self.dtype,
+                          device=dev)
+        done = self._consistent_flat(prior, synd)
+        iters = torch.zeros(B, dtype=torch.int32, device=dev)
+        it = 0
+        while it < maxiter and not bool(done.all()):
+            # sweeps past max_iterations would change nothing returned
+            for swp in range(it + 1, min(it + self.layered_chunk,
+                                         maxiter) + 1):
+                layered_sweep(groups, total, c2v, synd, None,
+                              rule=self.rule, ms_alpha=self.minsum_alpha,
+                              ms_beta=self.minsum_beta)
+                self.iterations_run += 1
+                newly = self._consistent_flat(total, synd) & ~done
+                iters = torch.where(newly, swp, iters)
+                done = done | newly
+                cap = newly | (~done & (swp == maxiter))
+                final = torch.where(cap, total, final)
+            it += self.layered_chunk
+        iters = torch.where(done, iters, maxiter)
+        return done, iters, final.reshape(self.vnum, B)
+
+    def _decode_resident_layered(self, prior_vb, synd_cb,
+                                 max_iterations: int):
+        """Resident layered loop: ``layered_chunk`` serial sweeps per call
+        of ``bp_layered_sweeps_qc`` (convergence, ``iters`` and the freeze
+        of converged frames in the kernel), one host read per call.  Frames
+        whose prior is already consistent start done, so they pass through
+        with ``iters == 0``."""
+        z, B = self.z, prior_vb.shape[1]
+        maxiter = int(max_iterations)
+        K = self.layered_chunk
+        dev = self.device
+        prior = prior_vb.to(dev, torch.float32).reshape(self.nb_v, z, B)
+        synd = synd_cb.to(dev, torch.int32).reshape(self.nb_c, z, B)
+        synd8 = synd.to(torch.int8).contiguous()
+        total = prior.clone(memory_format=torch.contiguous_format)
+        c2v = torch.zeros((self.tables.E, z, B), dtype=self.dtype,
+                          device=dev)
+        done = self._consistent_flat(prior, synd).to(torch.int32)
+        iters = torch.zeros(B, dtype=torch.int32, device=dev)
+        it = 0
+        while it < maxiter and not bool(done.all()):
+            bp_layered_sweeps_qc(
+                self.tables, it, maxiter, total, c2v, synd8, done, iters,
+                rule=self.rule, k_sweeps=K, ms_alpha=self.minsum_alpha,
+                ms_beta=self.minsum_beta,
+            )
+            self.iterations_run += min(K, maxiter - it)
+            it += K
+        done = done.bool()
+        iters = torch.where(done, iters, maxiter)
+        return done, iters, total.reshape(self.vnum, B)
 
     def _build_decode(self):
         """The [V, B] decode entry the engine calls."""

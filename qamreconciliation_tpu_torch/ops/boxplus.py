@@ -23,6 +23,9 @@ __all__ = [
     "minsum_extrinsic_mag",
     "tanhfb_extrinsic_mag",
     "fb_allbutone_list",
+    "check_node_update_sm",
+    "check_node_minsum_sm",
+    "check_node_tanhfb_sm",
 ]
 
 # Normalized min-sum scale (13/16); exactly representable in bf16/f32.
@@ -122,3 +125,61 @@ def fb_allbutone_list(terms):
     out = [Bk[1]] + [F[d - 1] * Bk[d + 1] for d in range(1, n - 1)] \
         + [F[n - 2]]
     return out, F[n - 1]
+
+
+def _sm_prepare(v2c_d, c_mask_T):
+    """bf16 upcast to f32 (the magnitude math runs in f32) and the mask
+    broadcast over frames; returns ``(v2c, mask [dc, C, 1], out_dtype)``."""
+    out_dtype = v2c_d.dtype
+    c_mask_T = torch.as_tensor(c_mask_T, device=v2c_d.device)
+    if out_dtype == torch.bfloat16:
+        v2c_d = v2c_d.float()
+    return v2c_d, c_mask_T.to(v2c_d.dtype)[:, :, None], out_dtype
+
+
+def _sm_finish(v2c_d, synd, mask, mag, out_dtype):
+    """Sign parity over the real slots, the (1 - 2*synd) prefactor, the
+    mask, cast back to the message dtype."""
+    neg = ((v2c_d < 0) & (mask > 0)).to(torch.int32)
+    parity = torch.sum(neg, dim=0, keepdim=True) & 1
+    sign = (1 - 2 * torch.bitwise_xor(parity, neg)).to(v2c_d.dtype)
+    pref = (1 - 2 * synd.to(torch.int32)).to(v2c_d.dtype)[None, :, :]
+    return (sign * pref * mag * mask).to(out_dtype)
+
+
+def check_node_update_sm(v2c_d, synd, c_mask_T, tiny: float = 1e-30):
+    """Slot-major phi sum-product check update: layout [dc_max, C, B],
+    mask [dc_max, C] (1 on real slots, 0 on padding), syndrome [C, B].
+
+    Returns the extrinsic check->variable messages with the ``(-1)^synd``
+    prefactor, zero on padded slots, in the input dtype (bf16 computes in
+    f32).
+    """
+    v2c_d, mask, out_dtype = _sm_prepare(v2c_d, c_mask_T)
+    phim = phi_llr(torch.abs(v2c_d), tiny) * mask
+    s_phi = torch.sum(phim, dim=0, keepdim=True)
+    mag = phi_llr(s_phi - phim, tiny)
+    return _sm_finish(v2c_d, synd, mask, mag, out_dtype)
+
+
+def check_node_minsum_sm(v2c_d, synd, c_mask_T,
+                         alpha: float = MINSUM_ALPHA, beta: float = 0.0):
+    """Slot-major normalized/offset min-sum check update (same contract as
+    :func:`check_node_update_sm`; padded slots ride the +1e30 sentinel)."""
+    v2c_d, mask, out_dtype = _sm_prepare(v2c_d, c_mask_T)
+    absm = torch.where(mask > 0, torch.abs(v2c_d),
+                       torch.tensor(BIG, dtype=v2c_d.dtype,
+                                    device=v2c_d.device))
+    mag = minsum_mag(minsum_extrinsic_mag(absm, 0), alpha, beta)
+    return _sm_finish(v2c_d, synd, mask, mag, out_dtype)
+
+
+def check_node_tanhfb_sm(v2c_d, synd, c_mask_T):
+    """Slot-major tanh-F/B sum-product check update (same contract as
+    :func:`check_node_update_sm`; saturates near 16.6)."""
+    v2c_d, mask, out_dtype = _sm_prepare(v2c_d, c_mask_T)
+    absm = torch.where(mask > 0, torch.abs(v2c_d),
+                       torch.tensor(BIG, dtype=v2c_d.dtype,
+                                    device=v2c_d.device))
+    mag = tanhfb_extrinsic_mag(absm, 0)
+    return _sm_finish(v2c_d, synd, mask, mag, out_dtype)

@@ -2,8 +2,9 @@
 
 Each source under ``csrc/`` compiles to a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds).  Libraries land in
-``csrc/_build/`` keyed by a hash of the source text and the compiler flags,
-so an edited source is rebuilt and an unchanged one is loaded as is.
+``csrc/_build/`` keyed by a hash of the source text, the shared headers
+(``csrc/*.cuh``) and the compiler flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as is.
 """
 
 from __future__ import annotations
@@ -42,10 +43,13 @@ def _nvcc() -> str:
 
 
 def _library_path(source: Path) -> Path:
-    digest = hashlib.sha256(
-        source.read_bytes() + "\0".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"{source.stem}-{digest}.so"
+    """The library of ``source``, keyed by its text, every ``*.cuh`` header
+    beside it (a source may include any of them) and the flags."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(b"\0" + header.name.encode() + b"\0" + header.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -1,17 +1,29 @@
 """Hand-written CUDA kernels of the BP hot loop, with their plain versions.
 
-``bp_check_phase_qc`` is the fused check phase of the dense QC flooding
-decoder (CUDA source ``csrc/bp_check_phase_qc.cu``; it replaces the Pallas
-TPU kernel ``qamreconciliation_tpu/ops/pallas_kernels.py:bp_check_phase_qc``).
-A tensor on the CPU goes to :func:`bp_check_phase_qc_ref`, the plain PyTorch
-version with the same operation order; a CUDA tensor goes to the kernel, or
-the call raises.
+Three kernels, each replacing a Pallas TPU kernel of
+``qamreconciliation_tpu/ops/pallas_kernels.py`` of the same name:
+
+* ``bp_check_phase_qc`` (``csrc/bp_check_phase_qc.cu``): the fused check
+  phase of the dense QC flooding decoder;
+* ``bp_decode_rounds_qc`` (``csrc/bp_decode_rounds_qc.cu``): K flooding
+  iterations per call over the flat decode state (the resident decoder);
+* ``bp_layered_sweeps_qc`` (``csrc/bp_layered_sweeps_qc.cu``): K serial-C
+  layered sweeps per call (the resident layered decoder).
+
+A tensor on the CPU goes to the plain PyTorch version (``*_ref``), which
+uses the kernel's operation and summation order; a CUDA tensor goes to the
+kernel, or the call raises.  Each wrapper counts its kernel launches in
+``.launches``; the two multi-step wrappers also count the BP iterations or
+sweeps they ran on the device in ``.iterations``.  The multi-step kernels
+update their state tensors in place (the plain versions too) and return
+them.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .boxplus import (
@@ -19,18 +31,58 @@ from .boxplus import (
     tanhfb_extrinsic_mag,
 )
 
-__all__ = ["RULES", "MAX_DC", "bp_check_phase_qc", "bp_check_phase_qc_ref"]
+__all__ = [
+    "RULES", "MAX_DC", "QCTables", "layered_levels",
+    "bp_check_phase_qc", "bp_check_phase_qc_ref",
+    "bp_decode_rounds_qc", "bp_decode_rounds_qc_ref",
+    "bp_layered_sweeps_qc", "bp_layered_sweeps_qc_ref",
+]
 
-# magnitude rules, in the kernel's numbering
+# magnitude rules, in the kernels' numbering
 RULES = {"sumproduct": 0, "tanhfb": 1, "minsum": 2}
-# widest check row the kernel holds in registers
+# widest check row the kernels hold in registers
 MAX_DC = 32
-# (t dtype, message dtype) pairs the kernel takes, in its dtype numbering
+# (totals dtype, message dtype) pairs the kernels take, in their numbering
 _KERNEL_DTYPES = {
     (torch.float32, torch.float32): (0, 0),
     (torch.bfloat16, torch.bfloat16): (1, 1),
     (torch.float32, torch.bfloat16): (0, 1),
 }
+
+
+def _fold_sum(x, dim: int):
+    """Left-fold sum over ``dim`` (keepdim): ``((x0 + x1) + x2) + ...``,
+    the order the kernels and the JAX package's reduction use."""
+    parts = x.unbind(dim)
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc.unsqueeze(dim)
+
+
+def _check_messages(v2c, synd, dim: int, rule: str, tiny: float,
+                    ms_alpha: float, ms_beta: float):
+    """New check->variable messages from ``v2c`` (slots along ``dim``) and
+    the syndrome (``v2c``'s shape without ``dim``): the rule's all-but-one
+    magnitude, the XOR sign parity and the ``(1 - 2*synd)`` prefactor, in
+    ``v2c``'s dtype."""
+    absm = torch.abs(v2c)
+    if rule == "minsum":
+        mag = minsum_mag(minsum_extrinsic_mag(absm, dim), ms_alpha, ms_beta)
+    elif rule == "tanhfb":
+        mag = tanhfb_extrinsic_mag(absm, dim)
+    else:
+        phim = phi_llr(absm, tiny)
+        mag = phi_llr(_fold_sum(phim, dim) - phim, tiny)
+    neg = (v2c < 0).to(torch.int32)
+    par = torch.sum(neg, dim=dim, keepdim=True) & 1
+    sign = (1 - 2 * torch.bitwise_xor(par, neg)).to(v2c.dtype)
+    pref = (1 - 2 * synd.to(torch.int32)).to(v2c.dtype).unsqueeze(dim)
+    return sign * pref * mag
+
+
+# --------------------------------------------------------------------- #
+# Kernel 1: the fused check phase of the dense flooding decoder
 
 
 def _check_args(t, c2v, synd, rule):
@@ -49,16 +101,6 @@ def _check_args(t, c2v, synd, rule):
         )
     if not (t.device == c2v.device == synd.device):
         raise ValueError("t, c2v and synd must be on one device")
-
-
-def _fold_sum(x, dim: int):
-    """Left-fold sum over ``dim`` (keepdim): ``((x0 + x1) + x2) + ...``,
-    the order the kernel and the JAX package's reduction use."""
-    parts = x.unbind(dim)
-    acc = parts[0]
-    for p in parts[1:]:
-        acc = acc + p
-    return acc.unsqueeze(dim)
 
 
 def bp_check_phase_qc_ref(t, c2v, synd, tiny: float = 1e-30, *,
@@ -81,20 +123,9 @@ def bp_check_phase_qc_ref(t, c2v, synd, tiny: float = 1e-30, *,
                      dtype=torch.int32)                        # [nb_c, B]
 
     # 2./3. extrinsic check update
-    v2c = t - c2v.to(compute)
-    absm = torch.abs(v2c)
-    if rule == "minsum":
-        mag = minsum_mag(minsum_extrinsic_mag(absm, 1), ms_alpha, ms_beta)
-    elif rule == "tanhfb":
-        mag = tanhfb_extrinsic_mag(absm, 1)
-    else:
-        phim = phi_llr(absm, tiny)
-        mag = phi_llr(_fold_sum(phim, 1) - phim, tiny)
-    neg = (v2c < 0).to(torch.int32)
-    par = torch.sum(neg, dim=1, keepdim=True) & 1
-    sign = (1 - 2 * torch.bitwise_xor(par, neg)).to(compute)
-    pref = (1 - 2 * synd).to(compute).unsqueeze(1)
-    return (sign * pref * mag).to(out_dtype), viol
+    new = _check_messages(t - c2v.to(compute), synd, 1, rule, tiny,
+                          ms_alpha, ms_beta)
+    return new.to(out_dtype), viol
 
 
 def bp_check_phase_qc(t, c2v, synd, tiny: float = 1e-30, *,
@@ -122,20 +153,11 @@ def bp_check_phase_qc(t, c2v, synd, tiny: float = 1e-30, *,
         return bp_check_phase_qc_ref(t, c2v, synd, tiny, rule=rule,
                                      ms_alpha=ms_alpha, ms_beta=ms_beta)
     _check_args(t, c2v, synd, rule)
-    if t.device.type != "cuda":
-        raise ValueError(f"bp_check_phase_qc: unsupported device {t.device}")
-    codes = _KERNEL_DTYPES.get((t.dtype, c2v.dtype))
-    if codes is None:
-        raise TypeError(
-            f"bp_check_phase_qc kernel takes (t, c2v) dtypes "
-            f"{[(str(a), str(b)) for a, b in _KERNEL_DTYPES]}, got "
-            f"({t.dtype}, {c2v.dtype}); float64 decodes run on the CPU"
-        )
+    _require_cuda("bp_check_phase_qc", t)
+    codes = _dtype_codes("bp_check_phase_qc", t.dtype, c2v.dtype)
     if synd.dtype != torch.int32:
         raise TypeError(f"synd must be int32, got {synd.dtype}")
-    if not (t.is_contiguous() and c2v.is_contiguous()
-            and synd.is_contiguous()):
-        raise ValueError("t, c2v and synd must be contiguous")
+    _require_contiguous(t=t, c2v=c2v, synd=synd)
     nb_c, dc, z, B = t.shape
     if dc > MAX_DC:
         raise ValueError(f"check degree {dc} exceeds the kernel's {MAX_DC}")
@@ -144,7 +166,7 @@ def bp_check_phase_qc(t, c2v, synd, tiny: float = 1e-30, *,
 
     out = torch.empty_like(c2v)
     viol = torch.zeros((nb_c, B), dtype=torch.int32, device=t.device)
-    lib = _library()
+    lib = _library("bp_check_phase_qc", "pppppiiiiiiifffp")
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
         err = lib.bp_check_phase_qc_launch(
@@ -152,10 +174,7 @@ def bp_check_phase_qc(t, c2v, synd, tiny: float = 1e-30, *,
             viol.data_ptr(), codes[0], codes[1], nb_c, dc, z, B, RULES[rule],
             float(tiny), float(ms_alpha), float(ms_beta), stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"bp_check_phase_qc launch failed: CUDA error {err}"
-        )
+    _raise_on(err, "bp_check_phase_qc")
     bp_check_phase_qc.launches += 1
     return out, viol
 
@@ -163,13 +182,545 @@ def bp_check_phase_qc(t, c2v, synd, tiny: float = 1e-30, *,
 bp_check_phase_qc.launches = 0
 
 
-def _library():
+# --------------------------------------------------------------------- #
+# Index tables of the multi-step kernels
+
+
+def layered_levels(rows):
+    """Dependency levels of the serial layered sweep over ``rows``
+    (``rows[cb] = [(vb, shift), ...]``): a row's level is 1 + the highest
+    level of the earlier rows that share a variable block with it.
+
+    Rows of one level touch pairwise-disjoint variable blocks, and along
+    every variable block the levels of its rows increase with the row
+    index, so processing the levels in order (the rows of a level in any
+    order) gives the serial sweep's result bit for bit.  Returns a list of
+    levels, each a list of row indices (ascending).
+    """
+    last = {}
+    level_of = []
+    for row in rows:
+        lev = 1 + max((last.get(v, -1) for v, _ in row), default=-1)
+        for v, _ in row:
+            last[v] = lev
+        level_of.append(lev)
+    levels = [[] for _ in range(max(level_of) + 1)]
+    for cb, lev in enumerate(level_of):
+        levels[lev].append(cb)
+    return levels
+
+
+def _i32(values):
+    return np.asarray(values, dtype=np.int32)
+
+
+class QCTables:
+    """Index tables of a QC base graph, built once on the host and moved to
+    a device once.
+
+    ``rows[cb] = [(vb, shift), ...]``; base edges are numbered flat in row
+    order, ``e = row_off[cb] + d``, the layout of the messages ``c2v
+    [E, z, B]``.  Shifts are reduced mod z.  Tables:
+
+    * rows: ``row_off [nb_c+1]``, ``edge_v``/``edge_s [E]``;
+    * cols: each variable block's edges in (row ascending, slot ascending)
+      order, the order of the totals' sums: ``col_off [nb_v+1]``,
+      ``col_e``/``col_s [E]``;
+    * layered: the dependency levels (:func:`layered_levels`) as
+      ``level_off`` (host) and ``level_rows``; rows with a repeated
+      variable block are *deferred*: ``defer_base[cb]`` is the first of the
+      row's compact delta slots (-1 for other rows), and ``app_*`` list per
+      level, per deferred row, per distinct variable block its slots in
+      slot order (``app_level_off`` on the host).
+    """
+
+    def __init__(self, rows, z: int):
+        self.z = int(z)
+        self.rows = [[(int(v), int(s) % self.z) for v, s in row]
+                     for row in rows]
+        self.nb_c = len(self.rows)
+        self.nb_v = max(v for row in self.rows for v, _ in row) + 1
+        degs = [len(row) for row in self.rows]
+        if min(degs) < 1:
+            raise ValueError("empty check block row")
+        self.dc_max = max(degs)
+        self.row_off = _i32(np.concatenate([[0], np.cumsum(degs)]))
+        self.E = int(self.row_off[-1])
+        self.edge_v = _i32([v for row in self.rows for v, _ in row])
+        self.edge_s = _i32([s for row in self.rows for _, s in row])
+        cols = [[] for _ in range(self.nb_v)]
+        for cb, row in enumerate(self.rows):
+            for d, (v, s) in enumerate(row):
+                cols[v].append((int(self.row_off[cb]) + d, s))
+        self.cols = cols
+        self.col_off = _i32(np.concatenate(
+            [[0], np.cumsum([len(c) for c in cols])]))
+        self.col_e = _i32([e for c in cols for e, _ in c])
+        self.col_s = _i32([s for c in cols for _, s in c])
+
+        self.levels = layered_levels(self.rows)
+        self.level_off = _i32(np.concatenate(
+            [[0], np.cumsum([len(lev) for lev in self.levels])]))
+        self.level_rows = _i32([cb for lev in self.levels for cb in lev])
+        deferred = [len({v for v, _ in row}) < len(row) for row in self.rows]
+        self.defer_base = np.full(self.nb_c, -1, np.int32)
+        n_slots = 0
+        for cb, row in enumerate(self.rows):
+            if deferred[cb]:
+                self.defer_base[cb] = n_slots
+                n_slots += len(row)
+        self.n_defer_slots = n_slots
+        app_vb, app_off, app_e, app_s, app_level_off = [], [0], [], [], [0]
+        for lev in self.levels:
+            for cb in lev:
+                if not deferred[cb]:
+                    continue
+                row = self.rows[cb]
+                for v in dict.fromkeys(v for v, _ in row):
+                    app_vb.append(v)
+                    for d, (vd, s) in enumerate(row):
+                        if vd == v:
+                            app_e.append(int(self.defer_base[cb]) + d)
+                            app_s.append(s)
+                    app_off.append(len(app_e))
+            app_level_off.append(len(app_vb))
+        self.app_vb, self.app_off = _i32(app_vb), _i32(app_off)
+        self.app_e, self.app_s = _i32(app_e), _i32(app_s)
+        self.app_level_off = _i32(app_level_off)
+        self._cache = {}
+
+    _DEVICE_TABLES = ("row_off", "edge_v", "edge_s", "col_off", "col_e",
+                      "col_s", "level_rows", "defer_base", "app_vb",
+                      "app_off", "app_e", "app_s")
+
+    def on(self, device) -> dict:
+        """The int32 tables on ``device`` (uploaded once per device; an
+        empty table becomes one 0 so that its pointer is valid)."""
+        device = torch.device(device)
+        key = ("tables", device)
+        if key not in self._cache:
+            self._cache[key] = {
+                name: torch.as_tensor(
+                    getattr(self, name) if getattr(self, name).size
+                    else _i32([0]), device=device,
+                )
+                for name in self._DEVICE_TABLES
+            }
+        return self._cache[key]
+
+    def row_groups(self, batches, device):
+        """Gather plans of the plain versions: every batch of rows (a list
+        of row indices) split by degree into ``(cbs, gidx, eidx, deg)``
+        with ``gidx [R, deg, z]`` the flat totals index ``v*z + (j - s) %
+        z`` each slot reads and ``eidx [R*deg]`` the rows' edges."""
+        device = torch.device(device)
+        key = ("rows", tuple(map(tuple, batches)), device)
+        if key not in self._cache:
+            z, j = self.z, np.arange(self.z)
+            plan = []
+            for batch in batches:
+                by_deg = {}
+                for cb in batch:
+                    by_deg.setdefault(len(self.rows[cb]), []).append(cb)
+                for deg, cbs in sorted(by_deg.items()):
+                    gidx = np.stack([
+                        np.stack([v * z + (j - s) % z
+                                  for v, s in self.rows[cb]])
+                        for cb in cbs
+                    ])
+                    eidx = np.concatenate([
+                        self.row_off[cb] + np.arange(deg) for cb in cbs
+                    ])
+                    plan.append(tuple(
+                        torch.as_tensor(a, dtype=torch.int64, device=device)
+                        for a in (cbs, gidx, eidx)) + (deg,))
+            self._cache[key] = plan
+        return self._cache[key]
+
+    def var_groups(self, device):
+        """Scatter plan of the plain flooding step: variable blocks grouped
+        by degree as ``(vbs, cidx [V, deg, z], deg)`` with the flat message
+        index ``e*z + (k + s) % z`` of each incoming edge in cols order;
+        isolated blocks have ``deg == 0``."""
+        device = torch.device(device)
+        key = ("vars", device)
+        if key not in self._cache:
+            z, k = self.z, np.arange(self.z)
+            by_deg = {}
+            for v, col in enumerate(self.cols):
+                by_deg.setdefault(len(col), []).append(v)
+            plan = []
+            for deg, vbs in sorted(by_deg.items()):
+                cidx = np.stack([
+                    np.stack([e * z + (k + s) % z for e, s in self.cols[v]])
+                    if deg else np.zeros((0, z), np.int64)
+                    for v in vbs
+                ])
+                plan.append((torch.as_tensor(vbs, dtype=torch.int64,
+                                             device=device),
+                             torch.as_tensor(cidx, dtype=torch.int64,
+                                             device=device), deg))
+            self._cache[key] = plan
+        return self._cache[key]
+
+    def syndrome_violations(self, total, synd):
+        """[B] int32: per frame, the checks whose parity of ``total < 0``
+        differs from ``synd`` (total [nb_v, z, B], synd [nb_c, z, B])."""
+        B = total.shape[-1]
+        bits = (total < 0).to(torch.int32).reshape(-1, B)
+        synd = synd.to(torch.int32)
+        viol = torch.zeros(B, dtype=torch.int32, device=total.device)
+        for cbs, gidx, _, deg in self.row_groups([range(self.nb_c)],
+                                                 total.device):
+            par = bits.index_select(0, gidx.reshape(-1)).view(
+                len(cbs), deg, self.z, B).sum(1) & 1
+            viol += torch.sum(par != synd.index_select(0, cbs), dim=(0, 1),
+                              dtype=torch.int32)
+        return viol
+
+
+def _n_steps(k: int, it0: int, maxiter: int) -> int:
+    """Steps a call advances: ``max(min(K, maxiter - it0), 0)``."""
+    return max(min(int(k), int(maxiter) - int(it0)), 0)
+
+
+def _check_state(tables, total, c2v, synd, done, iters, prior=None):
+    z, B = tables.z, total.shape[-1]
+    want = {"total": (total, (tables.nb_v, z, B)),
+            "c2v": (c2v, (tables.E, z, B)),
+            "synd": (synd, (tables.nb_c, z, B)),
+            "done": (done, (B,)), "iters": (iters, (B,))}
+    if prior is not None:
+        want["prior"] = (prior, (tables.nb_v, z, B))
+    for name, (x, shape) in want.items():
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+        if x.device != total.device:
+            raise ValueError("the state tensors must be on one device")
+
+
+# --------------------------------------------------------------------- #
+# Kernel 2: K flooding iterations per call
+
+
+def bp_decode_rounds_qc_ref(tables, it0: int, maxiter: int, total, c2v,
+                            prior, synd, done, iters, *,
+                            rule: str = "sumproduct", k_rounds: int = 8,
+                            tiny: float = 1e-30,
+                            ms_alpha: float = MINSUM_ALPHA,
+                            ms_beta: float = 0.0):
+    """Plain PyTorch flooding steps (any device); see
+    :func:`bp_decode_rounds_qc` for the contract."""
+    if rule not in RULES:
+        raise ValueError(f"unknown rule {rule!r}")
+    _check_state(tables, total, c2v, synd, done, iters, prior)
+    z, B, dev = tables.z, total.shape[-1], total.device
+    t_flat, c_flat = total.view(-1, B), c2v.view(-1, B)
+    synd = synd.to(torch.int32)
+    checks = tables.row_groups([range(tables.nb_c)], dev)
+    for k in range(_n_steps(k_rounds, it0, maxiter)):
+        # pass 1: check phase on rolled reads of the totals
+        viol = torch.zeros(B, dtype=torch.int32, device=dev)
+        for cbs, gidx, eidx, deg in checks:
+            shape = (len(cbs), deg, z, B)
+            t = t_flat.index_select(0, gidx.reshape(-1)).view(shape).float()
+            s = synd.index_select(0, cbs)
+            parity = torch.sum((t < 0).to(torch.int32), dim=1) & 1
+            viol += torch.sum((parity != s).to(torch.int32), dim=(0, 1),
+                              dtype=torch.int32)
+            old = c2v.index_select(0, eidx).view(shape).float()
+            new = _check_messages(t - old, s, 1, rule, tiny, ms_alpha,
+                                  ms_beta)
+            c2v.index_copy_(0, eidx, new.to(c2v.dtype).view(-1, z, B))
+        # bookkeeping: iters at the first convergence, done
+        conv = viol == 0
+        iters.copy_(torch.where(conv & (done == 0), it0 + k, iters))
+        done.copy_(done | conv.to(torch.int32))
+        frozen = done.bool()
+        # pass 2: totals from the new messages, frozen where done
+        for vbs, cidx, deg in tables.var_groups(dev):
+            new = prior.index_select(0, vbs).float()
+            if deg:
+                g = c_flat.index_select(0, cidx.reshape(-1)).view(
+                    len(vbs), deg, z, B).float()
+                new = new + _fold_sum(g, 1).squeeze(1)
+            old = total.index_select(0, vbs)
+            total.index_copy_(0, vbs,
+                              torch.where(frozen, old, new.to(total.dtype)))
+    return total, c2v, done, iters
+
+
+def bp_decode_rounds_qc(tables, it0: int, maxiter: int, total, c2v, prior,
+                        synd, done, iters, *, rule: str = "sumproduct",
+                        k_rounds: int = 8, tiny: float = 1e-30,
+                        ms_alpha: float = MINSUM_ALPHA,
+                        ms_beta: float = 0.0):
+    """Advance ``n = max(min(k_rounds, maxiter - it0), 0)`` flooding BP
+    iterations of the QC decoder, in place.
+
+    Args:
+      tables: :class:`QCTables` of the code.
+      it0, maxiter: host ints; iteration ``it0 + k`` runs for ``k < n``.
+      total: [nb_v, z, B] running totals (message dtype, or f32 over bf16
+        messages).
+      c2v: [E, z, B] messages, base edges flat in row order.
+      prior: [nb_v, z, B] channel LLRs in the message dtype.
+      synd: [nb_c, z, B] syndrome bits (int8 for the kernel).
+      done, iters: [B] int32.
+      rule: "sumproduct" (phi form), "tanhfb" or "minsum".
+
+    Per iteration: the check phase on rolled reads of the totals (the
+    convergence test counts checks whose parity of ``total < 0`` differs
+    from the syndrome) stores new messages for every frame; a frame with no
+    violation converges (``iters = it`` the first time, ``done = 1``);
+    then frames not done get ``total = round(f32(prior) + sum of their
+    rolled incoming messages)`` in (row, slot) order.  Returns
+    ``(total, c2v, done, iters)``.
+
+    CPU tensors run :func:`bp_decode_rounds_qc_ref`.  CUDA tensors run the
+    kernel, which takes contiguous tensors with (total, c2v) dtype pairs
+    (f32, f32), (bf16, bf16) and (f32, bf16), prior in c2v's dtype, int8
+    synd, int32 done/iters and rows up to ``MAX_DC`` wide; anything else
+    raises.
+    """
+    if total.device.type == "cpu":
+        return bp_decode_rounds_qc_ref(
+            tables, it0, maxiter, total, c2v, prior, synd, done, iters,
+            rule=rule, k_rounds=k_rounds, tiny=tiny, ms_alpha=ms_alpha,
+            ms_beta=ms_beta)
+    if rule not in RULES:
+        raise ValueError(f"unknown rule {rule!r}")
+    _check_state(tables, total, c2v, synd, done, iters, prior)
+    _require_cuda("bp_decode_rounds_qc", total)
+    codes = _dtype_codes("bp_decode_rounds_qc", total.dtype, c2v.dtype)
+    if prior.dtype != c2v.dtype:
+        raise TypeError(f"prior must be {c2v.dtype}, got {prior.dtype}")
+    _require_int_state(synd, done, iters)
+    _require_contiguous(total=total, c2v=c2v, prior=prior, synd=synd,
+                        done=done, iters=iters)
+    _require_tables(tables, tables.nb_v)
+    n = _n_steps(k_rounds, it0, maxiter)
+    if n == 0:
+        return total, c2v, done, iters
+    B = total.shape[-1]
+    tb = tables.on(total.device)
+    viol = torch.zeros(B, dtype=torch.int32, device=total.device)
+    lib = _library("bp_decode_rounds_qc", "ppppppppppppp" + "i" * 10
+                   + "fffp")
+    with torch.cuda.device(total.device):
+        stream = torch.cuda.current_stream(total.device).cuda_stream
+        err = lib.bp_decode_rounds_qc_launch(
+            total.data_ptr(), c2v.data_ptr(), prior.data_ptr(),
+            synd.data_ptr(), done.data_ptr(), iters.data_ptr(),
+            viol.data_ptr(), *(tb[name].data_ptr() for name in (
+                "row_off", "edge_v", "edge_s", "col_off", "col_e", "col_s")),
+            codes[0], codes[1], tables.nb_c, tables.nb_v, tables.dc_max,
+            tables.z, B, RULES[rule], int(it0), n, float(tiny),
+            float(ms_alpha), float(ms_beta), stream,
+        )
+    _raise_on(err, "bp_decode_rounds_qc")
+    bp_decode_rounds_qc.launches += 1
+    bp_decode_rounds_qc.iterations += n
+    return total, c2v, done, iters
+
+
+bp_decode_rounds_qc.launches = 0
+bp_decode_rounds_qc.iterations = 0
+
+
+# --------------------------------------------------------------------- #
+# Kernel 3: K serial-C layered sweeps per call
+
+
+def layered_sweep(groups, total, c2v, synd, frozen, *, rule: str,
+                  tiny: float = 1e-30, ms_alpha: float = MINSUM_ALPHA,
+                  ms_beta: float = 0.0):
+    """One layered sweep, in place, over ``groups`` (a
+    :meth:`QCTables.row_groups` plan whose batches are variable-disjoint
+    rows, in sweep order).
+
+    Per row: ``t`` the rolled totals, ``old`` the row's messages, ``stored
+    = messages(t - old)`` in the message dtype, ``c2v = stored``, and
+    ``total[v_d] += roll(f32(stored) - old, -s_d)`` slot by slot, except in
+    ``frozen`` frames ([B] bool, or None to update every frame).  Totals
+    compute in their own dtype (f32, or f64 for float64 parity runs)."""
+    z, B = total.shape[1], total.shape[-1]
+    t_flat = total.view(-1, B)
+    for cbs, gidx, eidx, deg in groups:
+        shape = (len(cbs), deg, z, B)
+        t = t_flat.index_select(0, gidx.reshape(-1)).view(shape)
+        old = c2v.index_select(0, eidx).view(shape).to(t.dtype)
+        stored = _check_messages(t - old, synd.index_select(0, cbs), 1,
+                                 rule, tiny, ms_alpha,
+                                 ms_beta).to(c2v.dtype)
+        delta = stored.to(t.dtype) - old
+        for d in range(deg):
+            idx = gidx[:, d].reshape(-1)
+            cur = t_flat.index_select(0, idx)
+            upd = cur + delta[:, d].reshape(-1, B)
+            if frozen is not None:
+                upd = torch.where(frozen, cur, upd)
+            t_flat.index_copy_(0, idx, upd)
+        c2v.index_copy_(0, eidx, stored.view(-1, z, B))
+
+
+def bp_layered_sweeps_qc_ref(tables, it0: int, maxiter: int, total, c2v,
+                             synd, done, iters, *, rule: str = "sumproduct",
+                             k_sweeps: int = 4, tiny: float = 1e-30,
+                             ms_alpha: float = MINSUM_ALPHA,
+                             ms_beta: float = 0.0):
+    """Plain PyTorch layered sweeps (any device); see
+    :func:`bp_layered_sweeps_qc` for the contract.  Rows run by dependency
+    level, as the kernel runs them (bit-identical to row order)."""
+    if rule not in RULES:
+        raise ValueError(f"unknown rule {rule!r}")
+    _check_state(tables, total, c2v, synd, done, iters)
+    synd = synd.to(torch.int32)
+    groups = tables.row_groups(tables.levels, total.device)
+    for k in range(_n_steps(k_sweeps, it0, maxiter)):
+        layered_sweep(groups, total, c2v, synd, done.bool(), rule=rule,
+                      tiny=tiny, ms_alpha=ms_alpha, ms_beta=ms_beta)
+        conv = tables.syndrome_violations(total, synd) == 0
+        iters.copy_(torch.where(conv & (done == 0), it0 + k + 1, iters))
+        done.copy_(done | conv.to(torch.int32))
+    return total, c2v, done, iters
+
+
+def bp_layered_sweeps_qc(tables, it0: int, maxiter: int, total, c2v, synd,
+                         done, iters, *, rule: str = "sumproduct",
+                         k_sweeps: int = 4, tiny: float = 1e-30,
+                         ms_alpha: float = MINSUM_ALPHA,
+                         ms_beta: float = 0.0):
+    """Advance ``n = max(min(k_sweeps, maxiter - it0), 0)`` serial-C
+    layered sweeps of the QC decoder, in place.
+
+    Args:
+      tables: :class:`QCTables` of the code.
+      it0, maxiter: host ints; sweep ``swp = it0 + k + 1`` runs for
+        ``k < n``.
+      total: [nb_v, z, B] float32 totals, prior included.
+      c2v: [E, z, B] messages, base edges flat in row order.
+      synd: [nb_c, z, B] syndrome bits (int8 for the kernel).
+      done, iters: [B] int32.
+      rule: "sumproduct" (phi form), "tanhfb" or "minsum".
+
+    Per sweep, frames done at its start are frozen; each block row in
+    serial order updates its messages (every frame) and folds the deltas of
+    the stored messages into the totals (frames not frozen); then the
+    syndrome of ``total < 0`` is tested and a frame with no violation
+    converges (``iters = swp`` the first time, ``done = 1``).  Returns
+    ``(total, c2v, done, iters)``.
+
+    CPU tensors run :func:`bp_layered_sweeps_qc_ref`.  CUDA tensors run the
+    kernel, which takes contiguous tensors with f32 totals, f32 or bf16
+    messages, int8 synd, int32 done/iters and rows up to ``MAX_DC`` wide;
+    anything else raises.
+    """
+    if total.device.type == "cpu":
+        return bp_layered_sweeps_qc_ref(
+            tables, it0, maxiter, total, c2v, synd, done, iters, rule=rule,
+            k_sweeps=k_sweeps, tiny=tiny, ms_alpha=ms_alpha,
+            ms_beta=ms_beta)
+    if rule not in RULES:
+        raise ValueError(f"unknown rule {rule!r}")
+    _check_state(tables, total, c2v, synd, done, iters)
+    _require_cuda("bp_layered_sweeps_qc", total)
+    if total.dtype != torch.float32:
+        raise TypeError(f"total must be float32, got {total.dtype}")
+    codes = _dtype_codes("bp_layered_sweeps_qc", total.dtype, c2v.dtype)
+    _require_int_state(synd, done, iters)
+    _require_contiguous(total=total, c2v=c2v, synd=synd, done=done,
+                        iters=iters)
+    _require_tables(tables, 0)
+    n = _n_steps(k_sweeps, it0, maxiter)
+    if n == 0:
+        return total, c2v, done, iters
+    B = total.shape[-1]
+    tb = tables.on(total.device)
+    viol = torch.zeros(B, dtype=torch.int32, device=total.device)
+    delta = torch.empty(max(tables.n_defer_slots, 1) * tables.z * B,
+                        dtype=torch.float32, device=total.device)
+    lib = _library("bp_layered_sweeps_qc", "p" * 18 + "i" * 9 + "fffp")
+    with torch.cuda.device(total.device):
+        stream = torch.cuda.current_stream(total.device).cuda_stream
+        err = lib.bp_layered_sweeps_qc_launch(
+            total.data_ptr(), c2v.data_ptr(), synd.data_ptr(),
+            done.data_ptr(), iters.data_ptr(), viol.data_ptr(),
+            delta.data_ptr(), *(tb[name].data_ptr() for name in (
+                "row_off", "edge_v", "edge_s", "level_rows", "defer_base",
+                "app_vb", "app_off", "app_e", "app_s")),
+            tables.level_off.ctypes.data, tables.app_level_off.ctypes.data,
+            len(tables.levels), codes[1], tables.nb_c, tables.dc_max,
+            tables.z, B, RULES[rule], int(it0), n, float(tiny),
+            float(ms_alpha), float(ms_beta), stream,
+        )
+    _raise_on(err, "bp_layered_sweeps_qc")
+    bp_layered_sweeps_qc.launches += 1
+    bp_layered_sweeps_qc.iterations += n
+    return total, c2v, done, iters
+
+
+bp_layered_sweeps_qc.launches = 0
+bp_layered_sweeps_qc.iterations = 0
+
+
+# --------------------------------------------------------------------- #
+# Wrapper checks and the libraries
+
+
+def _require_cuda(name, x):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+
+
+def _dtype_codes(name, t_dtype, m_dtype):
+    codes = _KERNEL_DTYPES.get((t_dtype, m_dtype))
+    if codes is None:
+        raise TypeError(
+            f"{name} kernel takes (totals, messages) dtypes "
+            f"{[(str(a), str(b)) for a, b in _KERNEL_DTYPES]}, got "
+            f"({t_dtype}, {m_dtype}); float64 decodes run on the CPU"
+        )
+    return codes
+
+
+def _require_int_state(synd, done, iters):
+    if synd.dtype != torch.int8:
+        raise TypeError(f"synd must be int8, got {synd.dtype}")
+    if done.dtype != torch.int32 or iters.dtype != torch.int32:
+        raise TypeError("done and iters must be int32")
+
+
+def _require_contiguous(**tensors):
+    bad = [name for name, x in tensors.items() if not x.is_contiguous()]
+    if bad:
+        raise ValueError(f"{', '.join(bad)} must be contiguous")
+
+
+def _require_tables(tables, nb_v):
+    if tables.dc_max > MAX_DC:
+        raise ValueError(
+            f"check degree {tables.dc_max} exceeds the kernel's {MAX_DC}")
+    if max(tables.nb_c, nb_v) > 65535:
+        raise ValueError("more than 65535 block rows exceed the grid")
+
+
+def _raise_on(err, name):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+
+
+def _library(name: str, signature: str):
+    """The loaded library of ``csrc/<name>.cu`` with the argument types of
+    ``<name>_launch`` set from ``signature`` (p pointer, i int, f float)."""
     from .cuda_build import load_library
 
-    lib = load_library("bp_check_phase_qc")
-    fn = lib.bp_check_phase_qc_launch
+    lib = load_library(name)
+    fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, f, f, p]
+        fn.argtypes = [_CTYPES[c] for c in signature]
         fn.restype = ctypes.c_int
     return lib

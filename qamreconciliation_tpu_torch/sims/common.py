@@ -93,11 +93,41 @@ def add_qc_arg(parser: argparse.ArgumentParser):
     )
     parser.add_argument(
         "--schedule", choices=["flooding", "layered"], default="flooding",
-        help="BP update schedule; only 'flooding' is ported yet",
+        help="BP update schedule: 'flooding' (the reference's schedule) or "
+        "'layered' (row-layered serial-C over check blocks; converges in "
+        "roughly half the sweeps for the same quality)",
+    )
+    parser.add_argument(
+        "--layered-chunk", type=int, default=4,
+        help="Layered schedule only: sweeps per host check of 'all done?' "
+        "(and per kernel call with --resident); early exit coarsens to this "
+        "granularity, iters/success stay sweep-exact",
+    )
+    parser.add_argument(
+        "--layered-groups", type=int, default=-1,
+        help="Layered schedule without --resident: process variable-disjoint "
+        "check rows as one batched layer (bit-equivalent to a reordered "
+        "serial sweep).  -1 auto (on for codes with >= 32 check "
+        "block-rows), 0 serial, 1 force grouped",
     )
     parser.add_argument(
         "--resident", action="store_true",
-        help="Multi-iteration resident decode kernel (not ported yet)",
+        help="Multi-iteration decode kernel: --resident-chunk flooding "
+        "iterations (or --layered-chunk layered sweeps) per kernel call, "
+        "with the convergence test, iters and the freeze of converged frames "
+        "inside the kernel and one host read per call",
+    )
+    parser.add_argument(
+        "--resident-chunk", type=int, default=50,
+        help="Resident flooding kernel only: max BP iterations per kernel "
+        "call (convergence stays iteration-exact inside the kernel; one "
+        "call per decode when it covers --maxiter)",
+    )
+    parser.add_argument(
+        "--resident-rowgroup", type=int, default=None,
+        help="Accepted for the JAX CLI's flag set and without effect: the "
+        "row split is a TPU register-pressure device the GPU kernels do "
+        "not need (1 is refused as in the JAX decoder)",
     )
     parser.add_argument(
         "--totals-dtype", choices=["storage", "float32"], default="storage",
@@ -127,12 +157,18 @@ def load_decoder(args):
         raise not_ported("a code without --qc", item)
     from ..models.qc_decoder import QCDecoder, load_qc_csv
 
+    lg = getattr(args, "layered_groups", -1)
     base_edges, z = load_qc_csv(args.edgefile)
     dec = QCDecoder(
         base_edges, z, dtype=as_dtype(args.dtype), device=args.device,
         check_rule=args.check_rule, check_phi=args.check_phi,
         minsum_alpha=args.minsum_alpha, minsum_beta=args.minsum_beta,
         totals_dtype=args.totals_dtype, schedule=args.schedule,
-        resident=args.resident, sr_messages=args.sr_messages,
+        layered_chunk=getattr(args, "layered_chunk", 4),
+        layered_groups=None if lg < 0 else bool(lg),
+        resident=args.resident,
+        resident_chunk=getattr(args, "resident_chunk", 16),
+        resident_rowgroup=getattr(args, "resident_rowgroup", None),
+        sr_messages=args.sr_messages,
     )
     return dec, dec.vid, dec.cid

@@ -3,7 +3,9 @@
     python -m qamreconciliation_tpu_torch.sims.sim_reconciliation EDGEFILE \
         --qc [--out out.csv] [--maxiter 50] [--ferr-count-min 100]
         [--alpha 1.0] [--simloops 5000] [--snr 0 5] [--nsnr 11] [--bps 2]
-        [--configuration-base] [--device cuda] ...
+        [--configuration-base] [--device cuda]
+        [--resident [--resident-chunk 50]]
+        [--schedule layered [--layered-chunk 4] [--layered-groups -1]] ...
 
 Output CSV: an unnamed index column then ``EsN0dB,ber,fer,iters``.  SNR
 points run sequentially; each point processes a frame batch per round.
@@ -82,6 +84,20 @@ def write_csv(path: str, rows):
 def main(argv=None):
     """Run the sweep; returns the list of per-point :class:`PointResult`."""
     args = build_parser().parse_args(argv)
+    if args.graph_shard and args.point_batch:
+        raise SystemExit(
+            "--graph-shard is mutually exclusive with --point-batch"
+        )
+    if args.graph_shard and args.schedule != "flooding":
+        raise SystemExit("--graph-shard supports only --schedule flooding")
+    if args.graph_shard and args.resident:
+        raise SystemExit("--graph-shard is incompatible with --resident "
+                         "(the resident decode runs on one device)")
+    if args.resident and args.point_batch:
+        raise SystemExit(
+            "--resident is incompatible with --point-batch (the SNR-point "
+            "batch cannot wrap the resident decode kernel)"
+        )
     for flag, item in (("graph_shard", "14 (multi-GPU)"),
                        ("point_batch", "5 (run_sweep_batched)"),
                        ("hard", "11 (the other engine modes)"),

@@ -84,3 +84,42 @@ def test_fb_allbutone_list_matches_jax():
     g_out, g_full = tbp.fb_allbutone_list([torch.from_numpy(t) for t in terms])
     for w, g in zip(w_out + [w_full], g_out + [g_full]):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+SM_RULES = [
+    ("update", {}), ("tanhfb", {}), ("minsum", {}),
+    ("minsum", dict(alpha=1.0, beta=0.3)),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rule,kw", SM_RULES)
+def test_slot_major_check_rules_match_jax(rule, kw, dtype):
+    """check_node_{update,tanhfb,minsum}_sm on [dc, C, B] with padded
+    slots (mask 0) and bf16 computed in f32: min-sum bit-exact, the
+    sum-product forms within rtol/atol 1e-6 (f32) or one bf16 ulp."""
+    rng = np.random.default_rng(len(rule) + len(kw))
+    dc, C, B = 6, 10, 16
+    v2c = rng.normal(0, 3, (dc, C, B)).astype(np.float32)
+    synd = rng.integers(0, 2, (C, B)).astype(np.int32)
+    mask = np.ones((dc, C), np.float32)
+    mask[4:, ::3] = 0.0
+    mask[5, 1::3] = 0.0
+    jfn = getattr(jbp, f"check_node_{rule}_sm")
+    tfn = getattr(tbp, f"check_node_{rule}_sm")
+    jd, td = (jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16" else (
+        jnp.float32, torch.float32)
+    want = jfn(jnp.asarray(v2c, jd), jnp.asarray(synd), mask, **kw)
+    got = tfn(torch.from_numpy(v2c).to(td), torch.from_numpy(synd),
+              torch.from_numpy(mask), **kw)
+    assert got.dtype == td
+    want = np.asarray(want.astype(jnp.float32))
+    got = got.float().numpy()
+    assert np.all(got[mask == 0] == 0)
+    if rule == "minsum":
+        np.testing.assert_array_equal(got, want)
+    elif dtype == "bfloat16":
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+        assert np.all(np.abs(got - want) <= ulp)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)

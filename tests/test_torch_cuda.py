@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain version, and the wrapper's
+"""The port's CUDA kernels against their plain versions, and the wrappers'
 dispatch.  Imports no JAX, so it also runs on a GPU host without jax:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -6,7 +6,9 @@ dispatch.  Imports no JAX, so it also runs on a GPU host without jax:
 Tests marked ``cuda`` skip without a card.  Tolerances as in
 test_torch_check_phase.py: min-sum and the convergence counts are exact,
 phi/tanhfb within rtol/atol 1e-5 in f32 (two libms: the kernel's and
-PyTorch's CUDA ops) or one bf16 ulp with bf16 messages.
+PyTorch's CUDA ops) or one bf16 ulp with bf16 messages.  The multi-step
+kernels compound that over K steps: their sum-product state is held within
+rtol/atol 1e-4 (f32) or 2^-6 (bf16), with done and iters exact.
 """
 
 import numpy as np
@@ -15,11 +17,12 @@ import torch
 
 from qamreconciliation_tpu_torch.models.matrix import Matrix
 from qamreconciliation_tpu_torch.models.qc_decoder import (
-    QCDecoder, make_qc_ldpc,
+    QCDecoder, make_qc_ira, make_qc_ldpc,
 )
 from qamreconciliation_tpu_torch.ops import cuda_build
 from qamreconciliation_tpu_torch.ops.kernels import (
-    bp_check_phase_qc, bp_check_phase_qc_ref,
+    QCTables, bp_check_phase_qc, bp_check_phase_qc_ref, bp_decode_rounds_qc,
+    bp_decode_rounds_qc_ref, bp_layered_sweeps_qc, bp_layered_sweeps_qc_ref,
 )
 
 torch.set_num_threads(1)
@@ -86,8 +89,16 @@ def test_build_keys_library_by_source_and_reports_missing_nvcc(
     src.write_text("// a\n")
     first = cuda_build._library_path(src)
     src.write_text("// b\n")
-    assert cuda_build._library_path(src) != first
+    second = cuda_build._library_path(src)
+    assert second != first
     assert first.parent == cuda_build.BUILD_DIR
+    # a shared header beside the source is part of the key
+    header = tmp_path / "common.cuh"
+    header.write_text("// x\n")
+    with_header = cuda_build._library_path(src)
+    assert with_header != second
+    header.write_text("// y\n")
+    assert cuda_build._library_path(src) not in (with_header, second)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
@@ -159,3 +170,182 @@ def test_cuda_decode_matches_cpu(kw):
     else:
         torch.testing.assert_close(gpu[2].cpu(), cpu[2], rtol=1e-4,
                                    atol=1e-4)
+
+
+# --------------------------------------------------- multi-step kernels
+
+
+def rows_of(base):
+    rows = [[] for _ in range(max(c for c, _, _ in base) + 1)]
+    for c, v, s in base:
+        rows[c].append((v, s))
+    return rows
+
+
+# ragged z and B; rows 1, 2 and 5 of the regular code hold a repeated
+# variable block, the IRA code's I + P^1 cells do too
+STEP_CODES = {
+    "regular": (rows_of(make_qc_ldpc(12, 40, 3, 6, seed=4)[0]), 40),
+    "ira": (rows_of(make_qc_ira(8, 4, 40, dv=3, seed=2)[0]), 40),
+}
+STEP_B = 40
+
+
+def step_state(tables, m_dtype, t_dtype, seed, layered):
+    """CPU state from numpy-seeded channel LLRs (per-frame noise 0.8-3.2,
+    so some frames converge within a few steps and others do not)."""
+    z, B = tables.z, STEP_B
+    rng = np.random.default_rng(seed)
+    shape = (tables.nb_v, z, B)
+    word = rng.integers(0, 2, shape)
+    llr = ((1 - 2 * word) * 3.0 + rng.normal(0, 1.0, shape)
+           * np.linspace(0.8, 3.2, B)).astype(np.float32)
+    synd = np.zeros((tables.nb_c, z, B), np.int8)
+    for cb, row in enumerate(tables.rows):
+        for v, s in row:
+            synd[cb] ^= np.roll(word[v], s, axis=0).astype(np.int8)
+    prior = torch.from_numpy(llr).to(m_dtype)
+    c2v = torch.zeros((tables.E, z, B), dtype=m_dtype)
+    flags = [torch.zeros(B, dtype=torch.int32) for _ in range(2)]
+    if layered:
+        return [prior.float(), c2v, torch.from_numpy(synd), *flags]
+    return [prior.to(t_dtype, copy=True), c2v, prior,
+            torch.from_numpy(synd), *flags]
+
+
+def assert_state_close(got, want, rule, m_dtype):
+    for g, w in zip(got, want):
+        g, w = g.cpu(), w.cpu()
+        if g.dtype == torch.int32 or rule == "minsum":
+            assert torch.equal(g, w)
+        elif m_dtype == torch.bfloat16:
+            torch.testing.assert_close(g.float(), w.float(), rtol=2 ** -6,
+                                       atol=2 ** -6)
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+STEP_RULES = ["sumproduct", "tanhfb", "minsum"]
+
+
+def test_multi_step_cpu_tensors_run_the_plain_versions():
+    rows, z = STEP_CODES["regular"]
+    tables = QCTables(rows, z)
+    for layered, fn, ref in ((False, bp_decode_rounds_qc,
+                              bp_decode_rounds_qc_ref),
+                             (True, bp_layered_sweeps_qc,
+                              bp_layered_sweeps_qc_ref)):
+        a = step_state(tables, torch.float32, torch.float32, 1, layered)
+        b = [x.clone() for x in a]
+        n0 = (fn.launches, fn.iterations)
+        fn(tables, 0, 50, *a, rule="minsum")
+        ref(tables, 0, 50, *b, rule="minsum")
+        assert (fn.launches, fn.iterations) == n0
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", list(STEP_CODES))
+@pytest.mark.parametrize("t_dtype,m_dtype", DTYPES)
+@pytest.mark.parametrize("rule", STEP_RULES)
+def test_rounds_kernel_matches_plain(rule, t_dtype, m_dtype, code):
+    need_cuda()
+    rows, z = STEP_CODES[code]
+    tables = QCTables(rows, z)
+    state = [x.cuda() for x in step_state(tables, m_dtype, t_dtype, 3,
+                                          False)]
+    bp_decode_rounds_qc_ref(tables, 0, 50, *state, rule=rule, k_rounds=2)
+    want = [x.clone() for x in state]
+    n0 = (bp_decode_rounds_qc.launches, bp_decode_rounds_qc.iterations)
+    bp_decode_rounds_qc(tables, 2, 50, *state, rule=rule, k_rounds=4)
+    assert (bp_decode_rounds_qc.launches - n0[0],
+            bp_decode_rounds_qc.iterations - n0[1]) == (1, 4)
+    bp_decode_rounds_qc_ref(tables, 2, 50, *want, rule=rule, k_rounds=4)
+    torch.cuda.synchronize()
+    assert 0 < int(want[4].sum()) < STEP_B
+    assert_state_close(state[:2] + state[4:], want[:2] + want[4:], rule,
+                       m_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", list(STEP_CODES))
+@pytest.mark.parametrize("m_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rule", STEP_RULES)
+def test_sweeps_kernel_matches_plain(rule, m_dtype, code):
+    need_cuda()
+    rows, z = STEP_CODES[code]
+    tables = QCTables(rows, z)
+    assert tables.n_defer_slots > 0
+    state = [x.cuda() for x in step_state(tables, m_dtype, None, 5, True)]
+    bp_layered_sweeps_qc_ref(tables, 0, 50, *state, rule=rule, k_sweeps=1)
+    want = [x.clone() for x in state]
+    n0 = bp_layered_sweeps_qc.launches
+    bp_layered_sweeps_qc(tables, 1, 50, *state, rule=rule, k_sweeps=3)
+    assert bp_layered_sweeps_qc.launches == n0 + 1
+    bp_layered_sweeps_qc_ref(tables, 1, 50, *want, rule=rule, k_sweeps=3)
+    torch.cuda.synchronize()
+    assert 0 < int(want[3].sum()) < STEP_B
+    assert_state_close(state[:2] + state[3:], want[:2] + want[3:], rule,
+                       m_dtype)
+
+
+@pytest.mark.cuda
+def test_multi_step_kernels_reject_what_they_do_not_take():
+    need_cuda()
+    rows, z = STEP_CODES["regular"]
+    tables = QCTables(rows, z)
+    st = [x.cuda() for x in step_state(tables, torch.float32, torch.float32,
+                                       1, False)]
+    with pytest.raises(TypeError, match="synd"):
+        bp_decode_rounds_qc(tables, 0, 5, st[0], st[1], st[2],
+                            st[3].int(), st[4], st[5])
+    with pytest.raises(TypeError):
+        bp_decode_rounds_qc(tables, 0, 5, st[0], st[1], st[2].bfloat16(),
+                            st[3], st[4], st[5])
+    with pytest.raises(ValueError, match="contiguous"):
+        nc = st[1].transpose(1, 2).contiguous().transpose(1, 2)
+        bp_decode_rounds_qc(tables, 0, 5, st[0], nc, st[2], st[3], st[4],
+                            st[5])
+    lay = [x.cuda() for x in step_state(tables, torch.float32, None, 1,
+                                        True)]
+    with pytest.raises(TypeError, match="float32"):
+        bp_layered_sweeps_qc(tables, 0, 5, lay[0].bfloat16(), lay[1],
+                             *lay[2:])
+
+
+def _card_frames(base, z, B, seed, noise):
+    nb_v = max(v for _, v, _ in base) + 1
+    rng = np.random.default_rng(seed)
+    word = rng.integers(0, 2, (B, nb_v * z))
+    dec = QCDecoder(base, z, device="cpu")
+    synd = dec.syndrome_from_bits(torch.from_numpy(word.T)).T
+    llr = torch.from_numpy(
+        (1 - 2 * word) * 3.0 + rng.normal(0, noise, word.shape)).float()
+    return llr, synd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_resident_decoders_match_their_plain_loops(dtype):
+    """On the card: resident min-sum == dense min-sum (kernel 2 against
+    kernel 1), resident layered == the serial plain layered loop."""
+    need_cuda()
+    base = make_qc_ldpc(12, 32, 3, 6, seed=7)[0]
+    llr, synd = _card_frames(base, 32, 24, 4, 2.2)
+    kw = dict(dtype=dtype, device="cuda", check_rule="minsum")
+    dense = QCDecoder(base, 32, **kw).decode_batch(llr, synd, 25)
+    n0 = bp_decode_rounds_qc.iterations
+    dec = QCDecoder(base, 32, resident=True, resident_chunk=6, **kw)
+    res = dec.decode_batch(llr, synd, 25)
+    assert bp_decode_rounds_qc.iterations - n0 == dec.iterations_run > 0
+    for g, w in zip(res, dense):
+        assert torch.equal(g.cpu(), w.cpu())
+    assert 0 < int(dense[0].sum()) < 24
+    plain = QCDecoder(base, 32, schedule="layered", layered_groups=False,
+                      **kw).decode_batch(llr, synd, 25)
+    n0 = bp_layered_sweeps_qc.iterations
+    dec = QCDecoder(base, 32, schedule="layered", resident=True, **kw)
+    lay = dec.decode_batch(llr, synd, 25)
+    assert bp_layered_sweeps_qc.iterations - n0 == dec.iterations_run > 0
+    for g, w in zip(lay, plain):
+        assert torch.equal(g.cpu(), w.cpu())

@@ -101,3 +101,46 @@ def test_host_tables_match_jax():
     assert jt.keys() == tt.keys()
     for k in jt:
         np.testing.assert_array_equal(tt[k], jt[k])
+
+
+@pytest.mark.parametrize("bps,snr", CASES)
+def test_bf16_softening_matches_jax_without_x64(bps, snr):
+    """bf16 samples: the JAX ``F_Y`` promotes to float32 (its float64 numpy
+    scalar, with x64 off as on an accelerator), so the metric is float32 and
+    the bf16 poly LLRs are rounded once.  The port mirrors that: the metric
+    within the float32 tolerance above and, at bps 2, the bf16 LLRs
+    bit-equal (at bps 4 the metric's tolerance can move an LLR by one bf16
+    ulp)."""
+    import jax
+
+    pa = PAMAlphabet(bps, 2.0)
+    N0 = pa.variance * 10 ** (-snr / 10) / 2
+    cfg = sign_config(pa.order, "alternating")
+    rng = np.random.default_rng(9)
+    x = rng.integers(0, pa.order, (512, 4)).astype(np.int32)
+    y = (pa.constellation[x] + np.sqrt(N0) * rng.normal(size=x.shape)) \
+        .astype(np.float32)
+    tnm = NoiseMapper(pa, N0, cfg, dtype=torch.bfloat16, device="cpu")
+    tnm._ensure_llr_poly()
+    ty = torch.from_numpy(y).to(torch.bfloat16)
+    tn = tnm.map_noise(ty, tnm.hard_decide_index(ty))
+    tl = tnm._poly_llr_bits(tn, torch.from_numpy(x))
+    with jax.enable_x64(False):
+        jnm = JNM(JPAM(bps, 2.0), N0, cfg, dtype=jnp.bfloat16)
+        jy = jnp.asarray(y, jnp.bfloat16)
+        jn = jnm.map_noise(jy, jnm.hard_decide_index(jy))
+        jl = jnm._poly_llr_bits(jn, jnp.asarray(x))
+        jn = np.asarray(jn)
+        jl = [np.asarray(b.astype(jnp.float32)) for b in jl]
+    assert tn.dtype == torch.float32 and jn.dtype == np.float32
+    atol = max(1e-6, 4 * 2.0 ** -24 / tnm.np_tables["delta_F_Y"].min())
+    np.testing.assert_allclose(tn.numpy(), jn, rtol=0, atol=atol)
+    for got, want in zip(tl, jl):
+        assert got.dtype == torch.bfloat16
+        got = got.float().numpy()
+        if bps == 2:
+            np.testing.assert_array_equal(got, want)
+        else:
+            ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30)))
+                          - 7)
+            assert np.all(np.abs(got - want) <= ulp)

@@ -168,8 +168,6 @@ def test_decode_zero_iterations_and_iters_semantics():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(resident=True), "item 7"),
-    (dict(schedule="layered"), "item 8"),
     (dict(compressed=True), "item 15"),
     (dict(sr_messages=True), "item 15"),
 ])
