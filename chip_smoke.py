@@ -4,7 +4,7 @@
 
 Phases (each must pass, or the script exits non-zero):
   1. environment: torch version, the card, its power limit (nvidia-smi);
-  2. build: the CUDA kernels from qamreconciliation_tpu_torch/csrc with nvcc,
+  2. build: the CUDA sources in qamreconciliation_tpu_torch/csrc with nvcc,
      one nvcc per source, all started together;
   3. kernel 1 (bp_check_phase_qc) against its plain PyTorch version on the
      card, at the headline check-phase shape [90, 6, 360, 128], every rule
@@ -24,7 +24,19 @@ Phases (each must pass, or the script exits non-zero):
      reverse-reconciliation sweep CLIs on the headline code;
   8. quality watch: the knee FERs of the resident and resident-layered
      decoders at the JAX package's knee configuration, held to its figures
-     where they are comparable (see phase_knee).
+     where they are comparable (see phase_knee);
+  9. kernel 4 (bp_check_phase_generic) against its plain version at the
+     DVB-S2 shapes [7, 32400, 128] (rate 1/2) and [14, 16200, 128] (rate
+     3/4) with the codes' masks and random ones, every rule and dtype, and
+     kernel 5 (check_node_update_fused) at [32400, 7, 128], bit for bit;
+ 10. the generic decoder on the exact DVB-S2 rate-1/2 H: kernel against
+     plain check phase on the card, bit for bit;
+ 11. main paths, counts set to 0 just before each and read just after: the
+     generic sweep CLI (no --qc) on the exact rate-1/2 H and the regular
+     (3,6) code, the --lift-qc CLI, and kernel 5's check-major update;
+ 12. quality watch: the exact rate-1/2 H at 3.75 dB in float32 tanh-F/B,
+     held to the JAX package's generic-decoder FER (see
+     phase_generic_quality).
 Kernel and plain times are CUDA-event medians, taken in turns.  The last two
 lines are the kernels' JSON record and {"ok": true, "device": {...}}.  Needs
 CUDA; exits 2 without it.
@@ -55,10 +67,14 @@ KNEE_FER = {("flooding", "float32"): 0.4170, ("layered", "float32"): 0.1328,
 ALTERNATING = np.array([0, 1, 0, 1], np.uint8)
 CSRC = "qamreconciliation_tpu_torch/csrc"
 PALLAS = "qamreconciliation_tpu/ops/pallas_kernels.py"
+# wrapper in ops/kernels.py -> (its source in csrc/, the TPU kernel it
+# replaces); kernel 5 is a mode of kernel 4's source
 KERNELS = {
-    "bp_check_phase_qc": f"{PALLAS}:158",
-    "bp_decode_rounds_qc": f"{PALLAS}:580",
-    "bp_layered_sweeps_qc": f"{PALLAS}:1185",
+    "bp_check_phase_qc": ("bp_check_phase_qc", f"{PALLAS}:158"),
+    "bp_decode_rounds_qc": ("bp_decode_rounds_qc", f"{PALLAS}:580"),
+    "bp_layered_sweeps_qc": ("bp_layered_sweeps_qc", f"{PALLAS}:1185"),
+    "bp_check_phase_generic": ("bp_check_phase_generic", f"{PALLAS}:224"),
+    "check_node_update_fused": ("bp_check_phase_generic", f"{PALLAS}:340"),
 }
 
 
@@ -122,47 +138,59 @@ def counts():
 
 
 def record(kernels, name, **kw):
+    source, replaces = KERNELS[name]
     kernels.setdefault(name, dict(
-        name=name, route="cuda", source=f"{CSRC}/{name}.cu",
-        replaces=KERNELS[name], launches=None,
+        name=name, route="cuda", source=f"{CSRC}/{source}.cu",
+        replaces=replaces, launches=None,
     )).update(kw)
 
 
 def build_all():
     from qamreconciliation_tpu_torch.ops import cuda_build
 
+    sources = sorted({source for source, _ in KERNELS.values()})
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-        libs = list(pool.map(cuda_build.build, KERNELS))
-    for name in KERNELS:
-        cuda_build.load_library(name)
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        libs = list(pool.map(cuda_build.build, sources))
+    for source in sources:
+        cuda_build.load_library(source)
     log(f"[build] {', '.join(lib.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.1f} s")
 
 
-def softening_llrs(base, z, groups, seed=7):
-    """Softening LLRs [V, B] and syndromes [C, B] on the card, frames drawn
-    in groups of (snr_dB, frames) so that a batch mixes frames that
-    converge at once, within a few iterations, and not at all."""
+def softening_frames(dec, mat, groups, seed=7):
+    """Softening LLRs [V, B] and syndromes [C, B] on the card for ``dec``,
+    frames drawn in groups of (snr_dB, frames) so that a batch mixes frames
+    that converge at once, within a few iterations, and not at all."""
     from qamreconciliation_tpu_torch.models.alphabet import PAMAlphabet
-    from qamreconciliation_tpu_torch.models.matrix import Matrix
-    from qamreconciliation_tpu_torch.models.qc_decoder import QCDecoder
     from qamreconciliation_tpu_torch.sims.engine import (
         ReconciliationEngine, round_generator,
     )
 
-    dec = QCDecoder(base, z, device="cuda")
+    synd_fn = getattr(dec, "syndrome_from_bits", None) \
+        or dec.graph.syndrome_from_bits
     llrs, synds = [], []
     for i, (snr, frames) in enumerate(groups):
-        eng = ReconciliationEngine(dec, Matrix(dec.vid, dec.cid),
-                                   PAMAlphabet(2, 2.0), batch=frames)
+        eng = ReconciliationEngine(dec, mat, PAMAlphabet(2, 2.0),
+                                   batch=frames)
         nm = eng.make_noisemapper(snr, ALTERNATING)
         x, y = eng._sample_sb(round_generator(seed, i, "cuda"),
                               math.sqrt(eng.noise_var(snr)))
         lappr, word = eng._softening_inputs(nm, x, y, 1.0)
         llrs.append(lappr)
-        synds.append(dec.syndrome_from_bits(word))
-    return torch.cat(llrs, 1), torch.cat(synds, 1), dec
+        synds.append(synd_fn(word))
+    return torch.cat(llrs, 1), torch.cat(synds, 1)
+
+
+def softening_llrs(base, z, groups, seed=7):
+    """:func:`softening_frames` of the QC code ``(base, z)``, with its
+    QCDecoder."""
+    from qamreconciliation_tpu_torch.models.matrix import Matrix
+    from qamreconciliation_tpu_torch.models.qc_decoder import QCDecoder
+
+    dec = QCDecoder(base, z, device="cuda")
+    return (*softening_frames(dec, Matrix(dec.vid, dec.cid), groups, seed),
+            dec)
 
 
 # mixed-SNR frames of the kernel phases: 7 dB converges at once, 4.5 dB
@@ -475,20 +503,35 @@ def phase_resident_decoders():
             f"{ms[0]:.1f} ms vs {ms[1]:.1f} ms (first calls)")
 
 
-def run_cli(code_base, z, flags, label):
-    """sim_reconciliation on a saved code with ``flags``; counts reset just
-    before and read just after.  Returns (results, launches)."""
+def qc_code(code_base, z):
+    """A writer of the QC base-edge CSV, and the flag that reads it."""
     from qamreconciliation_tpu_torch.models.qc_decoder import save_qc_csv
+
+    return (lambda path: save_qc_csv(path, code_base, z)), ["--qc"]
+
+
+def edge_code(vid, cid, flags=()):
+    """A writer of the expanded edge CSV, and ``flags``."""
+    from qamreconciliation_tpu_torch.utils.edgefile import save_edge_csv
+
+    return (lambda path: save_edge_csv(path, vid, cid)), list(flags)
+
+
+def run_cli(code, flags, label):
+    """sim_reconciliation on a code saved by ``code = (writer, flags)``
+    with ``flags``; counts reset just before and read just after.  Returns
+    (results, launches, device iterations)."""
     from qamreconciliation_tpu_torch.ops import kernels as K
     from qamreconciliation_tpu_torch.sims import sim_reconciliation
 
+    write, code_flags = code
     with tempfile.TemporaryDirectory() as tmp:
-        code = os.path.join(tmp, "code.csv")
+        path = os.path.join(tmp, "code.csv")
         out = os.path.join(tmp, "out.csv")
-        save_qc_csv(code, code_base, z)
+        write(path)
         reset_counts()
         results = sim_reconciliation.main(
-            [code, "--qc", "--batch", "128", "--maxiter", "50", "--bps",
+            [path, *code_flags, "--batch", "128", "--maxiter", "50", "--bps",
              "2", "--device", "cuda", "--out", out, *flags])
         launches = counts()
         device_iters = {n: getattr(K, n).iterations for n in
@@ -515,7 +558,7 @@ def phase_main_paths(kernels):
                               CODE["dc"], seed=CODE["seed"])
     z = CODE["z"]
     # dense f32 sum-product (kernel 1)
-    res, launches, _ = run_cli(base, z, [
+    res, launches, _ = run_cli(qc_code(base, z), [
         "--snr", "3.5", "4.0", "--nsnr", "2", "--simloops", "256"], "main dense")
     iterations = sum(r.bp_iterations for r in res)
     assert iterations > 0 and launches["bp_check_phase_qc"] == iterations
@@ -524,7 +567,7 @@ def phase_main_paths(kernels):
            launches=launches["bp_check_phase_qc"])
     # resident bf16 (kernel 2; tanh-F/B by the auto rule), the JAX
     # package's headline engine
-    res, launches, dev = run_cli(base, z, [
+    res, launches, dev = run_cli(qc_code(base, z), [
         "--resident", "--dtype", "bfloat16", "--snr", "3.5", "4.0",
         "--nsnr", "2", "--simloops", "512"], "main resident")
     assert launches["bp_decode_rounds_qc"] > 0
@@ -535,14 +578,14 @@ def phase_main_paths(kernels):
     record(kernels, "bp_decode_rounds_qc",
            launches=launches["bp_decode_rounds_qc"])
     # the cost of chunk-granular early exit: chunk 10 against 50 at 4.0 dB
-    res10, _, _ = run_cli(base, z, [
+    res10, _, _ = run_cli(qc_code(base, z), [
         "--resident", "--resident-chunk", "10", "--dtype", "bfloat16",
         "--snr", "4.0", "4.0", "--nsnr", "1", "--simloops", "512"],
         "main resident chunk 10")
     log(f"[main resident] 4.0 dB frames/s: chunk 50 "
         f"{res[1].frames_per_s:.1f}, chunk 10 {res10[0].frames_per_s:.1f}")
     # resident layered bf16 min-sum (kernel 3)
-    res, launches, dev = run_cli(base, z, [
+    res, launches, dev = run_cli(qc_code(base, z), [
         "--schedule", "layered", "--resident", "--check-rule", "minsum",
         "--dtype", "bfloat16", "--snr", "3.5", "3.5", "--nsnr", "1",
         "--simloops", "256"], "main layered")
@@ -593,7 +636,8 @@ def phase_knee():
 
     for sched, (flags, kw) in schedules.items():
         for dtype in ("float32", "bfloat16"):
-            res, _, _ = run_cli(base, z, flags + ["--dtype", dtype] + common,
+            res, _, _ = run_cli(qc_code(base, z),
+                                flags + ["--dtype", dtype] + common,
                                 f"knee {sched} {dtype}")
             assert res[0].frames == 1024
             check(f"{sched} CLI --dtype {dtype}", (sched, dtype),
@@ -605,6 +649,293 @@ def phase_knee():
             seed=0)
         check(f"{sched} bf16 decoder, float32 samples",
               (sched, "float32"), r.fer)
+
+# ------------------------------------------------------------------------
+# The generic decoder (kernels 4 and 5) on the DVB-S2 codes
+
+# the JAX package's generic-decoder figure on the exact rate-1/2 H
+# (docs/img/r5_dvbs2.jsonl, step wrap_equivalence, exact_generic: 1024
+# frames at 3.75 dB, bf16 tanh-F/B)
+DVBS2_FER, DVBS2_ITERS = 0.0009765625, 22.266862170087972
+# the JAX bench's non-QC headline code (bench.py:226-230)
+REGULAR = dict(n=64800, dv=3, dc=6, seed=12345)
+_CODES = {}
+
+
+def dvbs2_code(rate):
+    """(vid, cid) of the exact DVB-S2 H at ``rate`` (models/dvbs2: the
+    synthetic table of seed 0, the wrap circulant's missing edge dropped),
+    built once."""
+    from qamreconciliation_tpu_torch.models.dvbs2 import (
+        expanded_edges, make_table,
+    )
+
+    if rate not in _CODES:
+        _CODES[rate] = expanded_edges(make_table(rate, seed=0))
+    return _CODES[rate]
+
+
+def generic_inputs(mask, B, seed):
+    """Random t, c2v [dc, C, B] and a syndrome that a quarter of the frames
+    satisfy (both convergence outcomes occur)."""
+    dc, C = mask.shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t = 3.0 * torch.randn((dc, C, B), generator=gen, device="cuda")
+    c2v = torch.randn((dc, C, B), generator=gen, device="cuda") \
+        * mask[:, :, None]
+    synd = torch.randint(0, 2, (C, B), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    par = torch.sum((t < 0).int() * mask.int()[:, :, None], 0) & 1
+    synd[:, : B // 4] = par[:, : B // 4]
+    return t, c2v, synd
+
+
+def phase_generic_kernels(kernels):
+    """Kernel 4 against its plain version at the rate-1/2 shape [7, 32400,
+    128] and the rate-3/4 shape [14, 16200, 128] (MAXD 32) with the codes'
+    masks, every rule and dtype, plus random non-prefix masks; kernel 5 at
+    [32400, 7, 128].  All bit for bit."""
+    from qamreconciliation_tpu_torch.models.decoder import TannerGraph
+    from qamreconciliation_tpu_torch.ops.kernels import (
+        bp_check_phase_generic, bp_check_phase_generic_ref,
+        check_node_update_fused, check_node_update_fused_ref,
+    )
+
+    B = 128
+    rules = (("sumproduct", {}), ("tanhfb", {}), ("minsum", {}),
+             ("minsum", dict(ms_alpha=1.0, ms_beta=0.3)))
+    for rate in ("1/2", "3/4"):
+        g = TannerGraph(*dvbs2_code(rate), device="cuda")
+        code_mask = torch.as_tensor(g._c_mask_T_np, dtype=torch.float32,
+                                    device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        rand_mask = (torch.rand(code_mask.shape, generator=gen,
+                                device="cuda") < 0.8).float()
+        cases = [(rule, kw, dt, "code") for rule, kw in rules
+                 for dt in (torch.float32, torch.bfloat16)]
+        cases += [("sumproduct", {}, torch.float32, "random"),
+                  ("minsum", {}, torch.bfloat16, "random")]
+        data = {"code": (code_mask, generic_inputs(code_mask, B, 1)),
+                "random": (rand_mask, generic_inputs(rand_mask, B, 2))}
+        for rule, kw, dt, which in cases:
+            mask, (t, c2v, synd) = data[which]
+            args = (t.to(dt), c2v.to(dt), synd, mask)
+            got, gviol = bp_check_phase_generic(*args, rule=rule, **kw)
+            want, wviol = bp_check_phase_generic_ref(*args, rule=rule, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(gviol, wviol), "violation counts differ"
+            conv = gviol.sum(0) == 0
+            assert bool(conv[: B // 4].all()) and not bool(conv.all())
+            assert torch.equal(got, want), \
+                f"kernel 4 {rate} {rule} {dt} {which}: not bit-equal"
+            err = float((got.float() - want.float()).abs().max())
+            ms, plain_ms = time_pair(
+                lambda: bp_check_phase_generic(*args, rule=rule, **kw),
+                lambda: bp_check_phase_generic_ref(*args, rule=rule, **kw),
+                reps=10, warmup=2,
+            )
+            name = (f"{rule}{'(a=1,b=0.3)' if kw else ''} {str(dt)[6:]} "
+                    f"{which} mask")
+            log(f"[kernel4] rate {rate} {tuple(t.shape)} {name:34s} "
+                f"bit-equal kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+            if (rate, rule, kw, dt, which) == ("1/2", "sumproduct", {},
+                                               torch.float32, "code"):
+                record(kernels, "bp_check_phase_generic", max_abs_err=err,
+                       ms=ms, plain_ms=plain_ms)
+                moved = 3 * t.numel() * 4 + synd.numel() * 4
+                log(f"[kernel4] headline f32 phi: {moved / 1e6:.1f} MB "
+                    f"moved, {moved / ms / 1e6:.1f} GB/s")
+        if rate == "1/2":
+            v = data["code"][1][0].transpose(0, 1).contiguous()
+            args = (v, data["code"][1][2], code_mask.T.contiguous())
+            got = check_node_update_fused(*args)
+            want = check_node_update_fused_ref(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), "kernel 5: not bit-equal"
+            ms, plain_ms = time_pair(
+                lambda: check_node_update_fused(*args),
+                lambda: check_node_update_fused_ref(*args),
+                reps=10, warmup=2)
+            log(f"[kernel5] {tuple(v.shape)} f32 phi bit-equal kernel "
+                f"{ms:.4f} ms  plain {plain_ms:.4f} ms")
+            record(kernels, "check_node_update_fused", max_abs_err=float(
+                (got - want).abs().max()), ms=ms, plain_ms=plain_ms)
+
+
+def phase_generic_decoder():
+    """The rate-1/2 generic decoder on the card (kernel 4) against the same
+    decoder with the plain check phase on the card, bit for bit on
+    (success, iters, final), min-sum in f32 and bf16, and f32 phi; B = 128
+    frames at mixed SNRs around the knee."""
+    from qamreconciliation_tpu_torch.models.decoder import Decoder
+    from qamreconciliation_tpu_torch.models.matrix import Matrix
+    from qamreconciliation_tpu_torch.ops.kernels import (
+        bp_check_phase_generic_ref,
+    )
+
+    vid, cid = dvbs2_code("1/2")
+    mat = Matrix(vid, cid)
+    probe = Decoder(vid, cid, device="cuda")
+    lappr, synd = softening_frames(probe, mat, ((2.9, 32), (3.5, 64),
+                                                (6.0, 32)), seed=3)
+    for kw in (dict(dtype="float32", check_rule="minsum"),
+               dict(dtype="bfloat16", check_rule="minsum"),
+               dict(dtype="float32")):
+        out, ms, its = [], [], []
+        for plain in (False, True):
+            dec = Decoder(vid, cid, device="cuda", **kw)
+            if plain:
+                dec.check_phase = bp_check_phase_generic_ref
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out.append(dec.decode_batched(lappr, synd, 50))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            its.append(dec.iterations_run)
+        for a, b in zip(*out):
+            assert torch.equal(a, b), f"generic {kw}: not bit-equal"
+        s, i, _ = out[0]
+        assert 0 < int(s.sum()) < 128
+        log(f"[generic decoder] rate 1/2 {kw}: kernel == plain on the card "
+            f"(bit-equal); {int(s.sum())}/128 decoded, mean iters of the "
+            f"decoded {float(i[s].float().mean()):.2f}; {its[0]} "
+            f"iterations, kernel {ms[0]:.1f} ms ({ms[0] / its[0]:.3f} ms "
+            f"per iteration), plain {ms[1]:.1f} ms ({ms[1] / its[1]:.3f})")
+
+
+def round_breakdown(code, dtype, snr, rounds=4):
+    """Host-clock ms per round of the generic softening round on ``code``,
+    after a warm-up round: (preamble, decode + count, iterations per
+    round)."""
+    from qamreconciliation_tpu_torch.models.alphabet import PAMAlphabet
+    from qamreconciliation_tpu_torch.models.decoder import Decoder
+    from qamreconciliation_tpu_torch.models.matrix import Matrix
+    from qamreconciliation_tpu_torch.sims.engine import (
+        ReconciliationEngine, round_generator,
+    )
+
+    dec = Decoder(*code, dtype=dtype, device="cuda")
+    eng = ReconciliationEngine(dec, Matrix(*code), PAMAlphabet(2, 2.0),
+                               batch=128, dtype=torch.float32)
+    nm = eng.make_noisemapper(snr, ALTERNATING)
+    sigma = math.sqrt(eng.noise_var(snr))
+    pre, dcd, its = [], [], []
+    for r in range(rounds + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, y = eng._sample_sb(round_generator(11, r, "cuda"), sigma)
+        lappr, word = eng._softening_inputs(nm, x, y, 1.0)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        it0 = dec.iterations_run
+        eng._decode_and_count_nb(lappr, word, 50).tolist()
+        t2 = time.perf_counter()
+        if r:
+            pre.append(1e3 * (t1 - t0))
+            dcd.append(1e3 * (t2 - t1))
+            its.append(dec.iterations_run - it0)
+    return statistics.median(pre), statistics.median(dcd), its
+
+
+def phase_generic_main(kernels):
+    """The generic main path: sim_reconciliation without --qc on the exact
+    DVB-S2 rate-1/2 H and on the regular (3,6) code at 3.5 and 4.0 dB
+    (kernel 4 launched once per BP iteration), the --lift-qc CLI on an
+    expanded QC code (kernel 1, no kernel 4), and kernel 5's own path: one
+    check-node update of the rate-1/2 code in the check-major layout."""
+    from qamreconciliation_tpu_torch.models.decoder import Decoder
+    from qamreconciliation_tpu_torch.models.matrix import Matrix
+    from qamreconciliation_tpu_torch.models.qc_decoder import make_qc_ldpc
+    from qamreconciliation_tpu_torch.ops.kernels import (
+        bp_check_phase_generic, check_node_update_fused,
+    )
+    from qamreconciliation_tpu_torch.utils.edgefile import make_regular_ldpc
+
+    regular = make_regular_ldpc(**REGULAR)
+    common = ["--snr", "3.5", "4.0", "--nsnr", "2", "--simloops", "256"]
+    for label, code in (("dvbs2 1/2", dvbs2_code("1/2")),
+                        ("regular (3,6)", regular)):
+        res, launches, _ = run_cli(edge_code(*code), common,
+                                   f"generic {label}")
+        iterations = sum(r.bp_iterations for r in res)
+        assert iterations > 0
+        assert launches["bp_check_phase_generic"] == iterations
+        assert launches["bp_check_phase_qc"] == 0
+        assert res[1].fer <= res[0].fer + 0.05
+        if label == "dvbs2 1/2":
+            record(kernels, "bp_check_phase_generic",
+                   launches=launches["bp_check_phase_generic"])
+        for snr in (3.5, 4.0):
+            pre, dcd, its = round_breakdown(code, "float32", snr)
+            log(f"[generic {label}] {snr} dB round: preamble {pre:.2f} ms, "
+                f"decode+count {dcd:.2f} ms, iterations {its} "
+                f"({dcd / max(statistics.median(its), 1):.3f} ms per "
+                f"iteration)")
+    # --lift-qc on an expanded QC code rides the QC decoder (kernel 1)
+    _, vid, cid = make_qc_ldpc(CODE["nb_v"], CODE["z"], CODE["dv"],
+                               CODE["dc"], seed=CODE["seed"])
+    res, launches, _ = run_cli(edge_code(vid, cid, ["--lift-qc"]),
+                               ["--snr", "3.5", "3.5", "--nsnr", "1",
+                                "--simloops", "256"], "lift-qc")
+    assert launches["bp_check_phase_qc"] == res[0].bp_iterations > 0
+    assert launches["bp_check_phase_generic"] == 0
+    # kernel 5's path: v2c = the prior on every edge, permuted into the
+    # check-major layout, one update; it equals kernel 4's first iteration
+    vid, cid = dvbs2_code("1/2")
+    dec = Decoder(vid, cid, device="cuda")
+    g = dec.graph
+    lappr, synd = softening_frames(dec, Matrix(vid, cid), ((3.5, 128),),
+                                   seed=5)
+    flat_v = lappr.repeat_interleave(g.dv_max, dim=0)     # [V*dv_max, B]
+    _, c_mask = g._masks(torch.float32)
+    v2c_c = g.permute_v_to_c(flat_v).contiguous()
+    reset_counts()
+    c2v_c = check_node_update_fused(v2c_c, synd, c_mask)
+    launches = counts()
+    assert launches["check_node_update_fused"] == 1
+    t = g.gather_checks(lappr)
+    first, _ = bp_check_phase_generic(t, torch.zeros_like(t), synd,
+                                      dec._c_mask_T)
+    torch.cuda.synchronize()
+    assert torch.equal(c2v_c.transpose(0, 1), first), \
+        "check-major update differs from kernel 4's first iteration"
+    log(f"[kernel5 path] check-major update {tuple(v2c_c.shape)}: launches "
+        f"{launches['check_node_update_fused']}, equal to kernel 4's first "
+        f"iteration")
+    record(kernels, "check_node_update_fused",
+           launches=launches["check_node_update_fused"])
+
+
+def phase_generic_quality():
+    """Quality watch on the exact rate-1/2 H: 1024 frames at 3.75 dB in
+    float32 with the magnitude rule of the JAX figure (tanh-F/B), FER held
+    within 4 standard errors of the difference from it, 4 * sqrt(2 p (1 -
+    p) / 1024).  Printed beside it, not held: float32 phi, whose decodes
+    diverge after near-convergence on a few frames of this code (the QC
+    dense path fails on the same frames; PERF.md), and the JAX run's own
+    flags, bf16 tanh-F/B, whose bf16 channel draw differs between the TPU
+    and the card."""
+    p = DVBS2_FER
+    bound = 4 * math.sqrt(2 * p * (1 - p) / 1024)
+    common = ["--snr", "3.75", "3.75", "--nsnr", "1", "--simloops", "1024",
+              "--ferr-count-min", "1000000000"]
+    for flags, held in ((["--dtype", "float32", "--check-phi", "tanhfb"],
+                         True),
+                        (["--dtype", "float32"], False),
+                        (["--dtype", "bfloat16", "--check-phi", "tanhfb"],
+                         False)):
+        res, launches, _ = run_cli(edge_code(*dvbs2_code("1/2")),
+                                   flags + common,
+                                   f"quality {' '.join(flags)}")
+        r = res[0]
+        assert r.frames == 1024
+        assert launches["bp_check_phase_generic"] == r.bp_iterations > 0
+        log(f"[quality] exact rate 1/2 {' '.join(flags)}: FER {r.fer:.6f} "
+            f"(JAX {p:.7f}, bound +-{bound:.4f}{'' if held else ', not held'}"
+            f"), BER {r.ber:.4e}, mean iters {r.iters:.3f} (JAX "
+            f"{DVBS2_ITERS:.3f})")
+        if held:
+            assert abs(r.fer - p) <= bound, (r.fer, p, bound)
 
 
 def main():
@@ -632,7 +963,11 @@ def main():
                         (phase_decoder, ()),
                         (phase_resident_decoders, ()),
                         (phase_main_paths, (kernels,)),
-                        (phase_knee, ())):
+                        (phase_knee, ()),
+                        (phase_generic_kernels, (kernels,)),
+                        (phase_generic_decoder, ()),
+                        (phase_generic_main, (kernels,)),
+                        (phase_generic_quality, ())):
         t0 = time.perf_counter()
         phase(*args)
         log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")

@@ -7,10 +7,11 @@ runs each kernel's plain PyTorch version.
 """
 
 from .models.alphabet import PAMAlphabet
+from .models.decoder import Decoder, TannerGraph
 from .models.matrix import Matrix
 from .models.noisemapper import NoiseMapper
-from .models.qc_decoder import QCDecoder
+from .models.qc_decoder import QCDecoder, detect_qc
 from .ops.kernels import bp_check_phase_qc
 
-__all__ = ["PAMAlphabet", "NoiseMapper", "QCDecoder", "Matrix",
-           "bp_check_phase_qc"]
+__all__ = ["PAMAlphabet", "NoiseMapper", "QCDecoder", "Decoder",
+           "TannerGraph", "Matrix", "detect_qc", "bp_check_phase_qc"]

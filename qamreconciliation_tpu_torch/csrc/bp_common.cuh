@@ -1,7 +1,8 @@
 // Device math shared by the BP kernels (bp_check_phase_qc.cu,
-// bp_decode_rounds_qc.cu, bp_layered_sweeps_qc.cu): loads and stores in the
-// message dtype, phi(x) = -log(tanh(x/2)), and the all-but-one check-node
-// magnitude of the three rules.  Each function follows the operation order
+// bp_decode_rounds_qc.cu, bp_layered_sweeps_qc.cu,
+// bp_check_phase_generic.cu): loads and stores in the message dtype,
+// phi(x) = -log(tanh(x/2)), and the all-but-one check-node magnitude of the
+// three rules, plain and over masked (padded) rows.  Each function follows the operation order
 // of the plain PyTorch versions in ops/kernels.py and ops/boxplus.py, so
 // min-sum is bit-identical to them.
 //
@@ -155,6 +156,36 @@ __device__ __forceinline__ void check_magnitudes(const float (&v)[MAXD],
     for (int d = 0; d < MAXD; ++d)
       if (d < dc) mag[d] = phi_llr(sum - mag[d], tiny);
   }
+}
+
+// check_magnitudes over the slots of a padded row, slot d real when
+// m[d] > 0 (the generic decoder's mask, any float): phi multiplies by the
+// mask, phi(|v|) * m, before the left-fold sum; min-sum and tanh-F/B select
+// the +1e30 sentinel for padded slots, the neutral element of both.  Padded
+// slots' magnitudes are finite, and the caller multiplies them by m.
+template <int MAXD>
+__device__ __forceinline__ void masked_check_magnitudes(
+    const float (&v)[MAXD], const float (&m)[MAXD], int dc, int rule,
+    float tiny, float alpha, float beta, float tanh_sat, float (&mag)[MAXD]) {
+  if (rule == kPhi) {
+    float sum = 0.0f;
+#pragma unroll
+    for (int d = 0; d < MAXD; ++d) {
+      if (d < dc) {
+        mag[d] = __fmul_rn(phi_llr(fabsf(v[d]), tiny), m[d]);
+        sum += mag[d];
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < MAXD; ++d)
+      if (d < dc) mag[d] = phi_llr(sum - mag[d], tiny);
+    return;
+  }
+  float a[MAXD];
+#pragma unroll
+  for (int d = 0; d < MAXD; ++d)
+    if (d < dc) a[d] = m[d] > 0.0f ? fabsf(v[d]) : 1e30f;
+  check_magnitudes<MAXD>(a, dc, rule, tiny, alpha, beta, tanh_sat, mag);
 }
 
 // The signed message of slot d: (sign * prefactor) * magnitude, where the

@@ -1,1 +1,2 @@
-"""Alphabet, noise mapping, parity matrix and the QC decoder."""
+"""Alphabet, noise mapping, parity matrix, the generic and QC decoders and
+the DVB-S2 code construction."""

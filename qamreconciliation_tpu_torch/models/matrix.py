@@ -1,9 +1,12 @@
-"""Edge-list parity-check matrix (the engine reads its sizes)."""
+"""Parity-check matrix and syndrome evaluation, on the decoder's graph
+metadata: a syndrome is a gather plus a masked popcount (no scatters)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .decoder import TannerGraph
 
 __all__ = ["Matrix"]
 
@@ -17,19 +20,16 @@ class Matrix:
         cid = np.asarray(cnode_array, dtype=np.int64).reshape(-1)
         if vid.shape[0] != cid.shape[0]:
             raise ValueError("Incompatible sizes for input vectors")
-        self.vid, self.cid = vid, cid
-        self.vnum = int(vid.max()) + 1
-        self.cnum = int(cid.max()) + 1
+        self.graph = TannerGraph(vid, cid)
+        self.vnum = self.graph.vnum
+        self.cnum = self.graph.cnum
+        self.ednum = self.graph.ednum
 
     def eval_syndrome(self, word):
         """Syndrome of hard bits: word [..., V] (0/1) -> [..., C] uint8, the
-        XOR of each check's variables (integer sums, exact)."""
+        XOR of each check's variables, on the word's device."""
         word = torch.as_tensor(word)
         batch_shape = word.shape[:-1]
         bits = word.reshape(-1, self.vnum).T.to(torch.int32)      # [V, B]
-        vid = torch.as_tensor(self.vid, device=bits.device)
-        cid = torch.as_tensor(self.cid, device=bits.device)
-        synd = torch.zeros((self.cnum, bits.shape[1]), dtype=torch.int32,
-                           device=bits.device)
-        synd.index_add_(0, cid, bits.index_select(0, vid))
-        return (synd & 1).T.reshape(*batch_shape, self.cnum).to(torch.uint8)
+        synd = self.graph.syndrome_from_bits(bits)                # [C, B]
+        return synd.T.reshape(*batch_shape, self.cnum).to(torch.uint8)

@@ -36,7 +36,7 @@ from ..ops.kernels import (
 )
 
 __all__ = ["QCDecoder", "make_qc_ldpc", "make_qc_ira", "color_disjoint_rows",
-           "layered_plan", "save_qc_csv", "load_qc_csv"]
+           "layered_plan", "save_qc_csv", "load_qc_csv", "detect_qc"]
 
 
 def make_qc_ldpc(nb_v: int, z: int, dv: int = 3, dc: int = 6, seed: int = 0):
@@ -188,6 +188,55 @@ def load_qc_csv(path: str):
         )
     base_edges = [(int(c), int(v), int(s)) for _, c, v, s in rows]
     return base_edges, z
+
+
+def detect_qc(vid, cid, z: int | None = None):
+    """Detect quasi-cyclic structure in an expanded edge list.
+
+    Real LDPC standards (DVB-S2, 5G NR, 802.11) are quasi-cyclic, but they
+    ship *expanded* ``(vid, cid)`` edge lists.  This recovers the circulant
+    lifting so such codes can ride the QC decoder: an edge (v, c) belongs
+    to base cell ``(cb, vb) = (c // z, v // z)`` with shift
+    ``s = (c % z - v % z) % z``; the list is QC at lifting size ``z`` iff
+    every populated ``(cb, vb, s)`` cell contains exactly ``z`` edges (one
+    per lane ``k = v % z``).  A copy of the JAX package's ``detect_qc``.
+
+    Args:
+      vid, cid: expanded edge list.
+      z: try only this lifting size; default tries every common divisor of
+        (vnum, cnum) from largest to smallest and returns the first hit
+        (the maximal lifting).
+
+    Returns ``(base_edges, z)`` in :class:`QCDecoder`'s convention, or
+    ``None`` if no non-trivial lifting (z >= 2) exists.
+    """
+    vid = np.asarray(vid, np.int64).reshape(-1)
+    cid = np.asarray(cid, np.int64).reshape(-1)
+    V = int(vid.max()) + 1
+    C = int(cid.max()) + 1
+    E = vid.size
+    if z is not None:
+        cands = [int(z)]
+    else:
+        cands = [d for d in range(min(V, C), 1, -1)
+                 if V % d == 0 and C % d == 0 and E % d == 0]
+    for zc in cands:
+        vb = vid // zc
+        cb = cid // zc
+        s = (cid % zc - vid % zc) % zc
+        key = (cb * (V // zc) + vb) * zc + s
+        uniq, counts = np.unique(key, return_counts=True)
+        if not (counts == zc).all():
+            continue
+        # one edge per lane k within each cell (duplicate edges would slip
+        # through the count check otherwise)
+        lane_key = key * zc + vid % zc
+        if np.unique(lane_key).size != E:
+            continue
+        base = [(int(k // zc) // (V // zc), int(k // zc) % (V // zc),
+                 int(k % zc)) for k in uniq]
+        return base, zc
+    return None
 
 
 class QCDecoder:

@@ -19,13 +19,17 @@ import torch
 __all__ = [
     "MINSUM_ALPHA",
     "minsum_mag",
+    "box_plus",
     "phi_llr",
     "minsum_extrinsic_mag",
     "tanhfb_extrinsic_mag",
     "fb_allbutone_list",
+    "check_node_update",
+    "check_node_minsum",
     "check_node_update_sm",
     "check_node_minsum_sm",
     "check_node_tanhfb_sm",
+    "var_node_update",
 ]
 
 # Normalized min-sum scale (13/16); exactly representable in bf16/f32.
@@ -48,6 +52,18 @@ def minsum_mag(m, alpha: float, beta: float):
     if beta:
         return torch.clamp_min(scaled - beta, 0.0)
     return scaled
+
+
+def box_plus(a, b):
+    """Exact pairwise box-plus (elementwise, any shape):
+    ``sign(a) sign(b) min(|a|, |b|) + log1p(e^-|a+b|) - log1p(e^-|a-b|)``,
+    for tests and small host-side use."""
+    return (
+        torch.sign(a) * torch.sign(b) * torch.minimum(torch.abs(a),
+                                                      torch.abs(b))
+        + torch.log1p(torch.exp(-torch.abs(a + b)))
+        - torch.log1p(torch.exp(-torch.abs(a - b)))
+    )
 
 
 def phi_llr(x, tiny: float = 1e-30):
@@ -129,7 +145,8 @@ def fb_allbutone_list(terms):
 
 def _sm_prepare(v2c_d, c_mask_T):
     """bf16 upcast to f32 (the magnitude math runs in f32) and the mask
-    broadcast over frames; returns ``(v2c, mask [dc, C, 1], out_dtype)``."""
+    broadcast over frames; returns ``(v2c, mask, out_dtype)`` with the mask
+    [dc, C, 1] (slot-major) or [C, dc, 1] (check-major)."""
     out_dtype = v2c_d.dtype
     c_mask_T = torch.as_tensor(c_mask_T, device=v2c_d.device)
     if out_dtype == torch.bfloat16:
@@ -137,14 +154,52 @@ def _sm_prepare(v2c_d, c_mask_T):
     return v2c_d, c_mask_T.to(v2c_d.dtype)[:, :, None], out_dtype
 
 
-def _sm_finish(v2c_d, synd, mask, mag, out_dtype):
-    """Sign parity over the real slots, the (1 - 2*synd) prefactor, the
-    mask, cast back to the message dtype."""
+def _sm_finish(v2c_d, synd, mask, mag, out_dtype, dim: int = 0):
+    """Sign parity over the real slots of ``dim``, the (1 - 2*synd)
+    prefactor, the mask, cast back to the message dtype."""
     neg = ((v2c_d < 0) & (mask > 0)).to(torch.int32)
-    parity = torch.sum(neg, dim=0, keepdim=True) & 1
+    parity = torch.sum(neg, dim=dim, keepdim=True) & 1
     sign = (1 - 2 * torch.bitwise_xor(parity, neg)).to(v2c_d.dtype)
-    pref = (1 - 2 * synd.to(torch.int32)).to(v2c_d.dtype)[None, :, :]
+    pref = (1 - 2 * synd.to(torch.int32)).to(v2c_d.dtype).unsqueeze(dim)
     return (sign * pref * mag * mask).to(out_dtype)
+
+
+def check_node_update(v2c_c, synd, c_mask, tiny: float = 1e-30):
+    """Check-major phi sum-product check update: layout [C, dc_max, B],
+    mask [C, dc_max] (1 on real slots, 0 on padding), syndrome [C, B].
+
+    Returns the extrinsic check->variable messages with the ``(-1)^synd``
+    prefactor, zero on padded slots, in the input dtype (bf16 computes in
+    f32).
+    """
+    v2c_c, mask, out_dtype = _sm_prepare(v2c_c, c_mask)
+    phim = phi_llr(torch.abs(v2c_c), tiny) * mask
+    s_phi = torch.sum(phim, dim=1, keepdim=True)
+    mag = phi_llr(s_phi - phim, tiny)
+    return _sm_finish(v2c_c, synd, mask, mag, out_dtype, 1)
+
+
+def check_node_minsum(v2c_c, synd, c_mask, alpha: float = MINSUM_ALPHA,
+                      beta: float = 0.0):
+    """Check-major normalized/offset min-sum check update (same contract as
+    :func:`check_node_update`; padded slots ride the +1e30 sentinel)."""
+    v2c_c, mask, out_dtype = _sm_prepare(v2c_c, c_mask)
+    absm = torch.where(mask > 0, torch.abs(v2c_c),
+                       torch.tensor(BIG, dtype=v2c_c.dtype,
+                                    device=v2c_c.device))
+    mag = minsum_mag(minsum_extrinsic_mag(absm, 1), alpha, beta)
+    return _sm_finish(v2c_c, synd, mask, mag, out_dtype, 1)
+
+
+def var_node_update(prior, c2v_v, v_mask):
+    """Variable-node update in var-major layout: prior [V, B], incoming
+    c2v_v [V, dv_max, B], v_mask [V, dv_max].  Returns ``(total [V, B],
+    v2c_v [V, dv_max, B])`` with ``total = prior + sum of incoming`` (padded
+    slots masked to 0) and the extrinsics ``v2c = total - incoming``."""
+    v_mask = torch.as_tensor(v_mask, dtype=c2v_v.dtype, device=c2v_v.device)
+    c2v_v = c2v_v * v_mask[:, :, None]
+    total = prior + torch.sum(c2v_v, dim=1)
+    return total, total[:, None, :] - c2v_v
 
 
 def check_node_update_sm(v2c_d, synd, c_mask_T, tiny: float = 1e-30):

@@ -1,14 +1,18 @@
 """Hand-written CUDA kernels of the BP hot loop, with their plain versions.
 
-Three kernels, each replacing a Pallas TPU kernel of
-``qamreconciliation_tpu/ops/pallas_kernels.py`` of the same name:
+Five wrappers, each replacing a Pallas TPU kernel of
+``qamreconciliation_tpu/ops/pallas_kernels.py``:
 
 * ``bp_check_phase_qc`` (``csrc/bp_check_phase_qc.cu``): the fused check
   phase of the dense QC flooding decoder;
 * ``bp_decode_rounds_qc`` (``csrc/bp_decode_rounds_qc.cu``): K flooding
   iterations per call over the flat decode state (the resident decoder);
 * ``bp_layered_sweeps_qc`` (``csrc/bp_layered_sweeps_qc.cu``): K serial-C
-  layered sweeps per call (the resident layered decoder).
+  layered sweeps per call (the resident layered decoder);
+* ``bp_check_phase_generic`` (``csrc/bp_check_phase_generic.cu``): the
+  fused check phase of the generic decoder, slot-major and masked;
+* ``check_node_update_fused``: the check-major phi check update of the
+  JAX package's ``check_node_update_pallas``, a mode of the same kernel.
 
 A tensor on the CPU goes to the plain PyTorch version (``*_ref``), which
 uses the kernel's operation and summation order; a CUDA tensor goes to the
@@ -27,15 +31,17 @@ import numpy as np
 import torch
 
 from .boxplus import (
-    MINSUM_ALPHA, minsum_extrinsic_mag, minsum_mag, phi_llr,
+    BIG, MINSUM_ALPHA, minsum_extrinsic_mag, minsum_mag, phi_llr,
     tanhfb_extrinsic_mag,
 )
 
 __all__ = [
-    "RULES", "MAX_DC", "QCTables", "layered_levels",
+    "RULES", "MAX_DC", "GENERIC_BLOCK_C", "QCTables", "layered_levels",
     "bp_check_phase_qc", "bp_check_phase_qc_ref",
     "bp_decode_rounds_qc", "bp_decode_rounds_qc_ref",
     "bp_layered_sweeps_qc", "bp_layered_sweeps_qc_ref",
+    "bp_check_phase_generic", "bp_check_phase_generic_ref",
+    "check_node_update_fused", "check_node_update_fused_ref",
 ]
 
 # magnitude rules, in the kernels' numbering
@@ -665,6 +671,237 @@ bp_layered_sweeps_qc.iterations = 0
 
 
 # --------------------------------------------------------------------- #
+# Kernel 4: the fused check phase of the generic decoder (slot-major, masked)
+# and kernel 5, its check-major phi update mode
+
+# checks per violation block of kernel 4 (csrc kChecksPerBlock)
+GENERIC_BLOCK_C = 64
+
+
+def _masked_messages(v2c, synd, mask, dim: int, rule: str, tiny: float,
+                     ms_alpha: float, ms_beta: float):
+    """New check->variable messages over padded rows: ``v2c`` with slots
+    along ``dim``, ``mask`` broadcast like it (> 0 marks a real slot), in
+    ``v2c``'s dtype.  phi multiplies by the mask before the left-fold sum;
+    min-sum and tanh-F/B select the +1e30 sentinel for padded slots; the
+    sign parity runs over the real slots; the result is ``sign * pref *
+    mag * mask``."""
+    absv = torch.abs(v2c)
+    if rule == "sumproduct":
+        phim = phi_llr(absv, tiny) * mask
+        mag = phi_llr(_fold_sum(phim, dim) - phim, tiny)
+    else:
+        absm = torch.where(mask > 0, absv, torch.tensor(
+            BIG, dtype=v2c.dtype, device=v2c.device))
+        if rule == "minsum":
+            mag = minsum_mag(minsum_extrinsic_mag(absm, dim), ms_alpha,
+                             ms_beta)
+        else:
+            mag = tanhfb_extrinsic_mag(absm, dim)
+    neg = ((v2c < 0) & (mask > 0)).to(torch.int32)
+    par = torch.sum(neg, dim=dim, keepdim=True) & 1
+    sign = (1 - 2 * torch.bitwise_xor(par, neg)).to(v2c.dtype)
+    pref = (1 - 2 * synd.to(torch.int32)).to(v2c.dtype).unsqueeze(dim)
+    return sign * pref * mag * mask
+
+
+def _generic_args(t, c2v, synd, c_mask, rule):
+    if rule not in RULES:
+        raise ValueError(f"unknown rule {rule!r}")
+    if t.dim() != 3 or c2v.shape != t.shape:
+        raise ValueError(
+            f"t and c2v must both be [dc, C, B], got {tuple(t.shape)} and "
+            f"{tuple(c2v.shape)}"
+        )
+    dc, C, B = t.shape
+    if tuple(synd.shape) != (C, B) or tuple(c_mask.shape) != (dc, C):
+        raise ValueError(
+            f"synd must be [C, B] = {(C, B)} and c_mask [dc, C] = "
+            f"{(dc, C)}, got {tuple(synd.shape)} and {tuple(c_mask.shape)}"
+        )
+    if t.dtype != c2v.dtype:
+        raise TypeError(f"t and c2v must share a dtype, got {t.dtype} and "
+                        f"{c2v.dtype}")
+    if not (t.device == c2v.device == synd.device == c_mask.device):
+        raise ValueError("t, c2v, synd and c_mask must be on one device")
+
+
+def bp_check_phase_generic_ref(t, c2v, synd, c_mask, tiny: float = 1e-30,
+                               *, rule: str = "sumproduct",
+                               ms_alpha: float = MINSUM_ALPHA,
+                               ms_beta: float = 0.0):
+    """Plain PyTorch generic check phase (any device); see
+    :func:`bp_check_phase_generic` for the contract."""
+    _generic_args(t, c2v, synd, c_mask, rule)
+    out_dtype = t.dtype
+    compute = torch.float32 if out_dtype == torch.bfloat16 else out_dtype
+    t = t.to(compute)
+    mask = c_mask.to(compute)[:, :, None]
+    synd = synd.to(torch.int32)
+    dc, C, B = t.shape
+
+    # 1. convergence: parity of the real slots' hard decisions vs synd,
+    # counted per block of GENERIC_BLOCK_C checks
+    neg_t = (t < 0).to(torch.int32) * mask.to(torch.int32)
+    viol = (torch.sum(neg_t, dim=0) & 1) != synd                # [C, B]
+    n = -(-C // GENERIC_BLOCK_C)
+    viol = torch.cat([viol.to(torch.int32), viol.new_zeros(
+        (n * GENERIC_BLOCK_C - C, B), dtype=torch.int32)])
+    viol = torch.sum(viol.view(n, GENERIC_BLOCK_C, B), dim=1,
+                     dtype=torch.int32)
+
+    # 2./3. extrinsic check update over the real slots
+    new = _masked_messages(t - c2v.to(compute), synd, mask, 0, rule, tiny,
+                           ms_alpha, ms_beta)
+    return new.to(out_dtype), viol
+
+
+def bp_check_phase_generic(t, c2v, synd, c_mask, tiny: float = 1e-30, *,
+                           rule: str = "sumproduct",
+                           ms_alpha: float = MINSUM_ALPHA,
+                           ms_beta: float = 0.0):
+    """Fused check phase in the generic decoder's slot-major layout.
+
+    Args:
+      t:      [dc, C, B] gathered variable totals.
+      c2v:    [dc, C, B] previous check->variable messages, in t's dtype.
+      synd:   [C, B] syndrome bits (0/1 int).
+      c_mask: [dc, C] 1.0 on real slots, 0.0 on padding (any float mask:
+              > 0 marks a real slot; the convergence parity weighs slots by
+              its int cast, the messages are multiplied by it).
+      rule:   "sumproduct" (phi form), "tanhfb" or "minsum"
+              (``max(ms_alpha*min - ms_beta, 0)``).
+
+    Per check: the parity of ``t < 0`` over the real slots against the
+    syndrome (the convergence test); ``v2c = t - c2v`` (bf16 computes in
+    f32); the all-but-one magnitude over the real slots (phi multiplies by
+    the mask before its left-fold sum; min-sum and tanh-F/B give padded
+    slots the +1e30 sentinel); the sign parity over the real slots; the
+    ``(1 - 2*synd)`` prefactor; the product with the mask, so padded slots
+    come out zero.  The same contract as the JAX package's
+    ``bp_check_phase_generic``.
+
+    Returns ``(c2v_new [dc, C, B] in t's dtype, viol [n, B] int32)`` with
+    ``n = ceil(C / GENERIC_BLOCK_C)`` per-block violation counts;
+    ``viol.sum(0) == 0`` is the per-frame convergence mask.
+
+    CPU tensors run :func:`bp_check_phase_generic_ref`.  CUDA tensors run
+    the kernel, which takes contiguous f32 or bf16 t/c2v, int32 synd and
+    dc <= ``MAX_DC`` (the mask is read as float32); anything else raises.
+    """
+    if t.device.type == "cpu":
+        return bp_check_phase_generic_ref(t, c2v, synd, c_mask, tiny,
+                                          rule=rule, ms_alpha=ms_alpha,
+                                          ms_beta=ms_beta)
+    _generic_args(t, c2v, synd, c_mask, rule)
+    _require_cuda("bp_check_phase_generic", t)
+    code = _dtype_codes("bp_check_phase_generic", t.dtype, t.dtype)[0]
+    if synd.dtype != torch.int32:
+        raise TypeError(f"synd must be int32, got {synd.dtype}")
+    _require_contiguous(t=t, c2v=c2v, synd=synd)
+    dc, C, B = t.shape
+    if dc > MAX_DC:
+        raise ValueError(f"check degree {dc} exceeds the kernel's {MAX_DC}")
+    mask = c_mask.to(torch.float32).contiguous()
+    n = -(-C // GENERIC_BLOCK_C)
+    out = torch.empty_like(t)
+    viol = torch.zeros((n, B), dtype=torch.int32, device=t.device)
+    _launch_generic(t, c2v, synd, mask, out, viol, code, dc, C, B,
+                    (C * B, B, C, 1), RULES[rule], tiny, ms_alpha, ms_beta)
+    bp_check_phase_generic.launches += 1
+    return out, viol
+
+
+bp_check_phase_generic.launches = 0
+
+
+def _check_major_args(v2c_c, synd, c_mask):
+    if v2c_c.dim() != 3:
+        raise ValueError(f"v2c_c must be [C, dc, B], got {tuple(v2c_c.shape)}")
+    C, dc, B = v2c_c.shape
+    if tuple(synd.shape) != (C, B) or tuple(c_mask.shape) != (C, dc):
+        raise ValueError(
+            f"synd must be [C, B] = {(C, B)} and c_mask [C, dc] = "
+            f"{(C, dc)}, got {tuple(synd.shape)} and {tuple(c_mask.shape)}"
+        )
+    if not (v2c_c.device == synd.device == c_mask.device):
+        raise ValueError("v2c_c, synd and c_mask must be on one device")
+
+
+def check_node_update_fused_ref(v2c_c, synd, c_mask, tiny: float = 1e-30):
+    """Plain PyTorch check-major phi update (any device); see
+    :func:`check_node_update_fused` for the contract."""
+    _check_major_args(v2c_c, synd, c_mask)
+    mask = c_mask.to(v2c_c.dtype)[:, :, None]
+    return _masked_messages(v2c_c, synd, mask, 1, "sumproduct", tiny,
+                            MINSUM_ALPHA, 0.0)
+
+
+def check_node_update_fused(v2c_c, synd, c_mask, tiny: float = 1e-30):
+    """Check-major phi sum-product check update, the counterpart of the JAX
+    package's ``check_node_update_pallas`` (body ``_kernel``).
+
+    Args:
+      v2c_c:  [C, dc, B] variable->check messages.
+      synd:   [C, B] syndrome bits (0/1 int).
+      c_mask: [C, dc] 1.0 on real slots, 0.0 on padding.
+
+    Returns ``c2v [C, dc, B]``: per check, ``phi(sum of phi(|v|) * mask -
+    phi(|v_d|) * mask)`` with the sign parity over the real slots and the
+    ``(1 - 2*synd)`` prefactor, times the mask.  As in the JAX kernel the
+    arithmetic runs in the input dtype, with no upcast, and there is no
+    convergence output.
+
+    CPU tensors run :func:`check_node_update_fused_ref`.  CUDA tensors run
+    kernel 4's check-major mode, which takes contiguous float32 messages,
+    int32 synd and dc <= ``MAX_DC``; anything else raises.
+    """
+    if v2c_c.device.type == "cpu":
+        return check_node_update_fused_ref(v2c_c, synd, c_mask, tiny)
+    _check_major_args(v2c_c, synd, c_mask)
+    _require_cuda("check_node_update_fused", v2c_c)
+    if v2c_c.dtype != torch.float32:
+        raise TypeError(
+            "check_node_update_fused computes in its input dtype, as the JAX "
+            "kernel does, and its kernel takes float32 only (got "
+            f"{v2c_c.dtype}); run other dtypes on the CPU"
+        )
+    if synd.dtype != torch.int32:
+        raise TypeError(f"synd must be int32, got {synd.dtype}")
+    _require_contiguous(v2c_c=v2c_c, synd=synd)
+    C, dc, B = v2c_c.shape
+    if dc > MAX_DC:
+        raise ValueError(f"check degree {dc} exceeds the kernel's {MAX_DC}")
+    mask = c_mask.to(torch.float32).contiguous()
+    out = torch.empty_like(v2c_c)
+    _launch_generic(v2c_c, None, synd, mask, out, None, 0, dc, C, B,
+                    (B, dc * B, 1, dc), RULES["sumproduct"], tiny,
+                    MINSUM_ALPHA, 0.0)
+    check_node_update_fused.launches += 1
+    return out
+
+
+check_node_update_fused.launches = 0
+
+
+def _launch_generic(t, c2v, synd, mask, out, viol, code, dc, C, B, strides,
+                    rule, tiny, ms_alpha, ms_beta):
+    """One launch of ``csrc/bp_check_phase_generic.cu``; ``strides`` are
+    (slot, check) of the messages, then (slot, check) of the mask."""
+    lib = _library("bp_check_phase_generic", "pppppp" + "iiii" + "qqqq"
+                   + "ifffp")
+    ptr = (lambda x: None if x is None else x.data_ptr())
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream(t.device).cuda_stream
+        err = lib.bp_check_phase_generic_launch(
+            t.data_ptr(), ptr(c2v), synd.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), ptr(viol), code, dc, C, B, *strides, rule,
+            float(tiny), float(ms_alpha), float(ms_beta), stream,
+        )
+    _raise_on(err, "bp_check_phase_generic")
+
+
+# --------------------------------------------------------------------- #
 # Wrapper checks and the libraries
 
 
@@ -710,12 +947,14 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong,
+           "f": ctypes.c_float}
 
 
 def _library(name: str, signature: str):
     """The loaded library of ``csrc/<name>.cu`` with the argument types of
-    ``<name>_launch`` set from ``signature`` (p pointer, i int, f float)."""
+    ``<name>_launch`` set from ``signature`` (p pointer, i int, q 64-bit
+    int, f float)."""
     from .cuda_build import load_library
 
     lib = load_library(name)

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import argparse
+import warnings
 
 from ..config import as_dtype, not_ported
 
@@ -140,29 +141,26 @@ def add_qc_arg(parser: argparse.ArgumentParser):
     )
     parser.add_argument(
         "--lift-qc", action="store_true",
-        help="Detect circulant structure in an expanded edge list (not "
-        "ported yet)",
+        help="Detect circulant structure in an expanded edge list and decode "
+        "with the QCDecoder (falls back to the generic decoder with a "
+        "warning when there is none)",
     )
 
 
 def load_decoder(args):
-    """Build the decoder named by ``args.edgefile`` (``--qc`` only).
+    """Build the decoder named by ``args.edgefile``: the QCDecoder for a
+    base-edge CSV (``--qc``) or a lifted expanded list (``--lift-qc``),
+    else the generic :class:`~qamreconciliation_tpu_torch.models.decoder.
+    Decoder` on the expanded ``eid,cid,vid`` list.
 
     Returns ``(dec, vid, cid)`` with the expanded edge list.
     """
-    if not getattr(args, "qc", False):
-        item = ("10 (generic decoder and matrix)"
-                if not getattr(args, "lift_qc", False)
-                else "3 (QC dense flooding decoder: detect_qc / --lift-qc)")
-        raise not_ported("a code without --qc", item)
-    from ..models.qc_decoder import QCDecoder, load_qc_csv
-
     lg = getattr(args, "layered_groups", -1)
-    base_edges, z = load_qc_csv(args.edgefile)
-    dec = QCDecoder(
-        base_edges, z, dtype=as_dtype(args.dtype), device=args.device,
-        check_rule=args.check_rule, check_phi=args.check_phi,
-        minsum_alpha=args.minsum_alpha, minsum_beta=args.minsum_beta,
+    dec_kw = dict(dtype=as_dtype(args.dtype), device=args.device,
+                  check_rule=args.check_rule, check_phi=args.check_phi,
+                  minsum_alpha=args.minsum_alpha,
+                  minsum_beta=args.minsum_beta)
+    qc_kw = dict(
         totals_dtype=args.totals_dtype, schedule=args.schedule,
         layered_chunk=getattr(args, "layered_chunk", 4),
         layered_groups=None if lg < 0 else bool(lg),
@@ -171,4 +169,51 @@ def load_decoder(args):
         resident_rowgroup=getattr(args, "resident_rowgroup", None),
         sr_messages=args.sr_messages,
     )
-    return dec, dec.vid, dec.cid
+    from ..models.qc_decoder import QCDecoder
+
+    if args.qc:
+        from ..models.qc_decoder import load_qc_csv
+
+        base_edges, z = load_qc_csv(args.edgefile)
+        dec = QCDecoder(base_edges, z, **dec_kw, **qc_kw)
+        return dec, dec.vid, dec.cid
+    from ..models.decoder import Decoder
+    from ..utils.edgefile import load_edge_csv
+
+    vid, cid = load_edge_csv(args.edgefile)
+    if args.lift_qc:
+        from ..models.qc_decoder import detect_qc
+
+        lifted = detect_qc(vid, cid)
+        if lifted is not None:
+            base_edges, z = lifted
+            try:
+                dec = QCDecoder(base_edges, z, **dec_kw, **qc_kw)
+                print(f"[lift-qc] detected z={z} circulant lifting "
+                      f"({len(base_edges)} base edges)")
+                return dec, vid, cid
+            except ValueError as e:   # e.g. degree-1 check blocks (min-sum)
+                warnings.warn(f"--lift-qc: lifting found but unusable "
+                              f"({e}); using the generic decoder")
+        else:
+            warnings.warn("--lift-qc: no circulant structure detected; "
+                          "using the generic decoder")
+    if args.resident:
+        raise SystemExit(
+            "--resident requires a quasi-cyclic decoder (--qc or a "
+            "successful --lift-qc); the generic gather decoder has no "
+            "multi-iteration kernel"
+        )
+    if args.schedule != "flooding":
+        raise SystemExit(
+            "--schedule layered requires a quasi-cyclic decoder "
+            "(--qc or a successful --lift-qc); the generic gather decoder "
+            "is flooding-only"
+        )
+    if args.sr_messages:
+        raise SystemExit(
+            "--sr-messages requires a quasi-cyclic decoder (--qc or a "
+            "successful --lift-qc): the stochastic message rounding "
+            "lives in the QC dense check update"
+        )
+    return Decoder(vid, cid, **dec_kw), vid, cid

@@ -54,7 +54,9 @@ class ReconciliationEngine:
     """Batched Monte-Carlo engine bound to (code, alphabet).
 
     Args:
-      dec: QC decoder (its ``device`` is the engine's device).
+      dec: decoder, a ``QCDecoder`` or the generic ``Decoder`` (its
+        ``device`` is the engine's device; ``iterations_run`` counts the BP
+        iterations it ran there).
       mat: parity matrix (sizes).
       pa: alphabet.
       batch: frames per round.
@@ -110,7 +112,11 @@ class ReconciliationEngine:
 
         Bit errors are an exact integer XOR count, never a sum in the LLR
         dtype (bf16 sums round above ~256)."""
-        synd = self.dec.syndrome_from_bits(word_nb.to(torch.int32))
+        # the decoder's own structure-aware syndrome (QC circulant rolls)
+        # where it has one, else the generic graph's gather
+        synd_fn = getattr(self.dec, "syndrome_from_bits", None) \
+            or self.dec.graph.syndrome_from_bits
+        synd = synd_fn(word_nb.to(torch.int32))
         success, iters, final = self.dec._build_decode()(
             lappr_nb, synd, max_iterations
         )

@@ -1,13 +1,16 @@
 """Reconciliation BER/FER sweep CLI (soft reverse reconciliation).
 
     python -m qamreconciliation_tpu_torch.sims.sim_reconciliation EDGEFILE \
-        --qc [--out out.csv] [--maxiter 50] [--ferr-count-min 100]
+        [--qc | --lift-qc] [--out out.csv] [--maxiter 50] [--ferr-count-min 100]
         [--alpha 1.0] [--simloops 5000] [--snr 0 5] [--nsnr 11] [--bps 2]
         [--configuration-base] [--device cuda]
         [--resident [--resident-chunk 50]]
         [--schedule layered [--layered-chunk 4] [--layered-groups -1]] ...
 
-Output CSV: an unnamed index column then ``EsN0dB,ber,fer,iters``.  SNR
+EDGEFILE is an expanded ``eid,cid,vid`` edge list (the generic decoder,
+or the QC decoder with a successful ``--lift-qc``) or, with ``--qc``, a
+quasi-cyclic base-edge CSV.  Output CSV: an unnamed index column then
+``EsN0dB,ber,fer,iters``.  SNR
 points run sequentially; each point processes a frame batch per round.
 """
 
@@ -33,7 +36,8 @@ def build_parser():
     )
     parser.add_argument(
         "edgefile",
-        help="Quasi-cyclic base-edge CSV (with --qc)",
+        help="Expanded edge-list CSV (eid,cid,vid with a totals first "
+        "row), or a quasi-cyclic base-edge CSV with --qc",
     )
     add_qc_arg(parser)
     parser.add_argument("--out", default="out.csv")

@@ -8,21 +8,26 @@ test_torch_check_phase.py: min-sum and the convergence counts are exact,
 phi/tanhfb within rtol/atol 1e-5 in f32 (two libms: the kernel's and
 PyTorch's CUDA ops) or one bf16 ulp with bf16 messages.  The multi-step
 kernels compound that over K steps: their sum-product state is held within
-rtol/atol 1e-4 (f32) or 2^-6 (bf16), with done and iters exact.
+rtol/atol 1e-4 (f32) or 2^-6 (bf16), with done and iters exact.  The
+generic check phase (kernel 4) and its check-major mode (kernel 5) are held
+bit for bit, as the card runs them.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from qamreconciliation_tpu_torch.models.decoder import Decoder
 from qamreconciliation_tpu_torch.models.matrix import Matrix
 from qamreconciliation_tpu_torch.models.qc_decoder import (
     QCDecoder, make_qc_ira, make_qc_ldpc,
 )
 from qamreconciliation_tpu_torch.ops import cuda_build
 from qamreconciliation_tpu_torch.ops.kernels import (
-    QCTables, bp_check_phase_qc, bp_check_phase_qc_ref, bp_decode_rounds_qc,
+    QCTables, bp_check_phase_generic, bp_check_phase_generic_ref,
+    bp_check_phase_qc, bp_check_phase_qc_ref, bp_decode_rounds_qc,
     bp_decode_rounds_qc_ref, bp_layered_sweeps_qc, bp_layered_sweeps_qc_ref,
+    check_node_update_fused, check_node_update_fused_ref,
 )
 
 torch.set_num_threads(1)
@@ -349,3 +354,123 @@ def test_cuda_resident_decoders_match_their_plain_loops(dtype):
     assert bp_layered_sweeps_qc.iterations - n0 == dec.iterations_run > 0
     for g, w in zip(lay, plain):
         assert torch.equal(g.cpu(), w.cpu())
+
+
+# ------------------------------------------- kernels 4 and 5 (generic)
+
+
+def generic_inputs(seed, dc, C, B):
+    """numpy (t, c2v, synd, mask [dc, C]): a random non-prefix mask with a
+    degree-1 check and an empty one."""
+    rng = np.random.default_rng(seed)
+    t = rng.normal(0, 3, (dc, C, B)).astype(np.float32)
+    c2v = rng.normal(0, 1, (dc, C, B)).astype(np.float32)
+    synd = rng.integers(0, 2, (C, B)).astype(np.int32)
+    mask = (rng.random((dc, C)) < 0.8).astype(np.float32)
+    mask[:, 0] = 0.0
+    mask[dc - 1, 0] = 1.0
+    mask[:, 1] = 0.0
+    par = np.sum((t < 0) * mask[:, :, None].astype(np.int64), 0) & 1
+    synd[:, :5] = par[:, :5]
+    return t, c2v, synd, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dc", [7, 14])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rule,kw", RULES)
+def test_generic_kernel_matches_plain(rule, kw, dtype, dc):
+    """Kernel 4 bit for bit: a ragged C and B, MAXD 8 and 32."""
+    need_cuda()
+    t, c2v, synd, mask = (torch.from_numpy(a).cuda()
+                          for a in generic_inputs(17, dc, 150, 40))
+    args = (t.to(dtype), c2v.to(dtype), synd, mask)
+    n0 = bp_check_phase_generic.launches
+    got, gviol = bp_check_phase_generic(*args, rule=rule, **kw)
+    assert bp_check_phase_generic.launches == n0 + 1
+    want, wviol = bp_check_phase_generic_ref(*args, rule=rule, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and gviol.dtype == torch.int32
+    assert torch.equal(gviol, wviol)
+    conv = gviol.sum(0) == 0
+    assert bool(conv[:5].all()) and not bool(conv.all())
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dc", [6, 14])
+def test_check_major_kernel_matches_plain(dc):
+    """Kernel 5 (kernel 4's check-major mode) bit for bit."""
+    need_cuda()
+    t, _, synd, mask = generic_inputs(19, dc, 150, 40)
+    v = torch.from_numpy(t).transpose(0, 1).contiguous().cuda()
+    args = (v, torch.from_numpy(synd).cuda(),
+            torch.from_numpy(mask).T.contiguous().cuda())
+    n0 = check_node_update_fused.launches
+    got = check_node_update_fused(*args)
+    assert check_node_update_fused.launches == n0 + 1
+    want = check_node_update_fused_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_generic_kernels_reject_what_they_do_not_take():
+    need_cuda()
+    t = torch.zeros(6, 70, 8, device="cuda")
+    synd = torch.zeros(70, 8, dtype=torch.int32, device="cuda")
+    mask = torch.ones(6, 70, device="cuda")
+    with pytest.raises(TypeError):
+        bp_check_phase_generic(t.double(), t.double(), synd, mask)
+    with pytest.raises(TypeError, match="synd"):
+        bp_check_phase_generic(t, t, synd.long(), mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        bp_check_phase_generic(t.transpose(1, 2).contiguous().transpose(1, 2),
+                               t, synd, mask)
+    wide = torch.zeros(33, 70, 8, device="cuda")
+    with pytest.raises(ValueError, match="degree"):
+        bp_check_phase_generic(wide, wide, synd, torch.ones(33, 70,
+                                                            device="cuda"))
+    v = t.transpose(0, 1).contiguous()
+    with pytest.raises(TypeError, match="float32"):
+        check_node_update_fused(v.bfloat16(), synd, mask.T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kw", [dict(check_rule="minsum"), dict()],
+                         ids=["minsum", "phi"])
+def test_cuda_generic_decode_matches_plain_and_cpu(kw, dtype):
+    """The generic decoder on the card (kernel 4) against the same decoder
+    with the plain check phase on the card (bit for bit) and on the CPU
+    (min-sum bit for bit; f32 phi: equal success and iters)."""
+    need_cuda()
+    _, vid, cid = make_qc_ira(12, 6, 16, dv=3, seed=1)
+    rng = np.random.default_rng(4)
+    B = 24
+    word = rng.integers(0, 2, (B, 18 * 16))
+    synd = Matrix(vid, cid).eval_syndrome(torch.from_numpy(word))
+    llr = torch.from_numpy(
+        (1 - 2 * word) * 2.5 + rng.normal(0, 2.0, word.shape)
+        * np.linspace(0.5, 1.6, B)[:, None]).float()
+    n0 = bp_check_phase_generic.launches
+    dec = Decoder(vid, cid, dtype, device="cuda", **kw)
+    gpu = dec.decode_batch(llr, synd, 25)
+    assert bp_check_phase_generic.launches - n0 == dec.iterations_run > 0
+    plain = Decoder(vid, cid, dtype, device="cuda", **kw)
+    plain.check_phase = bp_check_phase_generic_ref
+    ref = plain.decode_batch(llr, synd, 25)
+    for g, w in zip(gpu, ref):
+        assert torch.equal(g, w)
+    assert 0 < int(gpu[0].sum()) < B
+    if dtype == torch.bfloat16 and "check_rule" not in kw:
+        return
+    cpu = Decoder(vid, cid, dtype, device="cpu", **kw).decode_batch(
+        llr, synd, 25)
+    assert torch.equal(gpu[0].cpu(), cpu[0])
+    assert torch.equal(gpu[1].cpu(), cpu[1])
+    if "check_rule" in kw:
+        assert torch.equal(gpu[2].cpu(), cpu[2])
+    else:
+        torch.testing.assert_close(gpu[2].cpu(), cpu[2], rtol=1e-4,
+                                   atol=1e-4)

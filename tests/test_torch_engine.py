@@ -130,7 +130,8 @@ def test_cli_writes_csv_schema(qc_code, tmp_path):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             sim_reconciliation.main([path, "--qc", "--device", "cpu", flag])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sim_reconciliation.main([path, "--device", "cpu"])
+        sim_reconciliation.main([path, "--qc", "--device", "cpu",
+                                 "--llr-mode", "interp"])
 
 
 def test_port_imports_without_jax_or_pandas():
