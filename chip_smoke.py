@@ -7,8 +7,9 @@ Phases (each must pass, or the script exits non-zero):
   2. build: the CUDA sources in qamreconciliation_tpu_torch/csrc with nvcc,
      one nvcc per source, all started together;
   3. kernel 1 (bp_check_phase_qc) against its plain PyTorch version on the
-     card, at the headline check-phase shape [90, 6, 360, 128], every rule
-     and dtype pair, plus a case with +1e30 padded slots;
+     card, bit for bit, at the headline check-phase shape [90, 6, 360, 128],
+     every rule and dtype pair, plus a case with +1e30 padded slots; each
+     case prints its launch plan (tile, stages, load path);
   4. kernel 2 (bp_decode_rounds_qc) against its plain version: one K = 8
      step at the headline shape [180, 360, 128] (E = 540) from a mid-decode
      state, for each rule and dtype pair the decoders use;
@@ -37,9 +38,22 @@ Phases (each must pass, or the script exits non-zero):
  12. quality watch: the exact rate-1/2 H at 3.75 dB in float32 tanh-F/B,
      held to the JAX package's generic-decoder FER (see
      phase_generic_quality).
-Kernel and plain times are CUDA-event medians, taken in turns.  The last two
-lines are the kernels' JSON record and {"ok": true, "device": {...}}.  Needs
-CUDA; exits 2 without it.
+Kernel and plain times are CUDA-event medians, taken in turns (kernels 1, 4
+and 5 over runs of 10 calls, whose host overhead the card's work hides;
+kernels 2 and 3 run K steps a call).  Each
+kernel's record holds the bytes its main-path call must move (each input
+read once, each output written once), its bound (the larger of those bytes
+at 3.35 TB/s and its f32 operations at 33.5e12 a second, the H100 SXM's
+data-sheet 67 TFLOP/s with an FMA counted as two) and its time's share of
+that bound.  The bound is the function's, not the build's: the operations
+are those of the plain version, a transcendental counted as one.  The last two lines are the
+kernels' JSON record and {"ok": true, "device": {...}}.  Needs CUDA; exits
+2 without it.
+
+    python3 chip_smoke.py --sass DIR
+
+also writes each kernel library's ptxas report (registers, spills) and its
+SASS (cuobjdump -sass) into DIR.
 """
 
 import concurrent.futures
@@ -56,6 +70,8 @@ import time
 import numpy as np
 import torch
 
+from qamreconciliation_tpu_torch.sims.time_check_phase import events_ms
+
 SHAPE = (90, 6, 360, 128)              # [nb_c, dc, z, B] of the headline code
 CODE = dict(nb_v=180, z=360, dv=3, dc=6, seed=12345)
 # the JAX package's knee configuration (BASELINE.md, docs/img/r5_knee.jsonl):
@@ -65,6 +81,15 @@ KNEE_CODE = dict(nb_v=36, z=1800, dv=3, dc=6, seed=12345)
 KNEE_FER = {("flooding", "float32"): 0.4170, ("layered", "float32"): 0.1328,
             ("flooding", "bfloat16"): 0.5889, ("layered", "bfloat16"): 0.2783}
 ALTERNATING = np.array([0, 1, 0, 1], np.uint8)
+# H100 SXM data-sheet rates: HBM3 bytes/s, and f32 instructions/s outside
+# the tensor cores (67 TFLOP/s counts an FMA as two operations; none of the
+# rules' operations is an FMA, so each takes an instruction of its own)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12 / 2
+# f32 operations per check slot of the plain versions' rules, each
+# elementwise operation counted once, a transcendental too: at least one
+# instruction each, so the operation time is a lower bound
+OPS_PER_SLOT = {"sumproduct": 30, "tanhfb": 20, "minsum": 12}
 CSRC = "qamreconciliation_tpu_torch/csrc"
 PALLAS = "qamreconciliation_tpu/ops/pallas_kernels.py"
 # wrapper in ops/kernels.py -> (its source in csrc/, the TPU kernel it
@@ -103,24 +128,6 @@ def check_close(got, want, rule, m_dtype):
     return float(diff.max())
 
 
-def time_pair(fn_a, fn_b, reps=20, warmup=3):
-    """Median ms of each of two calls, timed with CUDA events in turns."""
-    for _ in range(warmup):
-        fn_a()
-        fn_b()
-    times = ([], [])
-    for _ in range(reps):
-        for fn, acc in ((fn_a, times[0]), (fn_b, times[1])):
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            stop.record()
-            stop.synchronize()
-            acc.append(start.elapsed_time(stop))
-    return statistics.median(times[0]), statistics.median(times[1])
-
-
 def reset_counts():
     from qamreconciliation_tpu_torch.ops import kernels as K
 
@@ -141,11 +148,35 @@ def record(kernels, name, **kw):
     source, replaces = KERNELS[name]
     kernels.setdefault(name, dict(
         name=name, route="cuda", source=f"{CSRC}/{source}.cu",
-        replaces=replaces, launches=None,
+        replaces=replaces, launches=None, library_ms=None,
     )).update(kw)
 
 
-def build_all():
+def moved(*tensors):
+    """Bytes of ``tensors``, each counted once."""
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def finish_record(rec):
+    """bound_ms, bound_by and bound_share from the entry's bytes, ops and
+    ms: the bound is the larger of the bytes over the memory rate and the
+    operations over the f32 rate."""
+    t_bytes = 1e3 * rec["bytes"] / HBM_BYTES_PER_S
+    t_ops = 1e3 * rec["ops"] / F32_OPS_PER_S
+    rec["bound_ms"] = max(t_bytes, t_ops)
+    rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+
+
+def plan_text(plan):
+    return (f"{plan.path} {plan.checks}x{plan.frames} tile, {plan.stages} "
+            f"stage(s), {plan.grid} blocks, {plan.smem} B smem")
+
+
+def build_all(sass_dir=None):
+    """Build every source in parallel and load it; print each library's
+    registers and spills per kernel instance from ptxas.  With
+    ``sass_dir``, write each library's ptxas report and SASS there."""
     from qamreconciliation_tpu_torch.ops import cuda_build
 
     sources = sorted({source for source, _ in KERNELS.values()})
@@ -156,6 +187,23 @@ def build_all():
         cuda_build.load_library(source)
     log(f"[build] {', '.join(lib.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.1f} s")
+    for lib in libs:
+        report = cuda_build.ptxas_report(lib)
+        for line in report.splitlines():
+            if "entry function" in line or "registers" in line \
+                    or "spill" in line:
+                log(f"[ptxas] {lib.name.split('-')[0]}: "
+                    f"{line.split(':', 1)[-1].strip()}")
+        if sass_dir:
+            os.makedirs(sass_dir, exist_ok=True)
+            stem = lib.name.split("-")[0]
+            with open(os.path.join(sass_dir, f"{stem}.ptxas.txt"), "w") as f:
+                f.write(report)
+            sass = subprocess.run(
+                [cuda_build.cuda_tool("cuobjdump"), "-sass", str(lib)],
+                capture_output=True, text=True, check=True, timeout=300)
+            with open(os.path.join(sass_dir, f"{stem}.sass"), "w") as f:
+                f.write(sass.stdout)
 
 
 def softening_frames(dec, mat, groups, seed=7):
@@ -229,28 +277,31 @@ def phase_kernel(kernels):
     for rule, kw, td, md, tt in cases:
         args = (tt.to(td).contiguous(), c2v.to(md).contiguous(), synd)
         got, gviol = bp_check_phase_qc(*args, rule=rule, **kw)
+        plan = bp_check_phase_qc.plan
         want, wviol = bp_check_phase_qc_ref(*args, rule=rule, **kw)
         torch.cuda.synchronize()
         assert torch.equal(gviol, wviol), "violation counts differ"
         if tt is t:
             conv = gviol.sum(0) == 0
             assert bool(conv[: B // 4].all()) and not bool(conv.all())
+        assert plan.path == "staged", plan
         err = check_close(got, want, rule, md)
-        ms, plain_ms = time_pair(
+        name = (f"{rule}{'(a=1,b=0.3)' if kw else ''} "
+                f"t={str(td)[6:]} c2v={str(md)[6:]}"
+                f"{' padded' if tt is t_irr else ''}")
+        assert torch.equal(got, want), f"kernel 1 {name}: not bit-equal"
+        ms, plain_ms = events_ms(
             lambda: bp_check_phase_qc(*args, rule=rule, **kw),
             lambda: bp_check_phase_qc_ref(*args, rule=rule, **kw),
+            reps=10, run=10,
         )
-        irr = " padded" if tt is t_irr else ""
-        name = (f"{rule}{'(a=1,b=0.3)' if kw else ''} "
-                f"t={str(td)[6:]} c2v={str(md)[6:]}{irr}")
-        log(f"[kernel1] {name:45s} max|diff|={err:.3e} bit-equal="
-            f"{torch.equal(got, want)} kernel {ms:.4f} ms  plain "
-            f"{plain_ms:.4f} ms")
+        nbytes = moved(*args, got, gviol)
+        log(f"[kernel1] {name:45s} bit-equal kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  {nbytes / ms / 1e6:.1f} GB/s  "
+            f"[{plan_text(plan)}]")
         if rec is None:              # the headline case: f32 phi
-            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    bytes_moved = 3 * t.numel() * 4 + synd.numel() * 4
-    log(f"[kernel1] headline f32 phi: {bytes_moved / 1e6:.1f} MB moved, "
-        f"{bytes_moved / rec['ms'] / 1e6:.1f} GB/s")
+            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bytes=nbytes, ops=OPS_PER_SLOT[rule] * t.numel())
     record(kernels, "bp_check_phase_qc", **rec)
 
 
@@ -317,7 +368,7 @@ def phase_rounds(kernels):
         err, same = compare_state(state[:2] + state[4:], want[:2] + want[4:],
                                   rule, md, f"kernel2 {rule}")
         scratch = [x.clone() for x in state]
-        ms, plain_ms = time_pair(
+        ms, plain_ms = events_ms(
             lambda: bp_decode_rounds_qc(tables, warm, 50, *scratch,
                                         rule=rule, k_rounds=K),
             lambda: bp_decode_rounds_qc_ref(tables, warm, 50, *scratch,
@@ -330,8 +381,13 @@ def phase_rounds(kernels):
             f"max|diff|={err:.3e} bit-equal={same} per iteration: kernel "
             f"{ms:.4f} ms  plain {plain_ms:.4f} ms")
         if rule == "tanhfb" and td == md == bf16:     # the headline engine
+            # per iteration: totals and prior in, c2v in and out, synd in,
+            # totals out
             record(kernels, "bp_decode_rounds_qc", max_abs_err=err, ms=ms,
-                   plain_ms=plain_ms)
+                   plain_ms=plain_ms,
+                   bytes=moved(state[0], state[0], prior, state[1],
+                               state[1], synd8),
+                   ops=OPS_PER_SLOT[rule] * state[1].numel())
 
 
 def phase_sweeps(kernels):
@@ -386,7 +442,7 @@ def phase_sweeps(kernels):
                                       want[:2] + want[3:], rule, md,
                                       f"kernel3 {label} {rule}")
             scratch = [x.clone() for x in state]
-            ms, plain_ms = time_pair(
+            ms, plain_ms = events_ms(
                 lambda: bp_layered_sweeps_qc(tables, warm, 50, *scratch,
                                              rule=rule, k_sweeps=K),
                 lambda: bp_layered_sweeps_qc_ref(tables, warm, 50, *scratch,
@@ -399,8 +455,12 @@ def phase_sweeps(kernels):
                 f"{same} per sweep: kernel {ms:.4f} ms  plain "
                 f"{plain_ms:.4f} ms")
             if label == "headline" and rule == "minsum" and md == bf16:
+                # per sweep: totals and c2v in and out, synd in
                 record(kernels, "bp_layered_sweeps_qc", max_abs_err=err,
-                       ms=ms, plain_ms=plain_ms)
+                       ms=ms, plain_ms=plain_ms,
+                       bytes=moved(state[0], state[0], state[1], state[1],
+                                   synd8),
+                       ops=OPS_PER_SLOT[rule] * state[1].numel())
 
 
 def phase_decoder():
@@ -552,7 +612,11 @@ def run_cli(code, flags, label):
 
 
 def phase_main_paths(kernels):
-    from qamreconciliation_tpu_torch.models.qc_decoder import make_qc_ldpc
+    from qamreconciliation_tpu_torch.models.matrix import Matrix
+    from qamreconciliation_tpu_torch.models.qc_decoder import (
+        QCDecoder, make_qc_ldpc,
+    )
+    from qamreconciliation_tpu_torch.ops import kernels as K
 
     base, _, _ = make_qc_ldpc(CODE["nb_v"], CODE["z"], CODE["dv"],
                               CODE["dc"], seed=CODE["seed"])
@@ -563,6 +627,12 @@ def phase_main_paths(kernels):
     iterations = sum(r.bp_iterations for r in res)
     assert iterations > 0 and launches["bp_check_phase_qc"] == iterations
     assert res[1].fer <= res[0].fer + 0.05
+    plan = K.bp_check_phase_qc.plan
+    log(f"[main dense] kernel 1 plan: {plan_text(plan)}")
+    assert plan.path == "staged"
+    dec = QCDecoder(base, z, device="cuda")
+    for snr in (3.5, 4.0):
+        log_rounds("main dense", dec, Matrix(dec.vid, dec.cid), snr)
     record(kernels, "bp_check_phase_qc",
            launches=launches["bp_check_phase_qc"])
     # resident bf16 (kernel 2; tanh-F/B by the auto rule), the JAX
@@ -587,7 +657,7 @@ def phase_main_paths(kernels):
     # resident layered bf16 min-sum (kernel 3)
     res, launches, dev = run_cli(qc_code(base, z), [
         "--schedule", "layered", "--resident", "--check-rule", "minsum",
-        "--dtype", "bfloat16", "--snr", "3.5", "3.5", "--nsnr", "1",
+        "--dtype", "bfloat16", "--snr", "3.5", "4.0", "--nsnr", "2",
         "--simloops", "256"], "main layered")
     assert launches["bp_layered_sweeps_qc"] > 0
     assert dev["bp_layered_sweeps_qc"] > 0
@@ -728,23 +798,25 @@ def phase_generic_kernels(kernels):
             assert bool(conv[: B // 4].all()) and not bool(conv.all())
             assert torch.equal(got, want), \
                 f"kernel 4 {rate} {rule} {dt} {which}: not bit-equal"
+            plan = bp_check_phase_generic.plan
+            assert plan.path == "staged", plan
             err = float((got.float() - want.float()).abs().max())
-            ms, plain_ms = time_pair(
+            ms, plain_ms = events_ms(
                 lambda: bp_check_phase_generic(*args, rule=rule, **kw),
                 lambda: bp_check_phase_generic_ref(*args, rule=rule, **kw),
-                reps=10, warmup=2,
+                reps=5, warmup=2, run=10,
             )
             name = (f"{rule}{'(a=1,b=0.3)' if kw else ''} {str(dt)[6:]} "
                     f"{which} mask")
+            nbytes = moved(*args, got, gviol)
             log(f"[kernel4] rate {rate} {tuple(t.shape)} {name:34s} "
-                f"bit-equal kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+                f"bit-equal kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                f"{nbytes / ms / 1e6:.1f} GB/s  [{plan_text(plan)}]")
             if (rate, rule, kw, dt, which) == ("1/2", "sumproduct", {},
                                                torch.float32, "code"):
                 record(kernels, "bp_check_phase_generic", max_abs_err=err,
-                       ms=ms, plain_ms=plain_ms)
-                moved = 3 * t.numel() * 4 + synd.numel() * 4
-                log(f"[kernel4] headline f32 phi: {moved / 1e6:.1f} MB "
-                    f"moved, {moved / ms / 1e6:.1f} GB/s")
+                       ms=ms, plain_ms=plain_ms, bytes=nbytes,
+                       ops=OPS_PER_SLOT[rule] * t.numel())
         if rate == "1/2":
             v = data["code"][1][0].transpose(0, 1).contiguous()
             args = (v, data["code"][1][2], code_mask.T.contiguous())
@@ -752,14 +824,16 @@ def phase_generic_kernels(kernels):
             want = check_node_update_fused_ref(*args)
             torch.cuda.synchronize()
             assert torch.equal(got, want), "kernel 5: not bit-equal"
-            ms, plain_ms = time_pair(
+            ms, plain_ms = events_ms(
                 lambda: check_node_update_fused(*args),
                 lambda: check_node_update_fused_ref(*args),
-                reps=10, warmup=2)
+                reps=5, warmup=2, run=10)
             log(f"[kernel5] {tuple(v.shape)} f32 phi bit-equal kernel "
                 f"{ms:.4f} ms  plain {plain_ms:.4f} ms")
             record(kernels, "check_node_update_fused", max_abs_err=float(
-                (got - want).abs().max()), ms=ms, plain_ms=plain_ms)
+                (got - want).abs().max()), ms=ms, plain_ms=plain_ms,
+                bytes=moved(*args, got),
+                ops=OPS_PER_SLOT["sumproduct"] * v.numel())
 
 
 def phase_generic_decoder():
@@ -803,38 +877,16 @@ def phase_generic_decoder():
             f"per iteration), plain {ms[1]:.1f} ms ({ms[1] / its[1]:.3f})")
 
 
-def round_breakdown(code, dtype, snr, rounds=4):
-    """Host-clock ms per round of the generic softening round on ``code``,
-    after a warm-up round: (preamble, decode + count, iterations per
-    round)."""
-    from qamreconciliation_tpu_torch.models.alphabet import PAMAlphabet
-    from qamreconciliation_tpu_torch.models.decoder import Decoder
-    from qamreconciliation_tpu_torch.models.matrix import Matrix
-    from qamreconciliation_tpu_torch.sims.engine import (
-        ReconciliationEngine, round_generator,
+def log_rounds(label, dec, mat, snr):
+    """Print the untraced round breakdown of ``dec`` at ``snr``."""
+    from qamreconciliation_tpu_torch.sims.time_check_phase import (
+        round_breakdown,
     )
 
-    dec = Decoder(*code, dtype=dtype, device="cuda")
-    eng = ReconciliationEngine(dec, Matrix(*code), PAMAlphabet(2, 2.0),
-                               batch=128, dtype=torch.float32)
-    nm = eng.make_noisemapper(snr, ALTERNATING)
-    sigma = math.sqrt(eng.noise_var(snr))
-    pre, dcd, its = [], [], []
-    for r in range(rounds + 1):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        x, y = eng._sample_sb(round_generator(11, r, "cuda"), sigma)
-        lappr, word = eng._softening_inputs(nm, x, y, 1.0)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        it0 = dec.iterations_run
-        eng._decode_and_count_nb(lappr, word, 50).tolist()
-        t2 = time.perf_counter()
-        if r:
-            pre.append(1e3 * (t1 - t0))
-            dcd.append(1e3 * (t2 - t1))
-            its.append(dec.iterations_run - it0)
-    return statistics.median(pre), statistics.median(dcd), its
+    pre, dcd, its = round_breakdown(dec, mat, snr)
+    log(f"[{label}] {snr} dB round: preamble {pre:.2f} ms, decode+count "
+        f"{dcd:.2f} ms, iterations {its} "
+        f"({dcd / max(statistics.median(its), 1):.3f} ms per iteration)")
 
 
 def phase_generic_main(kernels):
@@ -846,6 +898,7 @@ def phase_generic_main(kernels):
     from qamreconciliation_tpu_torch.models.decoder import Decoder
     from qamreconciliation_tpu_torch.models.matrix import Matrix
     from qamreconciliation_tpu_torch.models.qc_decoder import make_qc_ldpc
+    from qamreconciliation_tpu_torch.ops import kernels as K
     from qamreconciliation_tpu_torch.ops.kernels import (
         bp_check_phase_generic, check_node_update_fused,
     )
@@ -862,15 +915,15 @@ def phase_generic_main(kernels):
         assert launches["bp_check_phase_generic"] == iterations
         assert launches["bp_check_phase_qc"] == 0
         assert res[1].fer <= res[0].fer + 0.05
+        plan = K.bp_check_phase_generic.plan
+        log(f"[generic {label}] kernel 4 plan: {plan_text(plan)}")
+        assert plan.path == "staged"
         if label == "dvbs2 1/2":
             record(kernels, "bp_check_phase_generic",
                    launches=launches["bp_check_phase_generic"])
         for snr in (3.5, 4.0):
-            pre, dcd, its = round_breakdown(code, "float32", snr)
-            log(f"[generic {label}] {snr} dB round: preamble {pre:.2f} ms, "
-                f"decode+count {dcd:.2f} ms, iterations {its} "
-                f"({dcd / max(statistics.median(its), 1):.3f} ms per "
-                f"iteration)")
+            log_rounds(f"generic {label}",
+                       Decoder(*code, device="cuda"), Matrix(*code), snr)
     # --lift-qc on an expanded QC code rides the QC decoder (kernel 1)
     _, vid, cid = make_qc_ldpc(CODE["nb_v"], CODE["z"], CODE["dv"],
                                CODE["dc"], seed=CODE["seed"])
@@ -938,13 +991,13 @@ def phase_generic_quality():
             assert abs(r.fer - p) <= bound, (r.fer, p, bound)
 
 
-def main():
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    sass_dir = argv[argv.index("--sass") + 1] if "--sass" in argv else None
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 2
-    import qamreconciliation_tpu_torch  # noqa: F401  (fails outside the repo)
-
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -955,7 +1008,7 @@ def main():
     log(smi)
 
     t_all = time.perf_counter()
-    build_all()
+    build_all(sass_dir)
     kernels = {}
     for phase, args in ((phase_kernel, (kernels,)),
                         (phase_rounds, (kernels,)),
@@ -973,6 +1026,13 @@ def main():
         log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
 
+    for name in KERNELS:
+        finish_record(kernels[name])
+        k = kernels[name]
+        log(f"[bound] {name}: {k['bytes'] / 1e6:.1f} MB -> bound "
+            f"{k['bound_ms']:.4f} ms by {k['bound_by']}, kernel {k['ms']:.4f}"
+            f" ms ({100 * k['bound_share']:.1f}% of the bound), "
+            f"{k['launches']} launches on its main path")
     print(json.dumps({"kernels": [kernels[n] for n in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

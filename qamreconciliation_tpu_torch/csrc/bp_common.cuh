@@ -2,7 +2,7 @@
 // bp_decode_rounds_qc.cu, bp_layered_sweeps_qc.cu,
 // bp_check_phase_generic.cu): loads and stores in the message dtype,
 // phi(x) = -log(tanh(x/2)), and the all-but-one check-node magnitude of the
-// three rules, plain and over masked (padded) rows.  Each function follows the operation order
+// three rules, and of phi over masked (padded) rows.  Each function follows the operation order
 // of the plain PyTorch versions in ops/kernels.py and ops/boxplus.py, so
 // min-sum is bit-identical to them.
 //
@@ -54,6 +54,17 @@ __device__ __forceinline__ float phi_llr(float x, float tiny) {
   const float big = log1pf(ex) - log1pf(-ex);
   const float small = -logf(tanhf(fminf(x, 10.0f) / 2.0f));
   return x < 10.0f ? small : big;
+}
+
+// phi_llr evaluating only the regime x takes: the same function on the same
+// input, so the same bits, at about half the instructions.  The _rn
+// intrinsics keep the compiler from contracting the halving or the
+// difference into a neighbouring operation of the caller.
+__device__ __forceinline__ float phi_llr_branch(float x, float tiny) {
+  x = fmaxf(x, tiny);
+  if (x < 10.0f) return -logf(tanhf(__fmul_rn(x, 0.5f)));
+  const float ex = expf(-x);
+  return __fsub_rn(log1pf(ex), log1pf(-ex));
 }
 
 // tanh-F/B output of a degree-1 check (empty product, u = 1), as the plain
@@ -158,34 +169,25 @@ __device__ __forceinline__ void check_magnitudes(const float (&v)[MAXD],
   }
 }
 
-// check_magnitudes over the slots of a padded row, slot d real when
-// m[d] > 0 (the generic decoder's mask, any float): phi multiplies by the
-// mask, phi(|v|) * m, before the left-fold sum; min-sum and tanh-F/B select
-// the +1e30 sentinel for padded slots, the neutral element of both.  Padded
-// slots' magnitudes are finite, and the caller multiplies them by m.
+// The phi magnitudes of a padded row, slot d real when m[d] > 0 (the
+// generic decoder's mask, any float): phi(|v|) * m, then the left-fold sum.
+// Padded slots' magnitudes are finite, and the caller multiplies them by m.
 template <int MAXD>
-__device__ __forceinline__ void masked_check_magnitudes(
-    const float (&v)[MAXD], const float (&m)[MAXD], int dc, int rule,
-    float tiny, float alpha, float beta, float tanh_sat, float (&mag)[MAXD]) {
-  if (rule == kPhi) {
-    float sum = 0.0f;
+__device__ __forceinline__ void masked_phi_magnitudes(const float (&v)[MAXD],
+                                                      const float (&m)[MAXD],
+                                                      int dc, float tiny,
+                                                      float (&mag)[MAXD]) {
+  float sum = 0.0f;
 #pragma unroll
-    for (int d = 0; d < MAXD; ++d) {
-      if (d < dc) {
-        mag[d] = __fmul_rn(phi_llr(fabsf(v[d]), tiny), m[d]);
-        sum += mag[d];
-      }
+  for (int d = 0; d < MAXD; ++d) {
+    if (d < dc) {
+      mag[d] = __fmul_rn(phi_llr(fabsf(v[d]), tiny), m[d]);
+      sum += mag[d];
     }
-#pragma unroll
-    for (int d = 0; d < MAXD; ++d)
-      if (d < dc) mag[d] = phi_llr(sum - mag[d], tiny);
-    return;
   }
-  float a[MAXD];
 #pragma unroll
   for (int d = 0; d < MAXD; ++d)
-    if (d < dc) a[d] = m[d] > 0.0f ? fabsf(v[d]) : 1e30f;
-  check_magnitudes<MAXD>(a, dc, rule, tiny, alpha, beta, tanh_sat, mag);
+    if (d < dc) mag[d] = phi_llr(sum - mag[d], tiny);
 }
 
 // The signed message of slot d: (sign * prefactor) * magnitude, where the

@@ -4,7 +4,8 @@ Each source under ``csrc/`` compiles to a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds).  Libraries land in
 ``csrc/_build/`` keyed by a hash of the source text, the shared headers
 (``csrc/*.cuh``) and the compiler flags, so an edited source or header is
-rebuilt and an unchanged one is loaded as is.
+rebuilt and an unchanged one is loaded as is.  Beside each library lies
+ptxas's report of it (registers, shared memory and spills per kernel).
 """
 
 from __future__ import annotations
@@ -18,28 +19,35 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build", "load_library"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build", "load_library",
+           "ptxas_report", "cuda_tool"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str) -> str:
+    """The CUDA toolkit's ``name`` (nvcc, cuobjdump): on PATH, else under
+    CUDA_HOME (default /usr/local/cuda)."""
+    found = shutil.which(name)
     if found:
         return found
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
+    path = os.path.join(home, "bin", name)
     if not os.path.exists(path):
         raise RuntimeError(
-            "nvcc not found on PATH or under CUDA_HOME; the CUDA kernels "
+            f"{name} not found on PATH or under CUDA_HOME; the CUDA kernels "
             "need the CUDA toolkit to build"
         )
     return path
+
+
+def _nvcc() -> str:
+    return cuda_tool("nvcc")
 
 
 def _library_path(source: Path) -> Path:
@@ -76,11 +84,23 @@ def build(name: str) -> Path:
                 f"nvcc failed to build {source.name} "
                 f"(exit {proc.returncode}):\n{proc.stderr}{proc.stdout}"
             )
+        _report_path(lib).write_text(proc.stderr + proc.stdout)
         os.replace(tmp, lib)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return lib
+
+
+def _report_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
+def ptxas_report(lib: Path) -> str:
+    """ptxas's report of a built library (-Xptxas -v), or '' if the library
+    was built without one."""
+    path = _report_path(lib)
+    return path.read_text() if path.exists() else ""
 
 
 @functools.lru_cache(maxsize=None)

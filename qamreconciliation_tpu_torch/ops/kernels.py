@@ -26,6 +26,8 @@ them.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -37,6 +39,7 @@ from .boxplus import (
 
 __all__ = [
     "RULES", "MAX_DC", "GENERIC_BLOCK_C", "QCTables", "layered_levels",
+    "TilePlan", "check_tile_plan", "tile_smem",
     "bp_check_phase_qc", "bp_check_phase_qc_ref",
     "bp_decode_rounds_qc", "bp_decode_rounds_qc_ref",
     "bp_layered_sweeps_qc", "bp_layered_sweeps_qc_ref",
@@ -85,6 +88,126 @@ def _check_messages(v2c, synd, dim: int, rule: str, tiny: float,
     sign = (1 - 2 * torch.bitwise_xor(par, neg)).to(v2c.dtype)
     pref = (1 - 2 * synd.to(torch.int32)).to(v2c.dtype).unsqueeze(dim)
     return sign * pref * mag
+
+
+# --------------------------------------------------------------------- #
+# Launch plan of the staged-tile check phase (kernels 1 and 4,
+# csrc/bp_check_tile.cuh)
+
+SMEM_BLOCK_MAX = 232448     # 227 KB: the most shared memory a block may use
+SMEM_SM = 233472            # 228 KB per SM; each resident block takes 1 KB more
+TILE_PAIRS = 1024           # (check, frame) pairs a tile holds at most
+TILE_FRAMES_MAX = 256       # frames per tile at most
+TILE_BLOCKS_PER_SM = 3      # persistent blocks per SM; the launch refuses
+                            # more than the source's kTileBlocksPerSm
+# f32 scratch values per slot (tile_scratch): phi(|v|); the two forward
+# products of tanh-F/B and e^-|v|; none for min-sum
+_TILE_SCRATCH = {"sumproduct": 1, "tanhfb": 3, "minsum": 0}
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """Launch shape of the staged-tile check phase (one call)."""
+
+    checks: int         # checks per tile: a power of two dividing 64
+    frames: int         # frames per tile
+    stages: int         # tiles in the shared-memory ring (1: per-thread)
+    path: str           # "staged" (TMA bulk copies) or "thread" (plain loads)
+    smem: int           # dynamic shared memory per block, bytes
+    blocks_per_sm: int  # persistent blocks resident on one SM
+    tiles: int          # tiles of the call
+    grid: int           # persistent blocks launched
+
+
+def _up16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def tile_smem(dc: int, checks: int, frames: int, stages: int, t_size: int,
+              m_size: int, masked: bool, scratch: int) -> int:
+    """Dynamic shared memory of a tile plan, bytes: ``stages`` stages of
+    [t, c2v, synd, mask] tiles, the f32 scratch, the per-frame violation
+    counts and one mbarrier per stage (``tile_layout`` in the source)."""
+    pairs = checks * frames
+    stage = (_up16(dc * pairs * t_size) + _up16(dc * pairs * m_size)
+             + _up16(pairs * 4) + (_up16(dc * checks * 4) if masked else 0))
+    return (stages * stage + _up16(scratch * dc * pairs * 4)
+            + _up16(frames * 4) + 16 * stages)
+
+
+@functools.lru_cache(maxsize=256)
+def check_tile_plan(groups: int, dc: int, rows: int, B: int, t_size: int,
+                    m_size: int, rule: str, *, masked: bool,
+                    aligned: bool = True, sms: int = 132) -> TilePlan:
+    """The launch plan of one staged-tile check phase: ``groups`` groups of
+    ``rows`` checks with ``dc`` slots over ``B`` frames (kernel 1: nb_c
+    block rows of z; kernel 4: one group of C checks, ``masked``), element
+    sizes ``t_size``/``m_size`` bytes, on a card with ``sms`` SMs.
+
+    A tile is ``checks`` checks by ``frames`` frames: all B frames up to
+    ``TILE_FRAMES_MAX``, and ``checks`` a power of two up to 64.  The
+    staged path (TMA bulk copies) needs 16-byte units: B times each element
+    size a multiple of 16 and ``aligned`` pointers; else the per-thread
+    path, with one stage.  The tile is the largest, from ``TILE_PAIRS``
+    pairs down, whose two-stage ring fits ``TILE_BLOCKS_PER_SM`` blocks an
+    SM, else two; a staged ring then takes as many stages, up to 4, as that
+    many blocks still fit.  Where no tile fits two blocks, one check a tile
+    and one block an SM, with fewer frames if one block does not fit.  The
+    grid is persistent: that many blocks an SM."""
+    if rule not in _TILE_SCRATCH:
+        raise ValueError(f"unknown rule {rule!r}")
+    if not (1 <= dc <= MAX_DC) or min(groups, rows, B) < 1:
+        raise ValueError(f"no tile plan for groups={groups} dc={dc} "
+                         f"rows={rows} B={B}")
+    staged = (aligned and (B * t_size) % 16 == 0
+              and (B * m_size) % 16 == 0)
+    least = 2 if staged else 1
+    frames = min(B, TILE_FRAMES_MAX)
+    while True:
+        def smem(checks, stages):
+            return tile_smem(dc, checks, frames, stages, t_size, m_size,
+                             masked, _TILE_SCRATCH[rule])
+
+        def fits(checks, stages, blocks):
+            return blocks * (smem(checks, stages) + 1024) <= SMEM_SM
+
+        top = 1
+        while top < 64 and 2 * top * frames <= TILE_PAIRS:
+            top *= 2
+        choices = [(top >> k, blocks) for k in range(top.bit_length())
+                   for blocks in (TILE_BLOCKS_PER_SM, 2)] + [(1, 1)]
+        checks, blocks = next(((c, b) for c, b in choices
+                               if fits(c, least, b)), (0, 0))
+        if checks:
+            break
+        half = frames // 2
+        if half < 1 or (staged and (half * t_size % 16 or half * m_size % 16)):
+            raise ValueError(f"no tile of dc={dc} fits {SMEM_BLOCK_MAX} "
+                             f"bytes of shared memory")
+        frames = half
+    stages = least
+    while staged and stages < 4 and fits(checks, stages + 1, blocks):
+        stages += 1
+    tiles = groups * -(-rows // checks) * -(-B // frames)
+    return TilePlan(checks, frames, stages, "staged" if staged else "thread",
+                    smem(checks, stages), blocks, tiles,
+                    min(tiles, blocks * sms))
+
+
+def _tile_launch_args(plan: TilePlan):
+    return (plan.checks, plan.frames, plan.stages,
+            int(plan.path == "staged"), plan.grid, plan.blocks_per_sm,
+            plan.smem)
+
+
+def _plan_for(groups, dc, rows, B, t, m, rule, masked, *tensors):
+    """check_tile_plan of one call: totals ``t``, messages ``m``, and
+    ``tensors`` whose pointers the bulk copies need 16-byte aligned."""
+    aligned = all(y.data_ptr() % 16 == 0 for y in tensors)
+    sms = torch.cuda.get_device_properties(t.device).multi_processor_count
+    return check_tile_plan(groups, dc, rows, B, t.element_size(),
+                           m.element_size(), rule, masked=masked,
+                           aligned=aligned, sms=sms)
 
 
 # --------------------------------------------------------------------- #
@@ -167,25 +290,28 @@ def bp_check_phase_qc(t, c2v, synd, tiny: float = 1e-30, *,
     nb_c, dc, z, B = t.shape
     if dc > MAX_DC:
         raise ValueError(f"check degree {dc} exceeds the kernel's {MAX_DC}")
-    if nb_c > 65535:
-        raise ValueError(f"{nb_c} check block rows exceed the grid's 65535")
 
     out = torch.empty_like(c2v)
     viol = torch.zeros((nb_c, B), dtype=torch.int32, device=t.device)
-    lib = _library("bp_check_phase_qc", "pppppiiiiiiifffp")
+    plan = _plan_for(nb_c, dc, z, B, t, c2v, rule, False, t, c2v, synd, out)
+    lib = _library("bp_check_phase_qc", "ppppp" + "i" * 7 + "fff"
+                   + "i" * 7 + "p")
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
         err = lib.bp_check_phase_qc_launch(
             t.data_ptr(), c2v.data_ptr(), synd.data_ptr(), out.data_ptr(),
             viol.data_ptr(), codes[0], codes[1], nb_c, dc, z, B, RULES[rule],
-            float(tiny), float(ms_alpha), float(ms_beta), stream,
+            float(tiny), float(ms_alpha), float(ms_beta),
+            *_tile_launch_args(plan), stream,
         )
     _raise_on(err, "bp_check_phase_qc")
     bp_check_phase_qc.launches += 1
+    bp_check_phase_qc.plan = plan
     return out, viol
 
 
 bp_check_phase_qc.launches = 0
+bp_check_phase_qc.plan = None
 
 
 # --------------------------------------------------------------------- #
@@ -806,13 +932,25 @@ def bp_check_phase_generic(t, c2v, synd, c_mask, tiny: float = 1e-30, *,
     n = -(-C // GENERIC_BLOCK_C)
     out = torch.empty_like(t)
     viol = torch.zeros((n, B), dtype=torch.int32, device=t.device)
-    _launch_generic(t, c2v, synd, mask, out, viol, code, dc, C, B,
-                    (C * B, B, C, 1), RULES[rule], tiny, ms_alpha, ms_beta)
+    plan = _plan_for(1, dc, C, B, t, t, rule, True, t, c2v, synd, out)
+    lib = _library("bp_check_phase_generic", "pppppp" + "i" * 5 + "fff"
+                   + "i" * 7 + "p")
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream(t.device).cuda_stream
+        err = lib.bp_check_phase_generic_launch(
+            t.data_ptr(), c2v.data_ptr(), synd.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), viol.data_ptr(), code, dc, C, B, RULES[rule],
+            float(tiny), float(ms_alpha), float(ms_beta),
+            *_tile_launch_args(plan), stream,
+        )
+    _raise_on(err, "bp_check_phase_generic")
     bp_check_phase_generic.launches += 1
+    bp_check_phase_generic.plan = plan
     return out, viol
 
 
 bp_check_phase_generic.launches = 0
+bp_check_phase_generic.plan = None
 
 
 def _check_major_args(v2c_c, synd, c_mask):
@@ -874,31 +1012,20 @@ def check_node_update_fused(v2c_c, synd, c_mask, tiny: float = 1e-30):
         raise ValueError(f"check degree {dc} exceeds the kernel's {MAX_DC}")
     mask = c_mask.to(torch.float32).contiguous()
     out = torch.empty_like(v2c_c)
-    _launch_generic(v2c_c, None, synd, mask, out, None, 0, dc, C, B,
-                    (B, dc * B, 1, dc), RULES["sumproduct"], tiny,
-                    MINSUM_ALPHA, 0.0)
+    lib = _library("bp_check_phase_generic", "pppp" + "iii" + "fp",
+                   "check_node_update_launch")
+    with torch.cuda.device(v2c_c.device):
+        stream = torch.cuda.current_stream(v2c_c.device).cuda_stream
+        err = lib.check_node_update_launch(
+            v2c_c.data_ptr(), synd.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), dc, C, B, float(tiny), stream,
+        )
+    _raise_on(err, "check_node_update_fused")
     check_node_update_fused.launches += 1
     return out
 
 
 check_node_update_fused.launches = 0
-
-
-def _launch_generic(t, c2v, synd, mask, out, viol, code, dc, C, B, strides,
-                    rule, tiny, ms_alpha, ms_beta):
-    """One launch of ``csrc/bp_check_phase_generic.cu``; ``strides`` are
-    (slot, check) of the messages, then (slot, check) of the mask."""
-    lib = _library("bp_check_phase_generic", "pppppp" + "iiii" + "qqqq"
-                   + "ifffp")
-    ptr = (lambda x: None if x is None else x.data_ptr())
-    with torch.cuda.device(t.device):
-        stream = torch.cuda.current_stream(t.device).cuda_stream
-        err = lib.bp_check_phase_generic_launch(
-            t.data_ptr(), ptr(c2v), synd.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), ptr(viol), code, dc, C, B, *strides, rule,
-            float(tiny), float(ms_alpha), float(ms_beta), stream,
-        )
-    _raise_on(err, "bp_check_phase_generic")
 
 
 # --------------------------------------------------------------------- #
@@ -947,18 +1074,17 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong,
-           "f": ctypes.c_float}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 
-def _library(name: str, signature: str):
+def _library(name: str, signature: str, entry: str | None = None):
     """The loaded library of ``csrc/<name>.cu`` with the argument types of
-    ``<name>_launch`` set from ``signature`` (p pointer, i int, q 64-bit
-    int, f float)."""
+    its function ``entry`` (default ``<name>_launch``) set from
+    ``signature`` (p pointer, i int, f float)."""
     from .cuda_build import load_library
 
     lib = load_library(name)
-    fn = getattr(lib, f"{name}_launch")
+    fn = getattr(lib, entry or f"{name}_launch")
     if fn.argtypes is None:
         fn.argtypes = [_CTYPES[c] for c in signature]
         fn.restype = ctypes.c_int

@@ -6,12 +6,16 @@ dispatch.  Imports no JAX, so it also runs on a GPU host without jax:
 Tests marked ``cuda`` skip without a card.  Tolerances as in
 test_torch_check_phase.py: min-sum and the convergence counts are exact,
 phi/tanhfb within rtol/atol 1e-5 in f32 (two libms: the kernel's and
-PyTorch's CUDA ops) or one bf16 ulp with bf16 messages.  The multi-step
+PyTorch's CUDA ops) or one bf16 ulp with bf16 messages; the staged-tile
+kernels 1 and 4 are also held bit for bit on ragged shapes, every rule and
+dtype, both load paths (``test_*_tiles_bit_equal``).  The multi-step
 kernels compound that over K steps: their sum-product state is held within
 rtol/atol 1e-4 (f32) or 2^-6 (bf16), with done and iters exact.  The
 generic check phase (kernel 4) and its check-major mode (kernel 5) are held
 bit for bit, as the card runs them.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -22,9 +26,10 @@ from qamreconciliation_tpu_torch.models.matrix import Matrix
 from qamreconciliation_tpu_torch.models.qc_decoder import (
     QCDecoder, make_qc_ira, make_qc_ldpc,
 )
-from qamreconciliation_tpu_torch.ops import cuda_build
+from qamreconciliation_tpu_torch.ops import cuda_build, kernels
 from qamreconciliation_tpu_torch.ops.kernels import (
     QCTables, bp_check_phase_generic, bp_check_phase_generic_ref,
+    check_tile_plan,
     bp_check_phase_qc, bp_check_phase_qc_ref, bp_decode_rounds_qc,
     bp_decode_rounds_qc_ref, bp_layered_sweeps_qc, bp_layered_sweeps_qc_ref,
     check_node_update_fused, check_node_update_fused_ref,
@@ -130,6 +135,42 @@ def test_cuda_kernel_matches_plain(rule, kw, t_dtype, m_dtype):
     assert_close(got, want, rule, m_dtype)
 
 
+# (nb_c, dc, z, B): z not a multiple of the tile, B off the 16-byte units
+# (1, and 100 in bf16: the per-thread path) and beyond one tile's frames
+# (256), degree-1 rows, the MAXD 32 width
+QC_TILE_SHAPES = [(3, 6, 70, 1), (3, 6, 70, 100), (3, 6, 70, 256),
+                  (2, 1, 37, 40), (2, 32, 21, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", QC_TILE_SHAPES,
+                         ids=["x".join(map(str, s)) for s in QC_TILE_SHAPES])
+@pytest.mark.parametrize("t_dtype,m_dtype", DTYPES)
+@pytest.mark.parametrize("rule,kw", RULES)
+def test_qc_tiles_bit_equal(rule, kw, t_dtype, m_dtype, shape):
+    """Kernel 1 on staged tiles, bit for bit, +1e30 padded slots included;
+    the plan's load path as check_tile_plan gives it."""
+    need_cuda()
+    t, c2v, synd = make_inputs(23, shape)
+    args = (torch.from_numpy(t).to("cuda", t_dtype),
+            torch.from_numpy(c2v).to("cuda", m_dtype),
+            torch.from_numpy(synd).cuda())
+    got, gviol = bp_check_phase_qc(*args, rule=rule, **kw)
+    want, wviol = bp_check_phase_qc_ref(*args, rule=rule, **kw)
+    torch.cuda.synchronize()
+    nb_c, dc, z, B = shape
+    plan = bp_check_phase_qc.plan
+    assert plan == check_tile_plan(
+        nb_c, dc, z, B, args[0].element_size(), args[1].element_size(),
+        rule, masked=False,
+        sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    assert plan.path == ("staged" if (B * args[1].element_size()) % 16 == 0
+                         and (B * args[0].element_size()) % 16 == 0
+                         else "thread")
+    assert torch.equal(gviol, wviol)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_rejects_what_it_does_not_take():
     need_cuda()
@@ -145,6 +186,36 @@ def test_cuda_kernel_rejects_what_it_does_not_take():
     wide = torch.zeros(2, 33, 8, 4, device="cuda")
     with pytest.raises(ValueError, match="degree"):
         bp_check_phase_qc(wide, wide, synd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("change", [dict(blocks_per_sm=4),
+                                    dict(blocks_per_sm=0),
+                                    dict(smem_delta=16)],
+                         ids=["blocks 4", "blocks 0", "smem"])
+def test_tile_launch_refuses_a_plan_the_kernel_does_not_take(monkeypatch,
+                                                             change):
+    """The launch holds the plan to the kernel's own limits and layout:
+    more blocks an SM than its register budget allows, or a shared-memory
+    size other than its layout's, is refused."""
+    need_cuda()
+    plan_fn = kernels.check_tile_plan
+
+    def altered(*args, **kw):
+        plan = plan_fn(*args, **kw)
+        smem = plan.smem + change.get("smem_delta", 0)
+        return dataclasses.replace(
+            plan, smem=smem,
+            blocks_per_sm=change.get("blocks_per_sm", plan.blocks_per_sm))
+
+    monkeypatch.setattr(kernels, "check_tile_plan", altered)
+    t, c2v, synd = (torch.from_numpy(a).cuda()
+                    for a in make_inputs(5, (3, 6, 40, 128)))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        bp_check_phase_qc(t, c2v, synd)
+    mask = torch.ones(6, 40, device="cuda")
+    with pytest.raises(RuntimeError, match="launch failed"):
+        bp_check_phase_generic(t[0], c2v[0], synd[0], mask)
 
 
 @pytest.mark.cuda
@@ -394,6 +465,37 @@ def test_generic_kernel_matches_plain(rule, kw, dtype, dc):
     assert torch.equal(gviol, wviol)
     conv = gviol.sum(0) == 0
     assert bool(conv[:5].all()) and not bool(conv.all())
+    assert torch.equal(got, want)
+
+
+# (dc, C, B): C not a multiple of the tile, B of the per-thread path (1,
+# and 100 in bf16) and beyond one tile's frames (256), degree-1 checks
+# (dc = 1) beside the empty and degree-1 checks of every mask, MAXD 32
+GENERIC_TILE_SHAPES = [(7, 150, 1), (7, 150, 100), (7, 150, 256),
+                       (1, 70, 40), (32, 70, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GENERIC_TILE_SHAPES,
+                         ids=["x".join(map(str, s))
+                              for s in GENERIC_TILE_SHAPES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rule,kw", RULES)
+def test_generic_tiles_bit_equal(rule, kw, dtype, shape):
+    """Kernel 4 on staged tiles, bit for bit, with a random non-prefix
+    mask holding an empty check and a degree-1 one."""
+    need_cuda()
+    dc, C, B = shape
+    t, c2v, synd, mask = (torch.from_numpy(a).cuda()
+                          for a in generic_inputs(29, dc, C, B))
+    args = (t.to(dtype), c2v.to(dtype), synd, mask)
+    got, gviol = bp_check_phase_generic(*args, rule=rule, **kw)
+    want, wviol = bp_check_phase_generic_ref(*args, rule=rule, **kw)
+    torch.cuda.synchronize()
+    size = args[0].element_size()
+    assert bp_check_phase_generic.plan.path == (
+        "staged" if (B * size) % 16 == 0 else "thread")
+    assert torch.equal(gviol, wviol)
     assert torch.equal(got, want)
 
 
