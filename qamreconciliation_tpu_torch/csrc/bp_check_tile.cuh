@@ -63,8 +63,6 @@ constexpr int kTileIlp = 2;  // (check, frame) pairs a thread runs in lockstep
 constexpr int kTileSmemMax = 232448;  // 227 KB, the most a block may use
 constexpr int kSmemPerSm = 233472;    // 228 KB an SM, 1 KB more a block
 
-__host__ __device__ inline int up16(int x) { return (x + 15) & ~15; }
-
 // Byte offsets in the dynamic shared memory: `stages` stages of [t tile,
 // c2v tile, synd tile, mask tile], the scratch, the per-frame violation
 // counts and one mbarrier per stage.  ops/kernels.py tile_smem mirrors it.
@@ -417,8 +415,8 @@ struct TileKernel {
             if (ok[k]) scr[d * P + pp[k]] = x;
           } else if constexpr (RULE == kMinSum) {
             // m1 the minimum, cnt its multiplicity, m2 the minimum of the
-            // other values: the selections of check_magnitudes in one
-            // pass, without branches
+            // other values, in one pass without branches (the plain
+            // version's tie-correct selection; bp_resident.cuh the same)
             const float a = a_of(k, d, v[k]);
             const bool lt = a < m1[k], eq = a == m1[k];
             const float other = a < m2[k] ? a : m2[k];

@@ -12,216 +12,280 @@
 // Tables (device int32): row_off [nb_c+1], edge_v/edge_s [E] (the rows'
 // variable blocks and shifts in [0, z)), col_off [nb_v+1], col_e/col_s [E]
 // (each variable block's edges in (row ascending, slot ascending) order).
-// viol [B] int32 scratch, zero on entry and on return.
 //
 // Iteration it = it0 + k, k < n (the host computes n = max(min(K, maxiter -
-// it0), 0), so iterations past maxiter never run):
-//   pass 1 (check_pass_kernel), per (cb, j, b): t_d = total[v_d][(j - s_d)
-//     mod z] in f32, the parity of t<0 against synd counted into viol[b],
-//     v2c = t - c2v, the rule's all-but-one magnitude, sign and (1 - 2 synd)
-//     prefactor, c2v stored in place in the message dtype for every frame;
-//   bookkeeping (bp::bookkeeping_kernel), per frame: viol[b] == 0 converges,
-//     a newly converged frame records iters = it, done |= converged;
-//   pass 2 (var_pass_kernel), per (vb, k, b) of a frame not done: total =
-//     round_once(f32(prior) + left fold of c2v[e][(k + s_e) mod z] over the
-//     block's edges), so a converged frame keeps the totals of its
-//     convergence iteration.  No atomics on the totals.
+// it0), 0), so iterations past maxiter never run), per frame:
+//   pass 1, per (cb, j): t_d = total[v_d][(j - s_d) mod z] in f32, the
+//     parity of t < 0 against synd counted for the convergence test, v2c =
+//     t - c2v, the rule's all-but-one magnitude, sign and (1 - 2 synd)
+//     prefactor, c2v stored in place in the message dtype (every frame);
+//   the frame's violation count: none converges (iters = it for a newly
+//     converged frame, done = 1);
+//   pass 2, per (vb, k), only in a frame not done: total = round_once(
+//     f32(prior) + left fold of c2v[e][(k + s_e) mod z] over the block's
+//     edges), so a converged frame keeps the totals of its convergence
+//     iteration.  No atomics on the totals.
 // Operation order follows the plain version, ops/kernels.py:
-// bp_decode_rounds_qc_ref; min-sum is bit-identical to it.
+// bp_decode_rounds_qc_ref; every rule is bit-identical to it.
 //
-// Bound: memory.  At the headline shape (nb_v 180, E 540, z 360, B 128) with
-// bf16 messages one iteration moves ~250 MB: pass 1 reads the rolled totals
-// (540 x 360 x 128 x 2 B ~ 50 MB) and reads and writes c2v (~100 MB); pass 2
-// reads c2v, prior and the totals and writes the totals (~100 MB).  That is
-// ~75 us at 3.35 TB/s.  The TPU kernel kept the whole state in VMEM across
-// the K iterations; the state (~87 MB) does not fit an SM's shared memory or
-// the 50 MB L2, so this design keeps the contract (K iterations per call,
-// in-kernel convergence test, iteration-exact iters, freeze at convergence)
-// and drops the residency: three launches per iteration, all queued on the
-// caller's stream by one C entry with no host synchronisation.  Threads map
-// to (row, b) with b innermost, so each warp reads 32 consecutive frames of
-// one slab; a row's slots stay in registers (MAXD template).  No early exit
-// inside the call: the caller checks "all done?" once per call.
+// Bound: memory and the check rule's instruction latency.  One iteration at
+// the headline shape (nb_v 180, E 540, z 360, B 128, bf16) must read the
+// totals, prior, synd and c2v and write c2v and the totals: 153 MB, 0.046 ms
+// at 3.35 TB/s.  The first design (0.354-0.389 ms per bf16 tanh-F/B
+// iteration, PERF.md) issued three launches per iteration (check pass,
+// bookkeeping, variable pass), each draining the card, held a row's slots in
+// MAXD register arrays (~125 registers, 16 warps an SM) and read 2-byte
+// values at a stride of B.  This design (bp_resident.cuh): one launch runs
+// all K iterations, a block owning a frame with the passes and steps
+// separated by block barriers and the convergence test a block reduction;
+// the state is copied once per call into frame-major scratch (one launch
+// each way), so a row's rolled reads run along consecutive addresses; the
+// frame's totals stay in shared memory for the call where the plan fits
+// them (bf16 at the headline); the slots live in a shared-memory scratch,
+// not in registers, at up to 1024 threads a block.
 
-#include "bp_common.cuh"
+#include "bp_resident.cuh"
 
 namespace {
 
 using namespace bp;
 
-constexpr int kBT = 32;    // frames per block (threadIdx.x)
-constexpr int kJT = 8;     // circulant rows per pass (threadIdx.y)
-constexpr int kJLOOP = 8;  // passes per block: a block covers 64 rows
+struct Cols {
+  const int* col_off;  // [nb_v + 1]
+  const int* col_e;    // [E] edges of each block, (row, slot) order
+  const int* col_s;    // [E] their shifts
+};
 
-template <typename TT, typename TM, int MAXD>
-__global__ void __launch_bounds__(kBT * kJT)
-check_pass_kernel(const TT* __restrict__ total, TM* __restrict__ c2v,
-                  const int8_t* __restrict__ synd, int32_t* __restrict__ viol,
-                  const int* __restrict__ row_off,
-                  const int* __restrict__ edge_v,
-                  const int* __restrict__ edge_s, int z, int B, int rule,
-                  float tiny, float alpha, float beta, float tanh_sat) {
-  const int b = blockIdx.x * kBT + threadIdx.x;
-  const int cb = blockIdx.z;
-  const int j0 = blockIdx.y * (kJT * kJLOOP);
-  const int e0 = row_off[cb];
-  const int dc = row_off[cb + 1] - e0;
-  int nviol = 0;
-
-  if (b < B) {
-    long long vbase[MAXD];  // offset of (v_d, 0, b) in total
-    int sh[MAXD];
-#pragma unroll
-    for (int d = 0; d < MAXD; ++d) {
-      if (d < dc) {
-        vbase[d] = (long long)edge_v[e0 + d] * z * B + b;
-        sh[d] = edge_s[e0 + d];
-      }
-    }
-    for (int k = 0; k < kJLOOP; ++k) {
-      const int j = j0 + k * kJT + threadIdx.y;
-      if (j >= z) break;
-      const int s = synd[((long long)cb * z + j) * B + b];
-
-      float v[MAXD];
-      int tpar = 0, vpar = 0;
-#pragma unroll
-      for (int d = 0; d < MAXD; ++d) {
-        if (d < dc) {
-          int src = j - sh[d];
-          if (src < 0) src += z;
-          const float td = load_f(total + vbase[d] + (long long)src * B);
-          tpar ^= (td < 0.0f);
-          v[d] = td - load_f(c2v + ((long long)(e0 + d) * z + j) * B + b);
-          vpar ^= (v[d] < 0.0f);
-        }
-      }
-      nviol += (tpar != s);
-
-      float mag[MAXD];
-      check_magnitudes<MAXD>(v, dc, rule, tiny, alpha, beta, tanh_sat, mag);
-
-      const float pref = (float)(1 - 2 * s);
-#pragma unroll
-      for (int d = 0; d < MAXD; ++d) {
-        if (d < dc) {
-          store_f(c2v + ((long long)(e0 + d) * z + j) * B + b,
-                  signed_message(vpar, v[d], pref, mag[d]));
-        }
-      }
-    }
+// Pass 1 of row cb, lane j: returns 1 when the totals violate the check.
+template <int RULE, typename TT, typename TM>
+__device__ __forceinline__ int check_update(const TT* T, TM* C, int s, int cb,
+                                            int j, const Rows& rw, int z,
+                                            float* sc, int nthr, int qs,
+                                            float tiny, float alpha,
+                                            float beta, float tanh_sat) {
+  const int e0 = __ldg(rw.row_off + cb);
+  const int dc = __ldg(rw.row_off + cb + 1) - e0;
+  RuleChain<RULE> ch;
+  ch.init();
+  int tneg = 0;
+  uint32_t negbits = 0;
+  for (int d = 0; d < dc; ++d) {
+    int src = j - __ldg(rw.edge_s + e0 + d);
+    if (src < 0) src += z;
+    const float td = load_f(T + __ldg(rw.edge_v + e0 + d) * z + src);
+    const float v = __fsub_rn(td, load_f(C + (e0 + d) * z + j));
+    tneg ^= (td < 0.0f);
+    negbits |= (uint32_t)(v < 0.0f) << d;
+    ch.push(d, fabsf(v), sc + d * nthr, qs, tiny);
   }
+  const int vpar = __popc(negbits) & 1;
+  const float pref = (float)(1 - 2 * s);
+  ch.emit_all(dc, sc, nthr, qs, tiny, alpha, beta, tanh_sat,
+              [&](int d, float mag) {
+                store_f(C + (e0 + d) * z + j,
+                        signed_message(negbits, vpar, pref, d, mag));
+              });
+  return tneg != s;
+}
 
-  add_block_counts<kBT, kJT>(nviol, b, B, viol);
+// TSH: the frame's totals in shared memory (the plan's choice); a template
+// argument, so that every access to them compiles to its own memory space
+// rather than to generic loads.
+template <typename TT, typename TM, int RULE, bool TSH>
+__global__ void __launch_bounds__(kResThreadsMax, 1)
+rounds_kernel(TT* __restrict__ tot, TM* __restrict__ c2v,
+              const TM* __restrict__ prior, const int8_t* __restrict__ synd,
+              int32_t* __restrict__ done, int32_t* __restrict__ iters,
+              Rows rw, Cols cl, ResShape sh, int it0, int n, float tiny,
+              float alpha, float beta, float tanh_sat) {
+  extern __shared__ __align__(16) char smem[];
+  const int nthr = blockDim.x, tid = threadIdx.x, z = sh.z;
+  const ResLayout L =
+      res_layout(sh, sizeof(TT), res_scratch(RULE, false), nthr);
+  float* sc = reinterpret_cast<float*>(smem + L.scr) + tid;
+  const int qs = sh.dc_max * nthr;
+  int* red = reinterpret_cast<int*>(smem + L.red);  // violations, done
+  const long long NV = (long long)sh.nb_v * z, NE = (long long)sh.E * z,
+                  NC = (long long)sh.nb_c * z;
+
+  for (int b = blockIdx.x; b < sh.B; b += gridDim.x) {
+    TT* T = TSH ? reinterpret_cast<TT*>(smem + L.tot) : tot + b * NV;
+    TM* C = c2v + b * NE;
+    const TM* P = prior + b * NV;
+    const int8_t* S = synd + b * NC;
+    if (TSH) block_copy(T, tot + b * NV, NV * sizeof(TT));
+    int it_b = 0;
+    if (tid == 0) {
+      red[0] = 0;
+      red[1] = done[b];
+      it_b = iters[b];
+    }
+    __syncthreads();
+    for (int k = 0; k < n; ++k) {
+      int nviol = 0;
+      for (PairCursor p(tid, nthr, z); p.r < sh.nb_c; p.next(z))
+        nviol += check_update<RULE>(T, C, S[p.r * z + p.j], p.r, p.j, rw, z,
+                                    sc, nthr, qs, tiny, alpha, beta,
+                                    tanh_sat);
+      block_add(nviol, red);
+      __syncthreads();
+      if (tid == 0) {
+        if (red[0] == 0) {
+          if (!red[1]) it_b = it0 + k;
+          red[1] = 1;
+        }
+        red[0] = 0;
+      }
+      __syncthreads();
+      if (!red[1]) {  // a done frame keeps its totals
+        for (PairCursor p(tid, nthr, z); p.r < sh.nb_v; p.next(z)) {
+          const int c0 = __ldg(cl.col_off + p.r);
+          const int c1 = __ldg(cl.col_off + p.r + 1);
+          float acc = 0.0f;
+          for (int i = c0; i < c1; ++i) {
+            int src = p.j + __ldg(cl.col_s + i);
+            if (src >= z) src -= z;
+            const float x = load_f(C + __ldg(cl.col_e + i) * z + src);
+            acc = i == c0 ? x : acc + x;
+          }
+          const int at = p.r * z + p.j;
+          const float pr = load_f(P + at);
+          store_f(T + at, c1 > c0 ? pr + acc : pr);
+        }
+      }
+      __syncthreads();
+    }
+    if (TSH) block_copy(tot + b * NV, T, NV * sizeof(TT));
+    if (tid == 0) {
+      done[b] = red[1];
+      iters[b] = it_b;
+    }
+    __syncthreads();  // before the next frame reuses the shared memory
+  }
+}
+
+template <typename TT, typename TM, int RULE>
+int launch_rule(void* t_fm, void* c_fm, const void* p_fm, const void* s_fm,
+                void* done, void* iters, const Rows& rw, const Cols& cl,
+                const ResShape& sh, int it0, int n, float tiny, float alpha,
+                float beta, int threads, int smem, int grid,
+                cudaStream_t stream) {
+  auto kern = sh.totals_shared ? rounds_kernel<TT, TM, RULE, true>
+                               : rounds_kernel<TT, TM, RULE, false>;
+  // the limit is per function and device; setting it is a host call
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, threads, smem, stream>>>(
+      static_cast<TT*>(t_fm), static_cast<TM*>(c_fm),
+      static_cast<const TM*>(p_fm), static_cast<const int8_t*>(s_fm),
+      static_cast<int32_t*>(done), static_cast<int32_t*>(iters), rw, cl, sh,
+      it0, n, tiny, alpha, beta, tanh_saturation());
+  return (int)cudaGetLastError();
 }
 
 template <typename TT, typename TM>
-__global__ void __launch_bounds__(kBT * kJT)
-var_pass_kernel(TT* __restrict__ total, const TM* __restrict__ c2v,
-                const TM* __restrict__ prior,
-                const int32_t* __restrict__ done,
-                const int* __restrict__ col_off,
-                const int* __restrict__ col_e,
-                const int* __restrict__ col_s, int z, int B) {
-  const int b = blockIdx.x * kBT + threadIdx.x;
-  const int vb = blockIdx.z;
-  const int k0 = blockIdx.y * (kJT * kJLOOP);
-  if (b >= B || done[b]) return;  // a done frame keeps its totals
-  const int c0 = col_off[vb], c1 = col_off[vb + 1];
-  for (int kk = 0; kk < kJLOOP; ++kk) {
-    const int k = k0 + kk * kJT + threadIdx.y;
-    if (k >= z) break;
-    const long long at = ((long long)vb * z + k) * B + b;
-    float acc = 0.0f;
-    for (int i = c0; i < c1; ++i) {
-      int src = k + col_s[i];
-      if (src >= z) src -= z;
-      const float x = load_f(c2v + ((long long)col_e[i] * z + src) * B + b);
-      acc = i == c0 ? x : acc + x;
-    }
-    const float pr = load_f(prior + at);
-    store_f(total + at, c1 > c0 ? pr + acc : pr);
-  }
-}
-
-template <typename TT, typename TM>
-int launch_typed(void* total, void* c2v, const void* prior, const void* synd,
-                 void* done, void* iters, void* viol, const int* row_off,
-                 const int* edge_v, const int* edge_s, const int* col_off,
-                 const int* col_e, const int* col_s, int nb_c, int nb_v,
-                 int dc_max, int z, int B, int rule, int it0, int n,
-                 float tiny, float alpha, float beta, cudaStream_t stream) {
-  const float tanh_sat = tanh_saturation();
-  const dim3 block(kBT, kJT);
-  const int bx = (B + kBT - 1) / kBT;
-  const int by = (z + kJT * kJLOOP - 1) / (kJT * kJLOOP);
-  TT* tp = static_cast<TT*>(total);
-  TM* cp = static_cast<TM*>(c2v);
-  const TM* pp = static_cast<const TM*>(prior);
-  const int8_t* sp = static_cast<const int8_t*>(synd);
-  int32_t* dp = static_cast<int32_t*>(done);
-  int32_t* ip = static_cast<int32_t*>(iters);
-  int32_t* vp = static_cast<int32_t*>(viol);
-  for (int k = 0; k < n; ++k) {
-    if (dc_max <= 8) {
-      check_pass_kernel<TT, TM, 8><<<dim3(bx, by, nb_c), block, 0, stream>>>(
-          tp, cp, sp, vp, row_off, edge_v, edge_s, z, B, rule, tiny, alpha,
-          beta, tanh_sat);
-    } else {
-      check_pass_kernel<TT, TM, kMaxDc>
-          <<<dim3(bx, by, nb_c), block, 0, stream>>>(
-              tp, cp, sp, vp, row_off, edge_v, edge_s, z, B, rule, tiny,
-              alpha, beta, tanh_sat);
-    }
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    launch_bookkeeping(vp, dp, ip, B, it0 + k, stream);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    var_pass_kernel<TT, TM><<<dim3(bx, by, nb_v), block, 0, stream>>>(
-        tp, cp, pp, dp, col_off, col_e, col_s, z, B);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+int launch_typed(int rule, void* t_fm, void* c_fm, const void* p_fm,
+                 const void* s_fm, void* done, void* iters, const Rows& rw,
+                 const Cols& cl, const ResShape& sh, int it0, int n,
+                 float tiny, float alpha, float beta, int threads, int smem,
+                 int grid, cudaStream_t stream) {
+  if (rule == kPhi)
+    return launch_rule<TT, TM, kPhi>(t_fm, c_fm, p_fm, s_fm, done, iters, rw,
+                                     cl, sh, it0, n, tiny, alpha, beta,
+                                     threads, smem, grid, stream);
+  if (rule == kTanhFB)
+    return launch_rule<TT, TM, kTanhFB>(t_fm, c_fm, p_fm, s_fm, done, iters,
+                                        rw, cl, sh, it0, n, tiny, alpha,
+                                        beta, threads, smem, grid, stream);
+  return launch_rule<TT, TM, kMinSum>(t_fm, c_fm, p_fm, s_fm, done, iters,
+                                      rw, cl, sh, it0, n, tiny, alpha, beta,
+                                      threads, smem, grid, stream);
 }
 
 }  // namespace
 
-// Launch n iterations on `stream`; returns the first non-zero
-// cudaGetLastError() after a launch (0 = ok), or cudaErrorInvalidValue for
-// arguments the kernels do not take.
+// Run n iterations on `stream` with the launch plan (threads, totals in
+// shared memory or not, smem bytes, blocks an SM, grid, cluster, frames a
+// block) of ops/kernels.py resident_plan: copy the state into the
+// frame-major scratch t_fm/c_fm/p_fm/s_fm, run the K-step kernel, copy
+// total and c2v back.  *launches gets the number of kernels launched.
+// Returns the first non-zero cudaGetLastError() (0 = ok), or
+// cudaErrorInvalidValue for arguments or a plan the kernel does not take.
 extern "C" int bp_decode_rounds_qc_launch(
     void* total, void* c2v, const void* prior, const void* synd, void* done,
-    void* iters, void* viol, const void* row_off, const void* edge_v,
-    const void* edge_s, const void* col_off, const void* col_e,
-    const void* col_s, int t_dtype, int m_dtype, int nb_c, int nb_v,
-    int dc_max, int z, int B, int rule, int it0, int n, float tiny,
-    float alpha, float beta, void* stream) {
-  if (dc_max < 1 || dc_max > kMaxDc || nb_c < 1 || nb_c > 65535 ||
-      nb_v < 1 || nb_v > 65535 || z < 1 || B < 1 || n < 0 || rule < kPhi ||
-      rule > kMinSum)
+    void* iters, void* t_fm, void* c_fm, void* p_fm, void* s_fm,
+    const void* row_off, const void* edge_v, const void* edge_s,
+    const void* col_off, const void* col_e, const void* col_s, int t_dtype,
+    int m_dtype, int nb_c, int nb_v, int E, int dc_max, int z, int B,
+    int rule, int it0, int n, float tiny, float alpha, float beta,
+    int threads, int totals_shared, int smem, int blocks_per_sm, int grid,
+    int cluster, int frames, void* launches, void* stream) {
+  int* nl = static_cast<int*>(launches);
+  *nl = 0;
+  const bool pair_ok = (t_dtype == kF32 && m_dtype == kF32) ||
+                       (t_dtype == kBF16 && m_dtype == kBF16) ||
+                       (t_dtype == kF32 && m_dtype == kBF16);
+  if (!pair_ok || dc_max < 1 || dc_max > kMaxDc || nb_c < 1 || nb_v < 1 ||
+      E < 1 || z < 1 || B < 1 || n < 0 || rule < kPhi || rule > kMinSum ||
+      (long long)E * z >= (1LL << 31) || (long long)nb_v * z >= (1LL << 31) ||
+      (long long)nb_c * z >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const int tsz = t_dtype == kF32 ? 4 : 2, msz = m_dtype == kF32 ? 4 : 2;
+  const ResShape sh{nb_c, nb_v, E, z, B, dc_max, totals_shared ? 1 : 0, 0};
+  if (!res_plan_ok(sh, tsz, res_scratch(rule, false), threads, smem,
+                   blocks_per_sm, grid, cluster, frames))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* ro = static_cast<const int*>(row_off);
-  const int* ev = static_cast<const int*>(edge_v);
-  const int* es = static_cast<const int*>(edge_s);
-  const int* co = static_cast<const int*>(col_off);
-  const int* ce = static_cast<const int*>(col_e);
-  const int* cs = static_cast<const int*>(col_s);
-  if (t_dtype == kF32 && m_dtype == kF32) {
-    return launch_typed<float, float>(total, c2v, prior, synd, done, iters,
-                                      viol, ro, ev, es, co, ce, cs, nb_c,
-                                      nb_v, dc_max, z, B, rule, it0, n, tiny,
-                                      alpha, beta, s);
-  } else if (t_dtype == kBF16 && m_dtype == kBF16) {
-    return launch_typed<__nv_bfloat16, __nv_bfloat16>(
-        total, c2v, prior, synd, done, iters, viol, ro, ev, es, co, ce, cs,
-        nb_c, nb_v, dc_max, z, B, rule, it0, n, tiny, alpha, beta, s);
-  } else if (t_dtype == kF32 && m_dtype == kBF16) {
-    return launch_typed<float, __nv_bfloat16>(
-        total, c2v, prior, synd, done, iters, viol, ro, ev, es, co, ce, cs,
-        nb_c, nb_v, dc_max, z, B, rule, it0, n, tiny, alpha, beta, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  const long long NV = (long long)nb_v * z, NE = (long long)E * z,
+                  NC = (long long)nb_c * z;
+
+  TransposeJobs in{{static_cast<const char*>(total),
+                    static_cast<const char*>(c2v),
+                    static_cast<const char*>(prior),
+                    static_cast<const char*>(synd)},
+                   {static_cast<char*>(t_fm), static_cast<char*>(c_fm),
+                    static_cast<char*>(p_fm), static_cast<char*>(s_fm)},
+                   {NV, NE, NV, NC},
+                   {tsz, msz, msz, 1},
+                   4,
+                   B,
+                   1};
+  int err = res_transpose(in, s);
+  if (err) return err;
+  ++*nl;
+
+  const Rows rw{static_cast<const int*>(row_off),
+                static_cast<const int*>(edge_v),
+                static_cast<const int*>(edge_s)};
+  const Cols cl{static_cast<const int*>(col_off),
+                static_cast<const int*>(col_e),
+                static_cast<const int*>(col_s)};
+  if (t_dtype == kF32 && m_dtype == kF32)
+    err = launch_typed<float, float>(rule, t_fm, c_fm, p_fm, s_fm, done,
+                                     iters, rw, cl, sh, it0, n, tiny, alpha,
+                                     beta, threads, smem, grid, s);
+  else if (t_dtype == kBF16)
+    err = launch_typed<__nv_bfloat16, __nv_bfloat16>(
+        rule, t_fm, c_fm, p_fm, s_fm, done, iters, rw, cl, sh, it0, n, tiny,
+        alpha, beta, threads, smem, grid, s);
+  else
+    err = launch_typed<float, __nv_bfloat16>(
+        rule, t_fm, c_fm, p_fm, s_fm, done, iters, rw, cl, sh, it0, n, tiny,
+        alpha, beta, threads, smem, grid, s);
+  if (err) return err;
+  ++*nl;
+
+  TransposeJobs out{{static_cast<const char*>(t_fm),
+                     static_cast<const char*>(c_fm)},
+                    {static_cast<char*>(total), static_cast<char*>(c2v)},
+                    {NV, NE},
+                    {tsz, msz},
+                    2,
+                    B,
+                    0};
+  err = res_transpose(out, s);
+  if (err) return err;
+  ++*nl;
+  return 0;
 }

@@ -18,7 +18,9 @@ A tensor on the CPU goes to the plain PyTorch version (``*_ref``), which
 uses the kernel's operation and summation order; a CUDA tensor goes to the
 kernel, or the call raises.  Each wrapper counts its kernel launches in
 ``.launches``; the two multi-step wrappers also count the BP iterations or
-sweeps they ran on the device in ``.iterations``.  The multi-step kernels
+sweeps they ran on the device in ``.iterations``, and the device kernels
+their calls launched (the copies of the state in and out included) in
+``.device_launches``.  The multi-step kernels
 update their state tensors in place (the plain versions too) and return
 them.
 """
@@ -40,6 +42,7 @@ from .boxplus import (
 __all__ = [
     "RULES", "MAX_DC", "GENERIC_BLOCK_C", "QCTables", "layered_levels",
     "TilePlan", "check_tile_plan", "tile_smem",
+    "ResidentPlan", "resident_plan", "resident_smem",
     "bp_check_phase_qc", "bp_check_phase_qc_ref",
     "bp_decode_rounds_qc", "bp_decode_rounds_qc_ref",
     "bp_layered_sweeps_qc", "bp_layered_sweeps_qc_ref",
@@ -49,7 +52,7 @@ __all__ = [
 
 # magnitude rules, in the kernels' numbering
 RULES = {"sumproduct": 0, "tanhfb": 1, "minsum": 2}
-# widest check row the kernels hold in registers
+# widest check row the kernels take (a row's sign bits fill one word)
 MAX_DC = 32
 # (totals dtype, message dtype) pairs the kernels take, in their numbering
 _KERNEL_DTYPES = {
@@ -359,11 +362,13 @@ class QCTables:
       order, the order of the totals' sums: ``col_off [nb_v+1]``,
       ``col_e``/``col_s [E]``;
     * layered: the dependency levels (:func:`layered_levels`) as
-      ``level_off`` (host) and ``level_rows``; rows with a repeated
-      variable block are *deferred*: ``defer_base[cb]`` is the first of the
-      row's compact delta slots (-1 for other rows), and ``app_*`` list per
-      level, per deferred row, per distinct variable block its slots in
-      slot order (``app_level_off`` on the host).
+      ``level_off`` and ``level_rows``; rows with a repeated variable block
+      are *deferred*: ``defer_base[cb]`` is the first of the row's delta
+      slots among its level's deferred rows (-1 for other rows), and
+      ``app_*`` list per level (``app_level_off``), per deferred row, per
+      distinct variable block its level slots in slot order.
+      ``n_defer_slots`` counts the deferred slots of all levels,
+      ``defer_level_slots`` those of the level with the most.
     """
 
     def __init__(self, rows, z: int):
@@ -396,34 +401,35 @@ class QCTables:
         self.level_rows = _i32([cb for lev in self.levels for cb in lev])
         deferred = [len({v for v, _ in row}) < len(row) for row in self.rows]
         self.defer_base = np.full(self.nb_c, -1, np.int32)
-        n_slots = 0
-        for cb, row in enumerate(self.rows):
-            if deferred[cb]:
-                self.defer_base[cb] = n_slots
-                n_slots += len(row)
-        self.n_defer_slots = n_slots
+        self.n_defer_slots = 0
+        self.defer_level_slots = 0
         app_vb, app_off, app_e, app_s, app_level_off = [], [0], [], [], [0]
         for lev in self.levels:
+            n_slots = 0
             for cb in lev:
                 if not deferred[cb]:
                     continue
+                self.defer_base[cb] = n_slots
                 row = self.rows[cb]
                 for v in dict.fromkeys(v for v, _ in row):
                     app_vb.append(v)
                     for d, (vd, s) in enumerate(row):
                         if vd == v:
-                            app_e.append(int(self.defer_base[cb]) + d)
+                            app_e.append(n_slots + d)
                             app_s.append(s)
                     app_off.append(len(app_e))
+                n_slots += len(row)
             app_level_off.append(len(app_vb))
+            self.n_defer_slots += n_slots
+            self.defer_level_slots = max(self.defer_level_slots, n_slots)
         self.app_vb, self.app_off = _i32(app_vb), _i32(app_off)
         self.app_e, self.app_s = _i32(app_e), _i32(app_s)
         self.app_level_off = _i32(app_level_off)
         self._cache = {}
 
     _DEVICE_TABLES = ("row_off", "edge_v", "edge_s", "col_off", "col_e",
-                      "col_s", "level_rows", "defer_base", "app_vb",
-                      "app_off", "app_e", "app_s")
+                      "col_s", "level_off", "level_rows", "defer_base",
+                      "app_level_off", "app_vb", "app_off", "app_e", "app_s")
 
     def on(self, device) -> dict:
         """The int32 tables on ``device`` (uploaded once per device; an
@@ -532,6 +538,123 @@ def _check_state(tables, total, c2v, synd, done, iters, prior=None):
 
 
 # --------------------------------------------------------------------- #
+# Launch plan of the frame-owning multi-step kernels (kernels 2 and 3,
+# csrc/bp_resident.cuh)
+
+RES_THREADS_MAX = 1024      # threads a block at most
+RES_REGS = 64               # registers a thread at most (the kernels'
+                            # __launch_bounds__(1024, 1))
+REGS_SM = 65536
+THREADS_SM = 2048
+RES_THREADS_PREFERRED = 512  # totals in shared memory unless that leaves
+                             # fewer threads than this (and than without)
+
+
+def _res_scratch(rule: str, layered: bool) -> int:
+    """f32 scratch values per slot and thread (res_scratch in the source):
+    the rule's pass-1 values (phi(|v|); tanh-F/B's two forward products and
+    e^-|v|; min-sum |v|), and for the layered kernel the slot's total and
+    old message."""
+    return (3 if rule == "tanhfb" else 1) + (2 if layered else 0)
+
+
+@dataclass(frozen=True)
+class ResidentPlan:
+    """Launch shape of one call of kernel 2 or 3."""
+
+    frames: int         # frames a block owns at a time
+    threads: int        # threads a block
+    cluster: int        # blocks a cluster (1: no cluster)
+    smem: int           # dynamic shared memory a block, bytes
+    totals: str         # "shared": the frame's totals in shared memory for
+                        # the call; "global": in the frame-major scratch
+    layout: str         # "a": the state copied into frame-major scratch
+    blocks_per_sm: int  # blocks resident on one SM
+    grid: int           # persistent blocks launched
+
+
+def resident_smem(threads: int, nb_v: int, z: int, dc_max: int,
+                  t_size: int, rule: str, *, layered: bool,
+                  defer_slots: int = 0, totals_shared: bool) -> int:
+    """Dynamic shared memory of a resident plan, bytes: the frame's totals
+    (when in shared memory), the rule scratch, one level's deferred deltas
+    [defer_slots, z] f32 and the block's two counts (``res_layout`` in the
+    source)."""
+    return ((_up16(nb_v * z * t_size) if totals_shared else 0)
+            + _up16(_res_scratch(rule, layered) * dc_max * threads * 4)
+            + _up16(defer_slots * z * 4) + 16)
+
+
+@functools.lru_cache(maxsize=256)
+def resident_plan(B: int, nb_v: int, nb_c: int, E: int, z: int,
+                  dc_max: int, t_size: int, rule: str, *,
+                  layered: bool, defer_slots: int = 0,
+                  sms: int = 132) -> ResidentPlan:
+    """The launch plan of one call of kernel 2 (``layered=False``) or
+    kernel 3 over ``B`` frames of a QC code (``nb_v``/``nb_c`` block
+    columns/rows of circulant size ``z``, ``E`` base edges, rows up to
+    ``dc_max`` wide, ``defer_slots`` deferred slots in a level at most),
+    totals of ``t_size`` bytes, on a card with ``sms`` SMs.
+
+    Layout (a): the call copies its state into frame-major scratch, and a
+    persistent block owns one frame at a time for all K steps (no cluster).
+    A block runs as many threads, a multiple of 32 up to
+    ``RES_THREADS_MAX``, as its shared memory holds scratch for.  The
+    frame's totals live in shared memory when they fit with at least
+    ``RES_THREADS_PREFERRED`` threads (or with as many as without them),
+    else in the scratch in device memory.  As many blocks share an SM as
+    threads, registers (``RES_REGS`` a thread) and shared memory allow;
+    the grid is that many blocks an SM, at most B."""
+    if rule not in RULES:
+        raise ValueError(f"unknown rule {rule!r}")
+    if not (1 <= dc_max <= MAX_DC) or min(B, nb_v, nb_c, E, z) < 1:
+        raise ValueError(f"no resident plan for B={B} nb_v={nb_v} "
+                         f"nb_c={nb_c} E={E} z={z} dc_max={dc_max}")
+    if max(nb_v, nb_c, E) * z >= 2 ** 31:
+        raise ValueError("a frame's state exceeds 2^31 elements")
+    t_size = 4 if layered else t_size
+
+    def threads_for(shared):
+        smem = functools.partial(resident_smem, nb_v=nb_v, z=z,
+                                 dc_max=dc_max, t_size=t_size, rule=rule,
+                                 layered=layered, defer_slots=defer_slots,
+                                 totals_shared=shared)
+        per_warp = smem(32) - smem(0)
+        return min(RES_THREADS_MAX,
+                   32 * ((SMEM_BLOCK_MAX - smem(0)) // per_warp))
+
+    shared, plain = threads_for(True), threads_for(False)
+    if plain < 32:
+        raise ValueError(f"no resident plan of dc_max={dc_max} fits "
+                         f"{SMEM_BLOCK_MAX} bytes of shared memory")
+    in_smem = shared >= min(RES_THREADS_PREFERRED, plain)
+    threads = shared if in_smem else plain
+    smem = resident_smem(threads, nb_v, z, dc_max, t_size, rule,
+                         layered=layered, defer_slots=defer_slots,
+                         totals_shared=in_smem)
+    blocks = max(1, min(THREADS_SM // threads,
+                        REGS_SM // (RES_REGS * threads),
+                        SMEM_SM // (smem + 1024)))
+    return ResidentPlan(1, threads, 1, smem,
+                        "shared" if in_smem else "global", "a", blocks,
+                        min(B, blocks * sms))
+
+
+def _resident_launch_args(plan: ResidentPlan):
+    return (plan.threads, int(plan.totals == "shared"), plan.smem,
+            plan.blocks_per_sm, plan.grid, plan.cluster, plan.frames)
+
+
+def _resident_plan_for(tables, B, t, rule, layered):
+    sms = torch.cuda.get_device_properties(t.device).multi_processor_count
+    return resident_plan(B, tables.nb_v, tables.nb_c, tables.E, tables.z,
+                         tables.dc_max, t.element_size(), rule,
+                         layered=layered,
+                         defer_slots=tables.defer_level_slots if layered
+                         else 0, sms=sms)
+
+
+# --------------------------------------------------------------------- #
 # Kernel 2: K flooding iterations per call
 
 
@@ -613,7 +736,10 @@ def bp_decode_rounds_qc(tables, it0: int, maxiter: int, total, c2v, prior,
     kernel, which takes contiguous tensors with (total, c2v) dtype pairs
     (f32, f32), (bf16, bf16) and (f32, bf16), prior in c2v's dtype, int8
     synd, int32 done/iters and rows up to ``MAX_DC`` wide; anything else
-    raises.
+    raises.  The call launches the copy of the state into frame-major
+    scratch, the K steps (blocks owning frames, :func:`resident_plan`; the
+    wrapper keeps the last plan in ``.plan``) and the copy back:
+    ``.device_launches`` counts them.
     """
     if total.device.type == "cpu":
         return bp_decode_rounds_qc_ref(
@@ -630,34 +756,45 @@ def bp_decode_rounds_qc(tables, it0: int, maxiter: int, total, c2v, prior,
     _require_int_state(synd, done, iters)
     _require_contiguous(total=total, c2v=c2v, prior=prior, synd=synd,
                         done=done, iters=iters)
-    _require_tables(tables, tables.nb_v)
+    _require_tables(tables)
     n = _n_steps(k_rounds, it0, maxiter)
     if n == 0:
         return total, c2v, done, iters
-    B = total.shape[-1]
-    tb = tables.on(total.device)
-    viol = torch.zeros(B, dtype=torch.int32, device=total.device)
-    lib = _library("bp_decode_rounds_qc", "ppppppppppppp" + "i" * 10
-                   + "fffp")
-    with torch.cuda.device(total.device):
-        stream = torch.cuda.current_stream(total.device).cuda_stream
+    B, z, dev = total.shape[-1], tables.z, total.device
+    plan = _resident_plan_for(tables, B, total, rule, False)
+    tb = tables.on(dev)
+    # frame-major scratch [B, ...] of totals, messages, prior and synd
+    scratch = [torch.empty(B * rows * z, dtype=x.dtype, device=dev)
+               for rows, x in ((tables.nb_v, total), (tables.E, c2v),
+                               (tables.nb_v, prior), (tables.nb_c, synd))]
+    n_launched = ctypes.c_int(0)
+    lib = _library("bp_decode_rounds_qc", "p" * 16 + "i" * 11 + "fff"
+                   + "i" * 7 + "pp")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.bp_decode_rounds_qc_launch(
             total.data_ptr(), c2v.data_ptr(), prior.data_ptr(),
             synd.data_ptr(), done.data_ptr(), iters.data_ptr(),
-            viol.data_ptr(), *(tb[name].data_ptr() for name in (
+            *(x.data_ptr() for x in scratch),
+            *(tb[name].data_ptr() for name in (
                 "row_off", "edge_v", "edge_s", "col_off", "col_e", "col_s")),
-            codes[0], codes[1], tables.nb_c, tables.nb_v, tables.dc_max,
-            tables.z, B, RULES[rule], int(it0), n, float(tiny),
-            float(ms_alpha), float(ms_beta), stream,
+            codes[0], codes[1], tables.nb_c, tables.nb_v, tables.E,
+            tables.dc_max, z, B, RULES[rule], int(it0), n, float(tiny),
+            float(ms_alpha), float(ms_beta), *_resident_launch_args(plan),
+            ctypes.addressof(n_launched), stream,
         )
     _raise_on(err, "bp_decode_rounds_qc")
     bp_decode_rounds_qc.launches += 1
     bp_decode_rounds_qc.iterations += n
+    bp_decode_rounds_qc.device_launches += n_launched.value
+    bp_decode_rounds_qc.plan = plan
     return total, c2v, done, iters
 
 
 bp_decode_rounds_qc.launches = 0
 bp_decode_rounds_qc.iterations = 0
+bp_decode_rounds_qc.device_launches = 0
+bp_decode_rounds_qc.plan = None
 
 
 # --------------------------------------------------------------------- #
@@ -746,7 +883,9 @@ def bp_layered_sweeps_qc(tables, it0: int, maxiter: int, total, c2v, synd,
     CPU tensors run :func:`bp_layered_sweeps_qc_ref`.  CUDA tensors run the
     kernel, which takes contiguous tensors with f32 totals, f32 or bf16
     messages, int8 synd, int32 done/iters and rows up to ``MAX_DC`` wide;
-    anything else raises.
+    anything else raises.  As :func:`bp_decode_rounds_qc`, one call
+    launches the copy in, the K sweeps and the copy out (``.plan``,
+    ``.device_launches``).
     """
     if total.device.type == "cpu":
         return bp_layered_sweeps_qc_ref(
@@ -763,37 +902,48 @@ def bp_layered_sweeps_qc(tables, it0: int, maxiter: int, total, c2v, synd,
     _require_int_state(synd, done, iters)
     _require_contiguous(total=total, c2v=c2v, synd=synd, done=done,
                         iters=iters)
-    _require_tables(tables, 0)
+    _require_tables(tables)
     n = _n_steps(k_sweeps, it0, maxiter)
     if n == 0:
         return total, c2v, done, iters
-    B = total.shape[-1]
-    tb = tables.on(total.device)
-    viol = torch.zeros(B, dtype=torch.int32, device=total.device)
-    delta = torch.empty(max(tables.n_defer_slots, 1) * tables.z * B,
-                        dtype=torch.float32, device=total.device)
-    lib = _library("bp_layered_sweeps_qc", "p" * 18 + "i" * 9 + "fffp")
-    with torch.cuda.device(total.device):
-        stream = torch.cuda.current_stream(total.device).cuda_stream
+    B, z, dev = total.shape[-1], tables.z, total.device
+    plan = _resident_plan_for(tables, B, total, rule, True)
+    tb = tables.on(dev)
+    # frame-major scratch [B, ...] of totals, messages and synd
+    scratch = [torch.empty(B * rows * z, dtype=x.dtype, device=dev)
+               for rows, x in ((tables.nb_v, total), (tables.E, c2v),
+                               (tables.nb_c, synd))]
+    n_launched = ctypes.c_int(0)
+    lib = _library("bp_layered_sweeps_qc", "p" * 19 + "i" * 12 + "fff"
+                   + "i" * 7 + "pp")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.bp_layered_sweeps_qc_launch(
             total.data_ptr(), c2v.data_ptr(), synd.data_ptr(),
-            done.data_ptr(), iters.data_ptr(), viol.data_ptr(),
-            delta.data_ptr(), *(tb[name].data_ptr() for name in (
-                "row_off", "edge_v", "edge_s", "level_rows", "defer_base",
-                "app_vb", "app_off", "app_e", "app_s")),
-            tables.level_off.ctypes.data, tables.app_level_off.ctypes.data,
-            len(tables.levels), codes[1], tables.nb_c, tables.dc_max,
-            tables.z, B, RULES[rule], int(it0), n, float(tiny),
-            float(ms_alpha), float(ms_beta), stream,
+            done.data_ptr(), iters.data_ptr(),
+            *(x.data_ptr() for x in scratch),
+            *(tb[name].data_ptr() for name in (
+                "row_off", "edge_v", "edge_s", "level_off", "level_rows",
+                "defer_base", "app_level_off", "app_vb", "app_off", "app_e",
+                "app_s")),
+            len(tables.levels), codes[1], tables.nb_c, tables.nb_v,
+            tables.E, tables.dc_max, z, B, RULES[rule], int(it0), n,
+            tables.defer_level_slots, float(tiny), float(ms_alpha),
+            float(ms_beta), *_resident_launch_args(plan),
+            ctypes.addressof(n_launched), stream,
         )
     _raise_on(err, "bp_layered_sweeps_qc")
     bp_layered_sweeps_qc.launches += 1
     bp_layered_sweeps_qc.iterations += n
+    bp_layered_sweeps_qc.device_launches += n_launched.value
+    bp_layered_sweeps_qc.plan = plan
     return total, c2v, done, iters
 
 
 bp_layered_sweeps_qc.launches = 0
 bp_layered_sweeps_qc.iterations = 0
+bp_layered_sweeps_qc.device_launches = 0
+bp_layered_sweeps_qc.plan = None
 
 
 # --------------------------------------------------------------------- #
@@ -1061,12 +1211,10 @@ def _require_contiguous(**tensors):
         raise ValueError(f"{', '.join(bad)} must be contiguous")
 
 
-def _require_tables(tables, nb_v):
+def _require_tables(tables):
     if tables.dc_max > MAX_DC:
         raise ValueError(
             f"check degree {tables.dc_max} exceeds the kernel's {MAX_DC}")
-    if max(tables.nb_c, nb_v) > 65535:
-        raise ValueError("more than 65535 block rows exceed the grid")
 
 
 def _raise_on(err, name):

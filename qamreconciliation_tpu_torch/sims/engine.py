@@ -23,7 +23,8 @@ from ..models.alphabet import PAMAlphabet
 from ..models.matrix import Matrix
 from ..models.noisemapper import NoiseMapper
 
-__all__ = ["ReconciliationEngine", "PointResult", "round_generator"]
+__all__ = ["ReconciliationEngine", "PointResult", "round_generator",
+           "bf16_normal"]
 
 
 @dataclass
@@ -48,6 +49,39 @@ def round_generator(seed: int, r: int, device) -> torch.Generator:
         1, np.uint64
     )[0]
     return torch.Generator(device=device).manual_seed(int(state))
+
+
+def _bf16_normal_table() -> torch.Tensor:
+    """The 128 values of JAX's bf16 normal draw, indexed by its 7 random
+    mantissa bits m (float32 on the host CPU, each rounding of JAX's bf16
+    arithmetic done in bf16)."""
+    bf = torch.bfloat16
+    m = torch.arange(128, dtype=torch.int32)
+    # the bf16 value 1 + m/128, then minus 1: m/128 exactly
+    u = (m | 0x3F80).to(torch.int16).view(bf) - torch.tensor(1.0, dtype=bf)
+    lo = torch.tensor(-1.0 + 2.0 ** -8, dtype=bf)      # nextafter(-1, 0)
+    hi = torch.tensor(1.0, dtype=bf)
+    u = torch.maximum(lo, u * (hi - lo) + lo)
+    # erf_inv of a bf16 computes in float32 and rounds to bf16; the product
+    # with bf16(sqrt 2) rounds again
+    e = torch.erfinv(u.float()).to(bf)
+    return (torch.tensor(math.sqrt(2.0), dtype=bf) * e).float()
+
+
+_BF16_NORMAL = _bf16_normal_table()
+
+
+def bf16_normal(generator: torch.Generator, shape, device) -> torch.Tensor:
+    """Standard normal samples in bf16 as ``jax.random.normal(key, shape,
+    jnp.bfloat16)`` draws them (``jax._src.random._normal_real`` over
+    ``_uniform``): 7 random mantissa bits make a bf16 uniform ``u`` on
+    [nextafter(-1, 0), 1), and the sample is ``sqrt(2) * erf_inv(u)``, so
+    it takes 128 distinct values.  The bits come from ``generator``
+    (``torch.randint(0, 128)``), the values from a 128-entry table built by
+    JAX's arithmetic, so the card and the CPU give the same values."""
+    idx = torch.randint(0, 128, tuple(shape), generator=generator,
+                        device=device)
+    return _BF16_NORMAL.to(device)[idx].to(torch.bfloat16)
 
 
 class ReconciliationEngine:
@@ -131,11 +165,16 @@ class ReconciliationEngine:
         ])
 
     def _sample_sb(self, generator, sigma):
-        """Shaped PAM symbols x [S, B] and their AWGN samples y."""
+        """Shaped PAM symbols x [S, B] and their AWGN samples y: the
+        symbols from float32 uniforms in every dtype, as the JAX package
+        draws them; bf16 noise by JAX's bf16 draw (:func:`bf16_normal`)."""
         shape = (self.N_symb, self.batch)
         x = self.pa.random_symbols(generator, shape, self.device)
-        noise = torch.randn(shape, generator=generator, device=self.device,
-                            dtype=self.dtype)
+        if self.dtype == torch.bfloat16:
+            noise = bf16_normal(generator, shape, self.device)
+        else:
+            noise = torch.randn(shape, generator=generator,
+                                device=self.device, dtype=self.dtype)
         sigma = torch.tensor(sigma, dtype=self.dtype)
         y = self.pa.index_to_value(x, self.dtype) + sigma * noise
         return x, y

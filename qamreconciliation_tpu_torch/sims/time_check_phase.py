@@ -1,7 +1,9 @@
-"""Time the check-phase kernels and the decode rounds around them on one GPU.
+"""Time the BP kernels and the decode rounds around them on one GPU.
 
     python -m qamreconciliation_tpu_torch.sims.time_check_phase
     python path/to/time_check_phase.py --root OTHER_CHECKOUT
+    python path/to/time_check_phase.py --root CHECKOUT --parts resident \
+        --inputs FILE
 
 Times kernel 1 (``bp_check_phase_qc``) at the dense QC headline shape
 [90, 6, 360, 128] and kernel 4 (``bp_check_phase_generic``) at the exact
@@ -12,11 +14,24 @@ calls, the median of 10 runs), then the softening rounds of the two main paths t
 dense QC decoder on the headline code and the generic decoder on the exact
 rate-1/2 H, f32 phi, 128 frames at 3.5 and 4.0 dB (host clock over 4
 rounds after a warm-up; preamble, then decode + count, and the ms per BP
-iteration).  Prints one JSON line.
+iteration).  The resident part times kernel 2 (``bp_decode_rounds_qc``,
+bf16 tanh-F/B, one 50-iteration call) and kernel 3
+(``bp_layered_sweeps_qc``, bf16 min-sum, one 4-sweep call) per step on the
+headline code and the z = 360 QC-IRA code (numpy-seeded LLRs, B = 128
+and 8; at B = 128 also calls of 1 and 16 sweeps and of 1 iteration, whose
+difference gives a call's fixed part), then the decode + count of the two
+resident main paths (``--resident
+--dtype bfloat16``, chunk 50; ``--schedule layered --resident
+--check-rule minsum --dtype bfloat16``) on the same softening rounds at 3.5
+and 4.0 dB (float32 samples; with ``--inputs FILE`` made once and kept in
+FILE, so that every checkout decodes the same tensors), with each round's
+counters.  Prints one JSON line.
 
 ``--root`` imports the port from another checkout (an earlier commit
 unpacked with ``git archive``, say), whose wrappers and decoders have the
 same interface; run one process per checkout, in turns, on one card.
+``--parts resident`` times only the resident part (a checkout without the
+generic decoder has no other).
 """
 
 import argparse
@@ -112,6 +127,176 @@ def kernel_times():
     return out
 
 
+def rows_of(base):
+    rows = [[] for _ in range(max(c for c, _, _ in base) + 1)]
+    for c, v, s in base:
+        rows[c].append((v, s))
+    return rows
+
+
+def resident_codes():
+    """Base edges of the headline code and of the z = 360 QC-IRA code."""
+    from qamreconciliation_tpu_torch.models.qc_decoder import make_qc_ira
+
+    return {"headline": headline_qc(),
+            "ira z=360": make_qc_ira(120, 60, 360, dv=3, seed=1)[0]}
+
+
+def resident_kernel_times(frames=(128, 8)):
+    """ms per step of kernels 2 and 3 on each resident code, from a fresh
+    state on numpy-seeded LLRs (the same in every checkout), their noise
+    rising across the frames so that some converge within a few steps and
+    the others never: a block's frame that never converges runs every
+    pass of every step, as at 3.5 dB on the main path.  Timed at each B of
+    ``frames``: the main path's 128, and 8, where the card holds a few
+    frames and a step's time is one frame's latency."""
+    import torch
+
+    from qamreconciliation_tpu_torch.ops import kernels as K
+
+    out = {}
+    for label, base in resident_codes().items():
+        tables = K.QCTables(rows_of(base), 360)
+        z = tables.z
+        for B in frames:
+            key = label if B == 128 else f"{label} B={B}"
+            rng = np.random.default_rng(3)
+            word = rng.integers(0, 2, (tables.nb_v, z, B))
+            llr = ((1 - 2 * word) * 2.0 + rng.normal(0, 1.0, word.shape)
+                   * np.linspace(1.0, 3.0, B)).astype(np.float32)
+            synd = np.zeros((tables.nb_c, z, B), np.int8)
+            for cb, row in enumerate(tables.rows):
+                for v, sh in row:
+                    synd[cb] ^= np.roll(word[v], sh, axis=0).astype(np.int8)
+            prior = torch.from_numpy(llr).cuda()
+            synd8 = torch.from_numpy(synd).cuda()
+
+            def flags():
+                return [torch.zeros(B, dtype=torch.int32, device="cuda")
+                        for _ in range(2)]
+
+            bf16 = prior.bfloat16()
+            rounds = [bf16.clone(), torch.zeros((tables.E, z, B),
+                                                dtype=torch.bfloat16,
+                                                device="cuda"),
+                      bf16, synd8, *flags()]
+            sweeps = [prior.clone(), torch.zeros((tables.E, z, B),
+                                                 dtype=torch.bfloat16,
+                                                 device="cuda"),
+                      synd8, *flags()]
+            ms, = events_ms(lambda: K.bp_decode_rounds_qc(
+                tables, 0, 50, *rounds, rule="tanhfb", k_rounds=50),
+                reps=5, warmup=1)
+            out[f"kernel2 tanhfb bfloat16 {key} ms per iteration"] = ms / 50
+            ms, = events_ms(lambda: K.bp_layered_sweeps_qc(
+                tables, 0, 50, *sweeps, rule="minsum", k_sweeps=4),
+                reps=10, warmup=2)
+            out[f"kernel3 minsum bfloat16 {key} ms per sweep"] = ms / 4
+            if B != 128:
+                continue
+            # the host's share of a call: the wrapper's enqueue time, from
+            # an idle card (median of 5)
+            host = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                K.bp_layered_sweeps_qc(tables, 0, 50, *sweeps,
+                                       rule="minsum", k_sweeps=4)
+                host.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+            out[f"kernel3 {label} host ms per call"] = statistics.median(host)
+            # calls of 1 and 16 steps beside the ones above: a call's fixed
+            # part (the copies of the state in and out, the launches) is
+            # what they do not share with the steps
+            for k in (1, 16):
+                ms, = events_ms(lambda: K.bp_layered_sweeps_qc(
+                    tables, 0, 50, *sweeps, rule="minsum", k_sweeps=k),
+                    reps=10, warmup=1)
+                out[f"kernel3 minsum bfloat16 {label} K={k} ms per call"] = ms
+            ms, = events_ms(lambda: K.bp_decode_rounds_qc(
+                tables, 0, 50, *rounds, rule="tanhfb", k_rounds=1),
+                reps=10, warmup=1)
+            out[f"kernel2 tanhfb bfloat16 {label} K=1 ms per call"] = ms
+    return out
+
+
+def softening_rounds(path=None, snrs=(3.5, 4.0), rounds=4):
+    """{snr: [(lappr, word)] * rounds}: softening rounds of 128 frames of
+    the headline code on float32 samples; with ``path``, loaded from it
+    when it exists, else made and saved there."""
+    import torch
+
+    if path and os.path.exists(path):
+        return torch.load(path, map_location="cuda")
+    from qamreconciliation_tpu_torch.models.alphabet import PAMAlphabet
+    from qamreconciliation_tpu_torch.models.matrix import Matrix
+    from qamreconciliation_tpu_torch.models.qc_decoder import QCDecoder
+    from qamreconciliation_tpu_torch.sims.engine import (
+        ReconciliationEngine, round_generator,
+    )
+
+    dec = QCDecoder(headline_qc(), 360, device="cuda")
+    eng = ReconciliationEngine(dec, Matrix(dec.vid, dec.cid),
+                               PAMAlphabet(2, 2.0), batch=128,
+                               dtype=torch.float32)
+    data = {}
+    for snr in snrs:
+        nm = eng.make_noisemapper(snr, ALTERNATING)
+        sigma = math.sqrt(eng.noise_var(snr))
+        data[snr] = [eng._softening_inputs(
+            nm, *eng._sample_sb(round_generator(11, r, "cuda"), sigma), 1.0)
+            for r in range(rounds)]
+    if path:
+        torch.save(data, path)
+    return data
+
+
+RESIDENT_PATHS = {
+    "resident bf16 tanh-F/B": dict(dtype="bfloat16", resident=True,
+                                   resident_chunk=50),
+    "resident layered bf16 min-sum": dict(dtype="bfloat16",
+                                          schedule="layered", resident=True,
+                                          check_rule="minsum"),
+}
+
+
+def resident_round_times(inputs):
+    """Host-clock decode + count ms of the resident main paths on the same
+    rounds (the first a warm-up), BP iterations (sweeps) per round and
+    each round's counters [bit errors, frame errors, iterations of the
+    successes, successes]."""
+    import torch
+
+    from qamreconciliation_tpu_torch.models.alphabet import PAMAlphabet
+    from qamreconciliation_tpu_torch.models.matrix import Matrix
+    from qamreconciliation_tpu_torch.models.qc_decoder import QCDecoder
+    from qamreconciliation_tpu_torch.sims.engine import ReconciliationEngine
+
+    out = {}
+    for label, kw in RESIDENT_PATHS.items():
+        dec = QCDecoder(headline_qc(), 360, device="cuda", **kw)
+        eng = ReconciliationEngine(dec, Matrix(dec.vid, dec.cid),
+                                   PAMAlphabet(2, 2.0), batch=128,
+                                   dtype=torch.float32)
+        for snr, rounds in inputs.items():
+            dcd, its, counters = [], [], []
+            for r, (lappr, word) in enumerate(rounds):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                it0 = dec.iterations_run
+                c = eng._decode_and_count_nb(lappr, word, 50).tolist()
+                t1 = time.perf_counter()
+                if r:
+                    dcd.append(1e3 * (t1 - t0))
+                    its.append(dec.iterations_run - it0)
+                    counters.append(c)
+            out[f"{label} {snr} dB"] = dict(
+                decode_ms=statistics.median(dcd), iterations=its,
+                ms_per_iteration=statistics.median(dcd)
+                / max(statistics.median(its), 1), counters=counters)
+    return out
+
+
 def round_breakdown(dec, mat, snr, rounds=4):
     """Host-clock ms per softening round of 128 frames on ``dec``, after a
     warm-up round: (preamble, decode + count, BP iterations per round)."""
@@ -171,6 +356,10 @@ def round_times():
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--root", help="checkout of the port to import")
+    p.add_argument("--parts", choices=("all", "resident"), default="all",
+                   help="what to time (default all)")
+    p.add_argument("--inputs", help="file keeping the resident rounds' "
+                   "softening inputs, made by the first run")
     args = p.parse_args(argv)
     if args.root:
         sys.path.insert(0, os.path.abspath(args.root))
@@ -185,8 +374,12 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     result = dict(port=os.path.dirname(os.path.abspath(port.__file__)),
-                  device=smi, kernels_ms=kernel_times(),
-                  rounds=round_times())
+                  device=smi)
+    if args.parts == "all":
+        result.update(kernels_ms=kernel_times(), rounds=round_times())
+    result.update(resident_kernels_ms=resident_kernel_times(),
+                  resident_rounds=resident_round_times(
+                      softening_rounds(args.inputs)))
     print(json.dumps(result))
     return result
 

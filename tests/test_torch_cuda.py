@@ -9,10 +9,13 @@ phi/tanhfb within rtol/atol 1e-5 in f32 (two libms: the kernel's and
 PyTorch's CUDA ops) or one bf16 ulp with bf16 messages; the staged-tile
 kernels 1 and 4 are also held bit for bit on ragged shapes, every rule and
 dtype, both load paths (``test_*_tiles_bit_equal``).  The multi-step
-kernels compound that over K steps: their sum-product state is held within
-rtol/atol 1e-4 (f32) or 2^-6 (bf16), with done and iters exact.  The
-generic check phase (kernel 4) and its check-major mode (kernel 5) are held
-bit for bit, as the card runs them.
+kernels 2 and 3 (blocks owning frames, ``csrc/bp_resident.cuh``) are held
+bit for bit on all four state tensors (totals, messages, done, iters) for
+every rule and dtype pair, B off every block size, z off the warp, rows
+wider than 8, K = 1, steps past maxiter, every frame done, and the frame's
+totals in shared and in device memory.  The generic check phase (kernel 4)
+and its check-major mode (kernel 5) are held bit for bit, as the card runs
+them.
 """
 
 import dataclasses
@@ -29,7 +32,7 @@ from qamreconciliation_tpu_torch.models.qc_decoder import (
 from qamreconciliation_tpu_torch.ops import cuda_build, kernels
 from qamreconciliation_tpu_torch.ops.kernels import (
     QCTables, bp_check_phase_generic, bp_check_phase_generic_ref,
-    check_tile_plan,
+    check_tile_plan, resident_smem,
     bp_check_phase_qc, bp_check_phase_qc_ref, bp_decode_rounds_qc,
     bp_decode_rounds_qc_ref, bp_layered_sweeps_qc, bp_layered_sweeps_qc_ref,
     check_node_update_fused, check_node_update_fused_ref,
@@ -267,10 +270,10 @@ STEP_CODES = {
 STEP_B = 40
 
 
-def step_state(tables, m_dtype, t_dtype, seed, layered):
+def step_state(tables, m_dtype, t_dtype, seed, layered, B=STEP_B):
     """CPU state from numpy-seeded channel LLRs (per-frame noise 0.8-3.2,
     so some frames converge within a few steps and others do not)."""
-    z, B = tables.z, STEP_B
+    z = tables.z
     rng = np.random.default_rng(seed)
     shape = (tables.nb_v, z, B)
     word = rng.integers(0, 2, shape)
@@ -289,16 +292,10 @@ def step_state(tables, m_dtype, t_dtype, seed, layered):
             torch.from_numpy(synd), *flags]
 
 
-def assert_state_close(got, want, rule, m_dtype):
+def assert_state_equal(got, want):
+    """Bit-equality of (total, c2v, done, iters)."""
     for g, w in zip(got, want):
-        g, w = g.cpu(), w.cpu()
-        if g.dtype == torch.int32 or rule == "minsum":
-            assert torch.equal(g, w)
-        elif m_dtype == torch.bfloat16:
-            torch.testing.assert_close(g.float(), w.float(), rtol=2 ** -6,
-                                       atol=2 ** -6)
-        else:
-            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w.cpu())
 
 
 STEP_RULES = ["sumproduct", "tanhfb", "minsum"]
@@ -313,10 +310,10 @@ def test_multi_step_cpu_tensors_run_the_plain_versions():
                               bp_layered_sweeps_qc_ref)):
         a = step_state(tables, torch.float32, torch.float32, 1, layered)
         b = [x.clone() for x in a]
-        n0 = (fn.launches, fn.iterations)
+        n0 = (fn.launches, fn.iterations, fn.device_launches)
         fn(tables, 0, 50, *a, rule="minsum")
         ref(tables, 0, 50, *b, rule="minsum")
-        assert (fn.launches, fn.iterations) == n0
+        assert (fn.launches, fn.iterations, fn.device_launches) == n0
         assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
@@ -332,15 +329,16 @@ def test_rounds_kernel_matches_plain(rule, t_dtype, m_dtype, code):
                                           False)]
     bp_decode_rounds_qc_ref(tables, 0, 50, *state, rule=rule, k_rounds=2)
     want = [x.clone() for x in state]
-    n0 = (bp_decode_rounds_qc.launches, bp_decode_rounds_qc.iterations)
+    fn = bp_decode_rounds_qc
+    n0 = (fn.launches, fn.iterations, fn.device_launches)
     bp_decode_rounds_qc(tables, 2, 50, *state, rule=rule, k_rounds=4)
-    assert (bp_decode_rounds_qc.launches - n0[0],
-            bp_decode_rounds_qc.iterations - n0[1]) == (1, 4)
+    # one call: the copy in, the 4 iterations, the copy out
+    assert (fn.launches - n0[0], fn.iterations - n0[1],
+            fn.device_launches - n0[2]) == (1, 4, 3)
     bp_decode_rounds_qc_ref(tables, 2, 50, *want, rule=rule, k_rounds=4)
     torch.cuda.synchronize()
     assert 0 < int(want[4].sum()) < STEP_B
-    assert_state_close(state[:2] + state[4:], want[:2] + want[4:], rule,
-                       m_dtype)
+    assert_state_equal(state[:2] + state[4:], want[:2] + want[4:])
 
 
 @pytest.mark.cuda
@@ -355,14 +353,170 @@ def test_sweeps_kernel_matches_plain(rule, m_dtype, code):
     state = [x.cuda() for x in step_state(tables, m_dtype, None, 5, True)]
     bp_layered_sweeps_qc_ref(tables, 0, 50, *state, rule=rule, k_sweeps=1)
     want = [x.clone() for x in state]
-    n0 = bp_layered_sweeps_qc.launches
+    fn = bp_layered_sweeps_qc
+    n0 = (fn.launches, fn.device_launches)
     bp_layered_sweeps_qc(tables, 1, 50, *state, rule=rule, k_sweeps=3)
-    assert bp_layered_sweeps_qc.launches == n0 + 1
+    assert (fn.launches - n0[0], fn.device_launches - n0[1]) == (1, 3)
     bp_layered_sweeps_qc_ref(tables, 1, 50, *want, rule=rule, k_sweeps=3)
     torch.cuda.synchronize()
     assert 0 < int(want[3].sum()) < STEP_B
-    assert_state_close(state[:2] + state[3:], want[:2] + want[3:], rule,
-                       m_dtype)
+    assert_state_equal(state[:2] + state[3:], want[:2] + want[3:])
+
+
+# z off the warp and off 8; the IRA code holds rows 12 wide (beyond the
+# first design's MAXD 8 instance) and repeated variable blocks, like the
+# regular one
+EDGE_CODES = {
+    "regular z=37": (rows_of(make_qc_ldpc(12, 37, 3, 6, seed=4)[0]), 37),
+    "ira z=45": (rows_of(make_qc_ira(8, 4, 45, dv=3, seed=2)[0]), 45),
+}
+# (rule, totals dtype, message dtype) per kernel: every rule, each dtype
+RES_CASES = {
+    "rounds": [("minsum", torch.bfloat16, torch.bfloat16),
+               ("tanhfb", torch.float32, torch.bfloat16),
+               ("sumproduct", torch.float32, torch.float32)],
+    "sweeps": [("minsum", torch.float32, torch.bfloat16),
+               ("tanhfb", torch.float32, torch.bfloat16),
+               ("sumproduct", torch.float32, torch.float32)],
+}
+
+
+def run_pair(kernel, tables, state, want, rule, it0, maxiter, k):
+    """The kernel on ``state`` and its plain version on ``want``."""
+    if kernel == "rounds":
+        bp_decode_rounds_qc(tables, it0, maxiter, *state, rule=rule,
+                            k_rounds=k)
+        bp_decode_rounds_qc_ref(tables, it0, maxiter, *want, rule=rule,
+                                k_rounds=k)
+    else:
+        bp_layered_sweeps_qc(tables, it0, maxiter, *state, rule=rule,
+                             k_sweeps=k)
+        bp_layered_sweeps_qc_ref(tables, it0, maxiter, *want, rule=rule,
+                                 k_sweeps=k)
+    torch.cuda.synchronize()
+
+
+def flags_of(kernel, state):
+    return state[4:] if kernel == "rounds" else state[3:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 40, 100, 129, 256])
+@pytest.mark.parametrize("code", list(EDGE_CODES))
+@pytest.mark.parametrize("case", [0, 1, 2], ids=["minsum", "tanhfb", "phi"])
+@pytest.mark.parametrize("kernel", ["rounds", "sweeps"])
+def test_resident_kernels_bit_equal_across_batches(kernel, case, code, B):
+    """Blocks own frames: any B, a grid of fewer blocks than frames (256 >
+    132 SMs), z off the warp, rows wider than 8; bit for bit on all four
+    state tensors after plain steps that leave some frames done."""
+    need_cuda()
+    rule, t_dtype, m_dtype = RES_CASES[kernel][case]
+    rows, z = EDGE_CODES[code]
+    tables = QCTables(rows, z)
+    layered = kernel == "sweeps"
+    warm = [x.cuda() for x in step_state(tables, m_dtype, t_dtype, 7,
+                                         layered, B=B)]
+    if layered:
+        bp_layered_sweeps_qc_ref(tables, 0, 50, *warm, rule=rule, k_sweeps=1)
+    else:
+        bp_decode_rounds_qc_ref(tables, 0, 50, *warm, rule=rule, k_rounds=2)
+    it0 = 1 if layered else 2
+    state = [x.clone() for x in warm]
+    run_pair(kernel, tables, state, warm, rule, it0, 50, 3)
+    plan = (bp_layered_sweeps_qc if layered else bp_decode_rounds_qc).plan
+    assert plan.grid == min(B, plan.blocks_per_sm * torch.cuda
+                            .get_device_properties(0).multi_processor_count)
+    assert_state_equal(state, warm)
+    if B >= 40:
+        assert 0 < int(flags_of(kernel, warm)[0].sum()) < B
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenario", ["K=1", "past maxiter", "all done",
+                                      "totals global", "totals shared"])
+@pytest.mark.parametrize("kernel", ["rounds", "sweeps"])
+def test_resident_kernels_bit_equal_at_the_edges(kernel, scenario,
+                                                 monkeypatch):
+    """K = 1; a call whose K runs past maxiter (only maxiter - it0 steps
+    run); a state where every frame is done (totals frozen, messages still
+    updated); and each placement of the frame's totals, forced through the
+    plan."""
+    need_cuda()
+    rule, t_dtype, m_dtype = RES_CASES[kernel][0]
+    rows, z = EDGE_CODES["ira z=45"]
+    tables = QCTables(rows, z)
+    layered = kernel == "sweeps"
+    state = [x.cuda() for x in step_state(tables, m_dtype, t_dtype, 9,
+                                          layered)]
+    it0, maxiter, k = 0, 50, 4
+    if scenario == "K=1":
+        k = 1
+    elif scenario == "past maxiter":
+        it0, maxiter, k = 3, 5, 8
+    elif scenario == "all done":
+        flags_of(kernel, state)[0].fill_(1)
+        flags_of(kernel, state)[1].fill_(2)
+    else:
+        plan_fn = kernels.resident_plan
+
+        def forced(*args, **kw):
+            plan = plan_fn(*args, **kw)
+            shared = scenario == "totals shared"
+            smem = resident_smem(
+                plan.threads, tables.nb_v, z, tables.dc_max,
+                4 if layered else args[6], rule, layered=layered,
+                defer_slots=kw.get("defer_slots", 0), totals_shared=shared)
+            return dataclasses.replace(
+                plan, smem=smem, totals="shared" if shared else "global")
+
+        monkeypatch.setattr(kernels, "resident_plan", forced)
+    want = [x.clone() for x in state]
+    before = [x.clone() for x in state]
+    fn = bp_layered_sweeps_qc if layered else bp_decode_rounds_qc
+    n0 = fn.iterations
+    run_pair(kernel, tables, state, want, rule, it0, maxiter, k)
+    assert fn.iterations - n0 == min(k, maxiter - it0)
+    assert_state_equal(state, want)
+    if scenario.startswith("totals"):
+        assert fn.plan.totals == scenario.split()[1]
+    if scenario == "all done":
+        assert torch.equal(state[0], before[0])        # totals frozen
+        assert not torch.equal(state[1], before[1])    # messages updated
+        assert_state_equal(flags_of(kernel, state),
+                           flags_of(kernel, before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("change", [dict(blocks_per_sm=3),
+                                    dict(smem_delta=16), dict(cluster=2),
+                                    dict(threads=1056), dict(frames=2)],
+                         ids=["blocks 3", "smem", "cluster", "threads",
+                              "frames"])
+def test_resident_launch_refuses_a_plan_beyond_its_limits(monkeypatch,
+                                                          change):
+    """The launch holds the plan to the kernel's own limits: more blocks an
+    SM than its registers allow, a shared-memory size other than its
+    layout's, a cluster, more than 1024 threads, several frames a block."""
+    need_cuda()
+    plan_fn = kernels.resident_plan
+
+    def altered(*args, **kw):
+        plan = plan_fn(*args, **kw)
+        return dataclasses.replace(
+            plan, smem=plan.smem + change.get("smem_delta", 0),
+            **{k: v for k, v in change.items() if k != "smem_delta"})
+
+    monkeypatch.setattr(kernels, "resident_plan", altered)
+    rows, z = STEP_CODES["regular"]
+    tables = QCTables(rows, z)
+    st = [x.cuda() for x in step_state(tables, torch.float32,
+                                       torch.float32, 1, False)]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        bp_decode_rounds_qc(tables, 0, 5, *st, rule="minsum")
+    lay = [x.cuda() for x in step_state(tables, torch.float32, None, 1,
+                                        True)]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        bp_layered_sweeps_qc(tables, 0, 5, *lay, rule="minsum")
 
 
 @pytest.mark.cuda
