@@ -42,7 +42,17 @@ Phases (each must pass, or the script exits non-zero):
      (3,6) code, the --lift-qc CLI, and kernel 5's check-major update;
  12. quality watch: the exact rate-1/2 H at 3.75 dB in bf16 and float32
      tanh-F/B, held to the JAX package's generic-decoder FER (see
-     phase_generic_quality).
+     phase_generic_quality);
+ 13. the other modes and the bit channels (phase_modes): hard reverse and
+     soft direct reconciliation CLIs on the headline code in the dense
+     (kernel 1), resident (kernel 2) and resident layered (kernel 3) forms,
+     the BI-AWGN sim_decode CLI (soft and --hard) on the exact rate-1/2 H
+     (kernel 4), counts set to 0 just before each CLI and read just after;
+     one hard and one direct round on the same inputs through kernel 1 and
+     through the plain check phase, bit for bit; quality watches of hard,
+     direct (DVB-S2 rate-1/2 full-wrap QC, resident bf16) and BSC (sim_bsc
+     --qc, rate-3/4 full-wrap QC, kernel 1) held to the JAX package's CPU
+     FERs (see MODE_WATCHES).
 Kernel and plain times are CUDA-event medians, taken in turns (kernels 1, 4
 and 5 over runs of 10 calls, whose host overhead the card's work hides;
 kernels 2 and 3 run K steps a call and report ms per step).  Each
@@ -65,6 +75,7 @@ SASS (cuobjdump -sass) into DIR.
 
 import concurrent.futures
 import csv
+import importlib
 import json
 import math
 import os
@@ -649,32 +660,40 @@ def edge_code(vid, cid, flags=()):
     return (lambda path: save_edge_csv(path, vid, cid)), list(flags)
 
 
-def run_cli(code, flags, label):
-    """sim_reconciliation on a code saved by ``code = (writer, flags)``
+# each sweep CLI's CSV point column
+CLI_COLUMN = {"sim_reconciliation": "EsN0dB", "sim_bsc": "f",
+              "sim_decode": "EbN0dB"}
+
+
+def run_cli(code, flags, label, cli="sim_reconciliation"):
+    """The sweep CLI ``cli`` on a code saved by ``code = (writer, flags)``
     with ``flags``; counts reset just before and read just after.  Returns
     (results, launches, device iterations)."""
     from qamreconciliation_tpu_torch.ops import kernels as K
-    from qamreconciliation_tpu_torch.sims import sim_reconciliation
 
+    module = importlib.import_module(f"qamreconciliation_tpu_torch.sims.{cli}")
+    column = CLI_COLUMN[cli]
     write, code_flags = code
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "code.csv")
         out = os.path.join(tmp, "out.csv")
         write(path)
+        base = ["--batch", "128", "--maxiter", "50", "--device", "cuda",
+                "--out", out]
+        if cli == "sim_reconciliation":
+            base += ["--bps", "2"]
         reset_counts()
-        results = sim_reconciliation.main(
-            [path, *code_flags, "--batch", "128", "--maxiter", "50", "--bps",
-             "2", "--device", "cuda", "--out", out, *flags])
+        results = module.main([path, *code_flags, *base, *flags])
         launches = counts()
         multi = ("bp_decode_rounds_qc", "bp_layered_sweeps_qc")
         device_iters = {n: getattr(K, n).iterations for n in multi}
         device_launches = {n: getattr(K, n).device_launches for n in multi}
         with open(out) as f:
             rows = list(csv.reader(f))
-    assert rows[0] == ["", "EsN0dB", "ber", "fer", "iters"]
+    assert rows[0] == ["", column, "ber", "fer", "iters"]
     assert len(rows) == 1 + len(results)
     for r in results:
-        log(f"[{label}] {r.snr_dB} dB: ber={r.ber:.4e} fer={r.fer:.4f} "
+        log(f"[{label}] {column}={r.snr_dB}: ber={r.ber:.4e} fer={r.fer:.4f} "
             f"mean iters={r.iters:.2f} frames={r.frames} "
             f"{r.frames_per_s:.1f} frames/s, {r.bp_iterations} BP "
             f"iterations on the device")
@@ -970,13 +989,13 @@ def phase_generic_decoder():
             f"per iteration), plain {ms[1]:.1f} ms ({ms[1] / its[1]:.3f})")
 
 
-def log_rounds(label, dec, mat, snr):
+def log_rounds(label, dec, mat, snr, mode="softening"):
     """Print the untraced round breakdown of ``dec`` at ``snr``."""
     from qamreconciliation_tpu_torch.sims.time_check_phase import (
         round_breakdown,
     )
 
-    pre, dcd, its = round_breakdown(dec, mat, snr)
+    pre, dcd, its = round_breakdown(dec, mat, snr, mode=mode)
     log(f"[{label}] {snr} dB round: preamble {pre:.2f} ms, decode+count "
         f"{dcd:.2f} ms, iterations {its} "
         f"({dcd / max(statistics.median(its), 1):.3f} ms per iteration)")
@@ -1082,6 +1101,175 @@ def phase_generic_quality():
         if held:
             assert abs(r.fer - p) <= bound, (r.fer, p, bound)
 
+# ------------------------------------------------------------------------
+# The other modes and the bit channels (kernels 1-4 through new rounds)
+
+# The mode quality watches, 1024 frames each, maxiter 50, early exit off:
+# hard and direct on the DVB-S2 rate-1/2 full-wrap QC code with --resident
+# --dtype bfloat16 --check-phi tanhfb (docs/img/wf_dvbs2_12_{hard,direct}.csv),
+# BSC on the rate-3/4 full-wrap code with --dtype bfloat16
+# (docs/img/bsc_dvbs2_34.csv).  Each is held to the JAX package's own FER on
+# the CPU at that point, from its CLIs on the dense path:
+#   JAX_PLATFORMS=cpu python scripts/run_mode_watches_cpu.py \
+#       --watches hard:4.5,hard:4.45,direct:3.0,bsc:0.0275
+# hard sits at 4.45 dB: at 4.5 dB the CPU figure, 0.0176, lies below 0.05.
+MODE_WATCHES = {       # mode: (point, JAX CPU FER)
+    "hard": (4.45, 0.0595703125),
+    "direct": (3.0, 0.2607421875),
+    "bsc": (0.0275, 0.2109375),
+}
+# hard at 4.5 dB, printed and not held: the JAX package's CPU figure there
+# and its TPU figure (docs/img/wf_dvbs2_12_hard.csv)
+HARD_AT_4_5 = {"CPU": 0.017578125, "TPU": 0.1005859375}
+# the JAX package's TPU figures around the other two watches, printed and
+# not held: (point, FER) pairs from the CSVs above
+MODE_TPU = {"hard": ((4.5, 0.1005859375),),
+            "direct": ((2.85, 0.9775390625), (3.2, 0.0068359375)),
+            "bsc": ((0.025, 0.0009765625), (0.03, 0.9580078125))}
+# the headline code's operating points of each mode (256 frames each):
+# the first of each pair near the knee, where a round mixes decoded and
+# failed frames
+MODE_POINTS = {"hard": ("5.0", "5.5"), "direct": ("3.5", "4.0")}
+# the forms of the reconciliation CLIs, with the kernel each one runs
+MODE_FORMS = {
+    "dense": ([], "bp_check_phase_qc"),
+    "resident": (["--resident", "--dtype", "bfloat16", "--check-phi",
+                  "tanhfb"], "bp_decode_rounds_qc"),
+    "layered": (["--schedule", "layered", "--resident", "--check-rule",
+                 "minsum", "--dtype", "bfloat16"], "bp_layered_sweeps_qc"),
+}
+
+
+def phase_modes(kernels):
+    """Hard reverse and soft direct reconciliation, and the bit channels,
+    through the CLIs a user calls: each path's kernel launched on the card
+    (kernel 1 once per dense BP iteration, kernels 2 and 3 three device
+    launches a call, kernel 4 once per generic iteration), one hard and one
+    direct round decoded through kernel 1 and through the plain check phase
+    bit for bit, and the quality watches (MODE_WATCHES).  Each kernel's
+    record gets its launches per 128-frame round on these paths under
+    ``mode_launches_per_round``."""
+    from qamreconciliation_tpu_torch.models.alphabet import PAMAlphabet
+    from qamreconciliation_tpu_torch.models.dvbs2 import (
+        Z, make_table, to_qc_base,
+    )
+    from qamreconciliation_tpu_torch.models.matrix import Matrix
+    from qamreconciliation_tpu_torch.models.qc_decoder import (
+        QCDecoder, make_qc_ldpc,
+    )
+    from qamreconciliation_tpu_torch.ops.kernels import bp_check_phase_qc_ref
+    from qamreconciliation_tpu_torch.sims.engine import (
+        ReconciliationEngine, round_generator,
+    )
+
+    per_round = {name: {} for name in KERNELS}
+
+    def note(label, res, launches):
+        rounds = sum(r.frames for r in res) / 128
+        for name, n in launches.items():
+            if n:
+                per_round[name][label] = n / rounds
+
+    base, _, _ = make_qc_ldpc(CODE["nb_v"], CODE["z"], CODE["dv"],
+                              CODE["dc"], seed=CODE["seed"])
+    z = CODE["z"]
+    kernel_dec = QCDecoder(base, z, device="cuda")
+    mat = Matrix(kernel_dec.vid, kernel_dec.cid)
+    for mode, (lo, hi) in MODE_POINTS.items():
+        for snr in (lo, hi):
+            log_rounds(f"{mode} dense", kernel_dec, mat, float(snr), mode)
+        for form, (flags, kernel) in MODE_FORMS.items():
+            label = f"{mode} {form}"
+            res, launches, dev = run_cli(qc_code(base, z), [
+                f"--{mode}", *flags, "--snr", lo, hi, "--nsnr", "2",
+                "--simloops", "256"], label)
+            iterations = sum(r.bp_iterations for r in res)
+            assert iterations > 0 and launches[kernel] > 0, (label, launches)
+            if form == "dense":
+                assert launches[kernel] == iterations
+            else:
+                assert dev[kernel] == iterations
+                assert launches["bp_check_phase_qc"] == 0
+            note(label, res, launches)
+
+    # BI-AWGN sim_decode on the exact rate-1/2 H (the generic decoder)
+    for label, flags in (("sim_decode soft", ["--snr", "-2.25", "-2.0"]),
+                         ("sim_decode hard", ["--hard", "--snr", "-0.25",
+                                              "0.0"])):
+        res, launches, _ = run_cli(edge_code(*dvbs2_code("1/2")), [
+            *flags, "--nsnr", "2", "--simloops", "256", "--minerr",
+            "1000000000"], label, cli="sim_decode")
+        iterations = sum(r.bp_iterations for r in res)
+        assert launches["bp_check_phase_generic"] == iterations > 0
+        assert launches["bp_check_phase_qc"] == 0
+        note(label, res, launches)
+
+    # one hard and one direct round on the same inputs: kernel 1 == plain
+    plain_dec = QCDecoder(base, z, device="cuda")
+    plain_dec.check_phase = bp_check_phase_qc_ref
+    for mode, snr in (("hard", 5.0), ("direct", 3.5)):
+        outs = []
+        for dec in (kernel_dec, plain_dec):
+            eng = ReconciliationEngine(dec, mat, PAMAlphabet(2, 2.0),
+                                       batch=128)
+            nm = eng.mode_noisemapper(mode, snr)
+            sigma = math.sqrt(eng.noise_var(snr))
+            x, y = eng._sample_sb(round_generator(13, 0, "cuda"), sigma)
+            lappr, word = eng.round_inputs(mode, nm, x, y, sigma, 1.0)
+            decoded = dec.decode_batched(lappr, dec.syndrome_from_bits(word),
+                                         50)
+            counters = eng.round(mode, nm, sigma, 1.0, 50, xy=(x, y))
+            outs.append((*decoded, counters))
+        torch.cuda.synchronize()
+        for a, b in zip(*outs):
+            assert torch.equal(a, b), f"{mode} round: kernel != plain"
+        errs, ferrs, its, succ = outs[0][3].tolist()
+        assert 0 < succ < 128, (mode, succ)      # decoded and failed frames
+        log(f"[modes] {mode} round at {snr} dB, B=128, injected samples: "
+            f"kernel 1 == plain check phase bit for bit (success, iters, "
+            f"final, counters); {succ}/128 decoded, {ferrs} frame errors, "
+            f"{errs} bit errors")
+
+    # quality watches
+    def bound(p):
+        return 4 * math.sqrt(2 * p * (1 - p) / 1024)
+
+    qc12 = qc_code(to_qc_base(make_table("1/2", seed=0), wrap="full"), Z)
+    qc34 = qc_code(to_qc_base(make_table("3/4", seed=0), wrap="full"), Z)
+    resident = MODE_FORMS["resident"][0]
+    watches = [(mode, point, held) for mode, (point, held)
+               in MODE_WATCHES.items()] + [("hard", 4.5, None)]
+    for mode, point, held in watches:
+        p = str(point)
+        if mode == "bsc":
+            res, launches, _ = run_cli(qc34, [
+                "--dtype", "bfloat16", "--rber", p, p, "--rpoints", "1",
+                "--simloops", "1024", "--minerr", "1000000000"],
+                f"watch bsc f={p}", cli="sim_bsc")
+            assert launches["bp_check_phase_qc"] == res[0].bp_iterations > 0
+        else:
+            res, launches, _ = run_cli(qc12, [
+                f"--{mode}", *resident, "--snr", p, p, "--nsnr", "1",
+                "--simloops", "1024", "--ferr-count-min", "1000000000"],
+                f"watch {mode} {p} dB")
+            assert launches["bp_decode_rounds_qc"] > 0
+        note(f"watch {mode} {p}", res, launches)
+        fer = res[0].fer
+        assert res[0].frames == 1024
+        if held is None:
+            log(f"[watch] {mode} at {p}: FER {fer:.4f}, not held; JAX CPU "
+                f"{HARD_AT_4_5['CPU']:.4f}, JAX TPU {HARD_AT_4_5['TPU']:.4f} "
+                f"(+-{bound(HARD_AT_4_5['TPU']):.4f})")
+            continue
+        tpu = ", ".join(f"{q}: {f:.4f}" for q, f in MODE_TPU[mode])
+        log(f"[watch] {mode} at {p}: FER {fer:.4f}, BER {res[0].ber:.4e}, "
+            f"mean iters {res[0].iters:.2f}; JAX CPU {held:.4f} (bound "
+            f"+-{bound(held):.4f}); JAX TPU at {tpu}, not held")
+        assert abs(fer - held) <= bound(held), (mode, fer, held)
+    for name, rec in per_round.items():
+        record(kernels, name, mode_launches_per_round=rec)
+        log(f"[modes] {name} launches per 128-frame round: {rec}")
+
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
@@ -1112,7 +1300,8 @@ def main(argv=None):
                         (phase_generic_kernels, (kernels,)),
                         (phase_generic_decoder, ()),
                         (phase_generic_main, (kernels,)),
-                        (phase_generic_quality, ())):
+                        (phase_generic_quality, ()),
+                        (phase_modes, (kernels,))):
         t0 = time.perf_counter()
         phase(*args)
         log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")

@@ -33,10 +33,11 @@ def as_dtype(dtype) -> torch.dtype:
 
 def not_ported(what: str, item: str) -> NotImplementedError:
     """The error for a path of the JAX package this port does not have yet,
-    naming the ``ROADMAP.md`` item that ports it."""
+    naming by its title the item of ``ROADMAP.md``'s list of modules still
+    to port that ports it."""
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, 'Modules to port' item "
-        f"{item})"
+        f"{what} is not ported yet (ROADMAP.md, modules still to port, "
+        f"item '{item}')"
     )
 
 

@@ -92,3 +92,10 @@ class PAMAlphabet:
         table = torch.as_tensor(self.constellation, dtype=dtype,
                                 device=index.device)
         return table[index.long()]
+
+    def demap_symbols_to_bits(self, symbol_index: torch.Tensor) -> torch.Tensor:
+        """Gray bits (uint8) of symbol indices: ``[..., S]`` -> ``[...,
+        S * bit_per_symbol]`` with the per-symbol bit blocks contiguous."""
+        table = torch.as_tensor(self.s_to_b, device=symbol_index.device)
+        bits = table[symbol_index.long()]              # [..., S, bps]
+        return bits.reshape(*bits.shape[:-2], -1)

@@ -6,7 +6,7 @@ The binary-reflected Gray code of symbol ``s`` is ``s ^ (s >> 1)``; column
 
 import numpy as np
 
-__all__ = ["generate_table_s_to_b"]
+__all__ = ["generate_table_s_to_b", "gray_bit_masks"]
 
 
 def generate_table_s_to_b(log_order: int) -> np.ndarray:
@@ -20,3 +20,11 @@ def generate_table_s_to_b(log_order: int) -> np.ndarray:
     gray = s ^ (s >> 1)
     k = np.arange(log_order, dtype=np.int64)
     return ((gray[:, None] >> k[None, :]) & 1).astype(np.uint8)
+
+
+def gray_bit_masks(log_order: int) -> np.ndarray:
+    """Float selector masks for Gray-labelled LLR accumulation, shape
+    [2**log_order, log_order] float64: ``mask[i, k] = 1`` where bit ``k`` of
+    symbol ``i`` is 1 (the LLR denominator group), 0 where it is 0 (the
+    numerator group)."""
+    return generate_table_s_to_b(log_order).astype(np.float64)

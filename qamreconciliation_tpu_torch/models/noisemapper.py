@@ -7,7 +7,9 @@ per-sample methods are tensor ops over any sample shape:
 * ``hard_decide_index`` — Bob's decision interval,
 * ``F_Y`` (erf form), ``g``/``map_noise`` — Bob's softening metric,
 * ``_poly_llr_bits`` / ``_table_llr_bits`` — Alice's softening LLRs from
-  the piecewise-Chebyshev fit or the tabulated (n, j) -> LLR map.
+  the piecewise-Chebyshev fit or the tabulated (n, j) -> LLR map,
+* ``bare_llr`` — hard reverse reconciliation's LLRs of a symbol, from the
+  bare-LLR table.
 """
 
 from __future__ import annotations
@@ -70,8 +72,7 @@ class NoiseMapper:
                 f"noise variance must be strictly positive, got {noise_var}"
             )
         if fy_mode != "erf":
-            raise not_ported(f"fy_mode={fy_mode!r}",
-                             "12 (rest of NoiseMapper)")
+            raise not_ported(f"fy_mode={fy_mode!r}", "Rest of NoiseMapper")
         self.fy_mode = fy_mode
         M = pa.order
         if sign_config is None:
@@ -165,6 +166,7 @@ class NoiseMapper:
         self._p = dev(p)
         self._sign_cfg = dev(self.sign_config.astype(np.bool_), torch.bool)
         self._sigma_dev = dev(self._sigma)
+        self._bare_llr = dev(bare)                      # [M, bps]
         self._thr_tuple = tuple(float(t) for t in thr[1:-1])
 
         # inverse marginal CDF on a uniform u-grid (the LLR builders' g^-1)
@@ -177,6 +179,13 @@ class NoiseMapper:
         self._llr_tab = None
         self._llr_poly = None
         self._llr_tab_inputs = (F_thr, delta_F_Y, y_of_u, c, p, bits, llr_cap)
+
+    @property
+    def bare_llr_table(self):
+        """The hard-decision bare-LLR table [M, bps] (host float64):
+        ``log P{bit 0 | sent j} - log P{bit 1 | sent j}`` over Bob's
+        decisions, clipped to the dtype's finite LLR cap."""
+        return np.asarray(self.np_tables["bare_llr_table"])
 
     # ------------------------------------------------------------------ #
     # Effective monotonicity direction used by g / g^-1.
@@ -369,3 +378,9 @@ class NoiseMapper:
     def map_noise(self, y_samples, index):
         """n = g(y, index) elementwise."""
         return self.g(y_samples, index)
+
+    def bare_llr(self, symb):
+        """Hard-decision LLRs of symbol indices from the bare-LLR table:
+        ``[..., S]`` -> ``[..., S*bps]`` (per-symbol blocks contiguous)."""
+        llr = self._bare_llr[symb.long()]              # [..., S, bps]
+        return llr.reshape(*llr.shape[:-2], -1)

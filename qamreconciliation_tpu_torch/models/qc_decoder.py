@@ -338,10 +338,9 @@ class QCDecoder:
             None if resident_rowgroup is None else int(resident_rowgroup)
         )
         if compressed:
-            raise not_ported("compressed=True",
-                             "15 (compressed-state min-sum)")
+            raise not_ported("compressed=True", "Tail")
         if sr_messages:
-            raise not_ported("sr_messages=True", "15 (sr_messages)")
+            raise not_ported("sr_messages=True", "Tail")
         if totals_dtype not in ("storage", "float32"):
             raise ValueError(f"unknown totals_dtype {totals_dtype!r}")
         self.totals_dtype = totals_dtype

@@ -3,11 +3,15 @@
 from __future__ import annotations
 
 import argparse
+import csv
 import warnings
 
 from ..config import as_dtype, not_ported
+from ..utils.checkpoint import SweepState
+from .engine import PointResult
 
-__all__ = ["add_engine_args", "add_qc_arg", "engine_kwargs", "load_decoder"]
+__all__ = ["add_engine_args", "add_qc_arg", "engine_kwargs",
+           "bit_channel_kwargs", "load_decoder", "write_csv", "sweep"]
 
 
 def add_engine_args(parser: argparse.ArgumentParser):
@@ -74,7 +78,7 @@ def add_engine_args(parser: argparse.ArgumentParser):
 
 def engine_kwargs(args):
     if args.devices > 1:
-        raise not_ported("--devices > 1", "14 (multi-GPU)")
+        raise not_ported("--devices > 1", "Multi-GPU")
     llr_mode = args.llr_mode or ("search" if args.llr_exact else "poly")
     return dict(
         batch=args.batch,
@@ -82,6 +86,14 @@ def engine_kwargs(args):
         llr_mode=llr_mode,
         fy_mode=args.fy_mode,
     )
+
+
+def bit_channel_kwargs(args):
+    """:func:`engine_kwargs` for the ``BitChannelEngine`` (no LLR or
+    marginal-CDF mode)."""
+    kw = engine_kwargs(args)
+    del kw["llr_mode"], kw["fy_mode"]
+    return kw
 
 
 def add_qc_arg(parser: argparse.ArgumentParser):
@@ -180,7 +192,8 @@ def load_decoder(args):
     from ..models.decoder import Decoder
     from ..utils.edgefile import load_edge_csv
 
-    vid, cid = load_edge_csv(args.edgefile)
+    vid, cid = load_edge_csv(
+        args.edgefile, num_data_first_row=getattr(args, "first_row", True))
     if args.lift_qc:
         from ..models.qc_decoder import detect_qc
 
@@ -217,3 +230,44 @@ def load_decoder(args):
             "lives in the QC dense check update"
         )
     return Decoder(vid, cid, **dec_kw), vid, cid
+
+
+def write_csv(path: str, column: str, rows):
+    """Write ``rows`` of (point, ber, fer, iters) under the header ``,
+    column, ber, fer, iters``, each row led by its index."""
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["", column, "ber", "fer", "iters"])
+        for i, row in enumerate(rows):
+            w.writerow([i, *(float(v) for v in row)])
+
+
+def sweep(out: str, resume: bool, column: str, points, run_point):
+    """Run ``run_point(i, point) -> PointResult`` for each point of the grid
+    that the resume journal of ``out`` does not hold, journal each one,
+    write the CSV with ``column`` as the point's name, and return the list
+    of :class:`PointResult` in grid order."""
+    state = SweepState(out, resume=resume)
+    results = []
+    for i, point in enumerate(points):
+        prev = state.done(point)
+        if prev is not None:
+            results.append(PointResult(
+                prev["point"], prev["ber"], prev["fer"], prev["iters"],
+                frames=prev.get("frames", 0),
+                frames_per_s=prev.get("frames_per_s", 0.0),
+            ))
+            continue
+        r = run_point(i, float(point))
+        print(
+            f"[{column}={point:.4g}] frames={r.frames} ber={r.ber:.3e} "
+            f"fer={r.fer:.3e} iters={r.iters:.2f} "
+            f"({r.frames_per_s:.1f} frames/s)"
+        )
+        state.record(point, dict(ber=r.ber, fer=r.fer, iters=r.iters,
+                                 frames=r.frames,
+                                 frames_per_s=r.frames_per_s))
+        results.append(r)
+    write_csv(out, column, [r.as_tuple() for r in results])
+    state.cleanup()
+    return results

@@ -1,12 +1,20 @@
-"""Monte-Carlo reconciliation sweep engine, batched (soft reverse path).
+"""Monte-Carlo reconciliation sweep engine, batched.
 
 Each round processes a batch of ``B`` frames in the decoder's layouts
 (samples ``[S, B]``, bits and LLRs ``[N, B]``): symbol sampling and AWGN,
-Bob's hard decision and softening metric, the Gray-bit word and its
-syndrome, Alice's softening LLRs, the syndrome BP decode and four exact
-integer counters.  After each round the host applies the batch-granular
-early-exit rule ``frame_errors >= ferr_count_min and frames > simloops/20``.
-Randomness comes from one ``torch.Generator`` per (seed, round).
+the word and its syndrome, the decoder's LLRs, the syndrome BP decode and
+four exact integer counters.  The three modes:
+
+* softening -- reverse reconciliation with the softening metric: Bob's
+  hard decision is the word, Alice's softening LLRs feed the decoder;
+* hard -- reverse reconciliation with Alice's bare-LLR table, indexed by
+  the symbols she sent;
+* direct -- Alice's symbols are the word, Bob's Gray LLRs of his samples
+  feed the decoder.
+
+After each round the host applies the batch-granular early-exit rule
+``frame_errors >= ferr_count_min and frames > simloops/20``.  Randomness
+comes from one ``torch.Generator`` per (seed, round).
 """
 
 from __future__ import annotations
@@ -22,14 +30,19 @@ from ..config import DEFAULT_DTYPE, as_dtype, not_ported
 from ..models.alphabet import PAMAlphabet
 from ..models.matrix import Matrix
 from ..models.noisemapper import NoiseMapper
+from ..ops.llr import y_to_lappr_gray_bits
 
 __all__ = ["ReconciliationEngine", "PointResult", "round_generator",
-           "bf16_normal"]
+           "bf16_normal", "run_rounds", "simulate_softening_snr_dB",
+           "simulate_direct_snr_dB", "simulate_hard_reverse_snr_dB"]
+
+MODES = ("softening", "hard", "direct")
 
 
 @dataclass
 class PointResult:
-    """Per-SNR-point result (CSV columns ``EsN0dB,ber,fer,iters``)."""
+    """Per-point result (CSV columns ``EsN0dB,ber,fer,iters``; a bit
+    channel's point may be a flip probability or an Eb/N0)."""
 
     snr_dB: float
     ber: float
@@ -84,6 +97,55 @@ def bf16_normal(generator: torch.Generator, shape, device) -> torch.Tensor:
     return _BF16_NORMAL.to(device)[idx].to(torch.bfloat16)
 
 
+def run_rounds(round_fn, n_rounds: int, frames_per_round: int, stop):
+    """Issue ``round_fn(r)`` (counters ``[bit errors, frame errors,
+    iterations of successes, successes]``) for r = 0, 1, ... up to
+    ``n_rounds`` rounds, reading each round's counters after the next round
+    was issued, so the stopping decision ``stop(bit errors, frame errors,
+    frames)`` lags one round (the rounds already issued are counted).
+
+    Returns ``(counters [4] as ints, frames, seconds)``.
+    """
+    total = [0, 0, 0, 0]
+    frames = 0
+
+    def accumulate(out):
+        nonlocal frames
+        for i, v in enumerate(out.tolist()):    # one host read
+            total[i] += v
+        frames += frames_per_round
+
+    t0 = time.perf_counter()
+    pending = None
+    for r in range(n_rounds):
+        out = round_fn(r)
+        if pending is not None:
+            accumulate(pending)
+            if stop(total[0], total[1], frames):
+                pending = out
+                break
+        pending = out
+    if pending is not None:
+        accumulate(pending)
+    return total, frames, time.perf_counter() - t0
+
+
+def point_result(point, total, frames, elapsed, bits_per_frame,
+                 bp_iterations=0) -> PointResult:
+    """The :class:`PointResult` of a point's summed counters; the BER
+    divides by ``bits_per_frame``."""
+    errs, ferrs, iters, succ = total
+    return PointResult(
+        snr_dB=point,
+        ber=errs / (frames * bits_per_frame),
+        fer=ferrs / frames,
+        iters=0.0 if succ == 0 else iters / succ,
+        frames=frames,
+        frames_per_s=frames / elapsed if elapsed > 0 else 0.0,
+        bp_iterations=bp_iterations,
+    )
+
+
 class ReconciliationEngine:
     """Batched Monte-Carlo engine bound to (code, alphabet).
 
@@ -110,10 +172,9 @@ class ReconciliationEngine:
             )
         if llr_mode not in ("poly", "table"):
             raise not_ported(f"llr_mode={llr_mode!r}",
-                             "12 (rest of NoiseMapper)")
+                             "Rest of NoiseMapper")
         if fy_mode != "erf":
-            raise not_ported(f"fy_mode={fy_mode!r}",
-                             "12 (rest of NoiseMapper)")
+            raise not_ported(f"fy_mode={fy_mode!r}", "Rest of NoiseMapper")
         self.dec = dec
         self.mat = mat
         self.pa = pa
@@ -194,13 +255,53 @@ class ReconciliationEngine:
         lappr = alpha * self._bits_nb(lambda b, _: llr_bits[b], x_hat)
         return lappr, word
 
+    def _hard_inputs(self, nm, x, y):
+        """Bob's word [N, B] and Alice's bare LLRs [N, B]: the LLRs of the
+        symbols she sent, ``x``, read from the bare-LLR table."""
+        x_hat = nm.hard_decide_index(y)
+        word = self._bits_nb(
+            lambda b, idx: self._s2b[:, b][idx.long()], x_hat
+        )
+        xl = x.long()
+        lappr = self._bits_nb(lambda b, _: nm._bare_llr[:, b][xl], x_hat)
+        return lappr, word
+
+    def _direct_inputs(self, x, y, sigma):
+        """Alice's word [N, B] and Bob's Gray LLRs [N, B] of his samples,
+        with ``2 * sigma**2`` formed in the dtype."""
+        word = self._bits_nb(lambda b, idx: self._s2b[:, b][idx.long()], x)
+        two_var = 2.0 * torch.tensor(sigma, dtype=self.dtype) ** 2
+        llr_bits = y_to_lappr_gray_bits(y, self.pa.constellation, two_var,
+                                        self.dtype)
+        lappr = self._bits_nb(lambda b, _: llr_bits[b], x)
+        return lappr, word
+
+    def round_inputs(self, mode, nm, x, y, sigma, alpha):
+        """The decoder's LLRs [N, B] and the word [N, B] of a ``mode``
+        round on symbols ``x`` and samples ``y`` ([S, B])."""
+        if mode == "softening":
+            return self._softening_inputs(nm, x, y, alpha)
+        if mode == "hard":
+            return self._hard_inputs(nm, x, y)
+        if mode == "direct":
+            return self._direct_inputs(x, y, sigma)
+        raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
+
+    def round(self, mode, nm, sigma, alpha, max_iterations, generator=None,
+              xy=None):
+        """One round of ``mode`` -> counters [4].  ``nm`` is the point's
+        NoiseMapper (:meth:`mode_noisemapper`); ``alpha`` scales the
+        softening LLRs only.  ``xy=(x, y)`` injects the symbols and samples
+        in place of drawing them from ``generator``."""
+        x, y = xy if xy is not None else self._sample_sb(generator, sigma)
+        lappr, word = self.round_inputs(mode, nm, x, y, sigma, alpha)
+        return self._decode_and_count_nb(lappr, word, max_iterations)
+
     def softening_round(self, nm, sigma, alpha, max_iterations,
                         generator=None, xy=None):
-        """One softening round -> counters [4].  ``xy=(x, y)`` injects the
-        symbols and samples in place of drawing them from ``generator``."""
-        x, y = xy if xy is not None else self._sample_sb(generator, sigma)
-        lappr, word = self._softening_inputs(nm, x, y, alpha)
-        return self._decode_and_count_nb(lappr, word, max_iterations)
+        """:meth:`round` in softening mode."""
+        return self.round("softening", nm, sigma, alpha, max_iterations,
+                          generator, xy)
 
     def make_noisemapper(self, snr_dB: float, nmconfig=None) -> NoiseMapper:
         """The point's NoiseMapper, its LLR fit or table built."""
@@ -212,6 +313,20 @@ class ReconciliationEngine:
         else:
             nm._ensure_llr_poly()
         return nm
+
+    def mode_noisemapper(self, mode: str, snr_dB: float, nmconfig=None):
+        """The NoiseMapper a ``mode`` round reads at ``snr_dB``: the
+        softening one with its LLR fit or table, hard's for its bare-LLR
+        table alone (no sign configuration, no fit), none for direct."""
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
+        if mode == "softening":
+            return self.make_noisemapper(snr_dB, nmconfig)
+        if mode == "hard":
+            return NoiseMapper(self.pa, self.noise_var(snr_dB), None,
+                               dtype=self.dtype, device=self.device,
+                               fy_mode=self.fy_mode)
+        return None
 
     def noise_var(self, snr_dB: float) -> float:
         """N0 at Es/N0 ``snr_dB``: ``N0 = Es * 10^(-snr/10) / 2``."""
@@ -236,61 +351,49 @@ class ReconciliationEngine:
         the early-exit decision lags one round (the rounds already issued
         are counted).
         """
-        if mode != "softening":
-            raise not_ported(f"mode {mode!r}",
-                             "11 (bit channels and the other engine modes)")
-        N0 = self.noise_var(snr_dB)
-        sigma = math.sqrt(N0)
-        nm = self.make_noisemapper(snr_dB, nmconfig)
-
-        err_count = 0
-        frame_error_count = 0
-        decoding_iterations = 0
-        successful_decoding = 0
-        frames = 0
-        n_rounds = max(1, math.ceil(simulation_loops / self.frames_per_round))
+        nm = self.mode_noisemapper(mode, snr_dB, nmconfig)
+        sigma = math.sqrt(self.noise_var(snr_dB))
         it0 = self.dec.iterations_run
-
-        def accumulate(out):
-            nonlocal err_count, frame_error_count
-            nonlocal decoding_iterations, successful_decoding, frames
-            errs, ferrs, iters, succ = out.tolist()   # one host read
-            err_count += errs
-            frame_error_count += ferrs
-            decoding_iterations += iters
-            successful_decoding += succ
-            frames += self.frames_per_round
-
-        t0 = time.perf_counter()
-        pending = None
-        for r in range(n_rounds):
-            out = self.softening_round(
-                nm, sigma, alpha, decoder_iterations,
-                generator=round_generator(seed, r, self.device),
-            )
-            if pending is not None:
-                accumulate(pending)
-                if (
-                    frame_error_count >= ferr_count_min
-                    and frames > simulation_loops / 20
-                ):
-                    pending = out
-                    break
-            pending = out
-        if pending is not None:
-            accumulate(pending)
-        elapsed = time.perf_counter() - t0
-
-        return PointResult(
-            snr_dB=snr_dB,
-            ber=err_count / (frames * self.K),
-            fer=frame_error_count / frames,
-            iters=(
-                0.0
-                if successful_decoding == 0
-                else decoding_iterations / successful_decoding
-            ),
-            frames=frames,
-            frames_per_s=frames / elapsed if elapsed > 0 else 0.0,
-            bp_iterations=self.dec.iterations_run - it0,
+        total, frames, elapsed = run_rounds(
+            lambda r: self.round(
+                mode, nm, sigma, alpha, decoder_iterations,
+                generator=round_generator(seed, r, self.device)),
+            max(1, math.ceil(simulation_loops / self.frames_per_round)),
+            self.frames_per_round,
+            lambda errs, ferrs, frames: (ferrs >= ferr_count_min
+                                         and frames > simulation_loops / 20),
         )
+        return point_result(snr_dB, total, frames, elapsed, self.K,
+                            self.dec.iterations_run - it0)
+
+
+# --------------------------------------------------------------------- #
+# The reference engine's free-function API
+
+
+def simulate_softening_snr_dB(snr_dB, dec, mat, pa, nmconfig,
+                              decoder_iterations, simulation_loops,
+                              ferr_count_min, alpha: float = 1.0,
+                              **engine_kw):
+    """One softening point -> ``(snr_dB, ber, fer, iters)``."""
+    eng = ReconciliationEngine(dec, mat, pa, **engine_kw)
+    return eng.run_point("softening", snr_dB, decoder_iterations,
+                         simulation_loops, ferr_count_min, alpha=alpha,
+                         nmconfig=nmconfig).as_tuple()
+
+
+def simulate_direct_snr_dB(snr_dB, dec, mat, pa, decoder_iterations,
+                           simulation_loops, ferr_count_min, **engine_kw):
+    """One soft direct point -> ``(snr_dB, ber, fer, iters)``."""
+    eng = ReconciliationEngine(dec, mat, pa, **engine_kw)
+    return eng.run_point("direct", snr_dB, decoder_iterations,
+                         simulation_loops, ferr_count_min).as_tuple()
+
+
+def simulate_hard_reverse_snr_dB(snr_dB, dec, mat, pa, decoder_iterations,
+                                 simulation_loops, ferr_count_min,
+                                 **engine_kw):
+    """One hard reverse point -> ``(snr_dB, ber, fer, iters)``."""
+    eng = ReconciliationEngine(dec, mat, pa, **engine_kw)
+    return eng.run_point("hard", snr_dB, decoder_iterations,
+                         simulation_loops, ferr_count_min).as_tuple()

@@ -1,0 +1,18 @@
+"""BI-AWGN direct sweep CLI.
+
+The same sweep as sim_decode (BPSK over AWGN, soft ``2*alpha/v*r`` or hard
+``LLR0*sign(r)``), but the output CSV's point column is named ``EsN0dB``,
+the reference's quirk, kept for its display scripts.
+"""
+
+from .sim_decode import build_parser, run_sweep
+
+__all__ = ["main"]
+
+
+def main(argv=None):
+    return run_sweep(build_parser().parse_args(argv), "EsN0dB")
+
+
+if __name__ == "__main__":
+    main()

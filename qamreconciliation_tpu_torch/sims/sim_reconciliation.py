@@ -1,9 +1,10 @@
-"""Reconciliation BER/FER sweep CLI (soft reverse reconciliation).
+"""Reconciliation BER/FER sweep CLI: soft reverse (default), hard reverse
+(``--hard``) or soft direct (``--direct``, which overrides ``--hard``).
 
     python -m qamreconciliation_tpu_torch.sims.sim_reconciliation EDGEFILE \
         [--qc | --lift-qc] [--out out.csv] [--maxiter 50] [--ferr-count-min 100]
         [--alpha 1.0] [--simloops 5000] [--snr 0 5] [--nsnr 11] [--bps 2]
-        [--configuration-base] [--device cuda]
+        [--configuration-base] [--hard | --direct] [--device cuda]
         [--resident [--resident-chunk 50]]
         [--schedule layered [--layered-chunk 4] [--layered-groups -1]] ...
 
@@ -15,18 +16,18 @@ points run sequentially; each point processes a frame batch per round.
 """
 
 import argparse
-import csv
 
 import numpy as np
 
 from ..config import not_ported
 from ..models.alphabet import PAMAlphabet
 from ..models.matrix import Matrix
-from ..utils.checkpoint import SweepState
-from .common import add_engine_args, add_qc_arg, engine_kwargs, load_decoder
-from .engine import PointResult, ReconciliationEngine
+from .common import (
+    add_engine_args, add_qc_arg, engine_kwargs, load_decoder, sweep,
+)
+from .engine import ReconciliationEngine
 
-__all__ = ["build_parser", "main", "write_csv"]
+__all__ = ["build_parser", "main"]
 
 
 def build_parser():
@@ -58,11 +59,10 @@ def build_parser():
     parser.add_argument("--bps", type=int, default=2,
                         help="Bit Per Symbol (=log_2(PAM Order))")
     parser.add_argument("--hard", action="store_true",
-                        help="Simulate hard reverse reconciliation (not "
-                        "ported yet)")
+                        help="Simulate hard reverse reconciliation")
     parser.add_argument("--direct", action="store_true",
-                        help="Simulate the soft direct reconciliation (not "
-                        "ported yet)")
+                        help="Simulate the soft direct reconciliation "
+                        "(overrides --hard)")
     parser.add_argument("--configuration-base", action="store_true",
                         help="Instead of the Alternating configuration, use "
                         "the Base configuration")
@@ -74,15 +74,6 @@ def build_parser():
                         "ported yet)")
     add_engine_args(parser)
     return parser
-
-
-def write_csv(path: str, rows):
-    """Write ``rows`` of (EsN0dB, ber, fer, iters) with an index column."""
-    with open(path, "w", newline="") as f:
-        w = csv.writer(f)
-        w.writerow(["", "EsN0dB", "ber", "fer", "iters"])
-        for i, row in enumerate(rows):
-            w.writerow([i, *(float(v) for v in row)])
 
 
 def main(argv=None):
@@ -102,10 +93,8 @@ def main(argv=None):
             "--resident is incompatible with --point-batch (the SNR-point "
             "batch cannot wrap the resident decode kernel)"
         )
-    for flag, item in (("graph_shard", "14 (multi-GPU)"),
-                       ("point_batch", "5 (run_sweep_batched)"),
-                       ("hard", "11 (the other engine modes)"),
-                       ("direct", "11 (the other engine modes)")):
+    for flag, item in (("graph_shard", "Multi-GPU"),
+                       ("point_batch", "Sweep plumbing")):
         if getattr(args, flag):
             raise not_ported(f"--{flag.replace('_', '-')}", item)
     eng_kw = engine_kwargs(args)
@@ -113,45 +102,23 @@ def main(argv=None):
     mat = Matrix(vid, cid)
     pa = PAMAlphabet(args.bps, 2)
 
-    nmconfig = np.zeros(pa.order, dtype=np.uint8)
-    if not args.configuration_base:
-        nmconfig[1::2] = 1  # Alternating configuration
+    mode = "direct" if args.direct else ("hard" if args.hard else "softening")
+    nmconfig = None
+    if mode == "softening":
+        nmconfig = np.zeros(pa.order, dtype=np.uint8)
+        if not args.configuration_base:
+            nmconfig[1::2] = 1  # Alternating configuration
 
     eng = ReconciliationEngine(dec, mat, pa, **eng_kw)
-    state = SweepState(args.out, resume=args.resume)
-
-    results = []
-    for i, snr in enumerate(np.linspace(args.snr[0], args.snr[1], args.nsnr)):
-        prev = state.done(snr)
-        if prev is not None:
-            results.append(PointResult(
-                prev["point"], prev["ber"], prev["fer"], prev["iters"],
-                frames=prev.get("frames", 0),
-                frames_per_s=prev.get("frames_per_s", 0.0),
-            ))
-            continue
-        r = eng.run_point(
-            "softening",
-            float(snr),
-            args.maxiter,
-            args.simloops,
-            args.ferr_count_min,
-            alpha=args.alpha,
-            nmconfig=nmconfig,
+    return sweep(
+        args.out, args.resume, "EsN0dB",
+        np.linspace(args.snr[0], args.snr[1], args.nsnr),
+        lambda i, snr: eng.run_point(
+            mode, snr, args.maxiter, args.simloops, args.ferr_count_min,
+            alpha=args.alpha, nmconfig=nmconfig,
             seed=args.seed + 1000003 * i,
-        )
-        print(
-            f"[EsN0dB={snr:.3f}] frames={r.frames} ber={r.ber:.3e} "
-            f"fer={r.fer:.3e} iters={r.iters:.2f} "
-            f"({r.frames_per_s:.1f} frames/s)"
-        )
-        state.record(snr, dict(ber=r.ber, fer=r.fer, iters=r.iters,
-                               frames=r.frames, frames_per_s=r.frames_per_s))
-        results.append(r)
-
-    write_csv(args.out, [r.as_tuple() for r in results])
-    state.cleanup()
-    return results
+        ),
+    )
 
 
 if __name__ == "__main__":

@@ -297,8 +297,8 @@ def resident_round_times(inputs):
     return out
 
 
-def round_breakdown(dec, mat, snr, rounds=4):
-    """Host-clock ms per softening round of 128 frames on ``dec``, after a
+def round_breakdown(dec, mat, snr, rounds=4, mode="softening"):
+    """Host-clock ms per ``mode`` round of 128 frames on ``dec``, after a
     warm-up round: (preamble, decode + count, BP iterations per round)."""
     import torch
 
@@ -309,14 +309,14 @@ def round_breakdown(dec, mat, snr, rounds=4):
 
     eng = ReconciliationEngine(dec, mat, PAMAlphabet(2, 2.0), batch=128,
                                dtype=torch.float32)
-    nm = eng.make_noisemapper(snr, ALTERNATING)
+    nm = eng.mode_noisemapper(mode, snr, ALTERNATING)
     sigma = math.sqrt(eng.noise_var(snr))
     pre, dcd, its = [], [], []
     for r in range(rounds + 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         x, y = eng._sample_sb(round_generator(11, r, "cuda"), sigma)
-        lappr, word = eng._softening_inputs(nm, x, y, 1.0)
+        lappr, word = eng.round_inputs(mode, nm, x, y, sigma, 1.0)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         it0 = dec.iterations_run

@@ -168,8 +168,8 @@ def test_decode_zero_iterations_and_iters_semantics():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(compressed=True), "item 15"),
-    (dict(sr_messages=True), "item 15"),
+    (dict(compressed=True), "item 'Tail'"),
+    (dict(sr_messages=True), "item 'Tail'"),
 ])
 def test_unported_paths_raise(kw, item):
     (base, _, _), z = code("z16")
