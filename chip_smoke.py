@@ -52,7 +52,15 @@ Phases (each must pass, or the script exits non-zero):
      through the plain check phase, bit for bit; quality watches of hard,
      direct (DVB-S2 rate-1/2 full-wrap QC, resident bf16) and BSC (sim_bsc
      --qc, rate-3/4 full-wrap QC, kernel 1) held to the JAX package's CPU
-     FERs (see MODE_WATCHES).
+     FERs (see MODE_WATCHES);
+ 14. the sweep surface (phase_sweep_surface): the LLR modes (poly, table,
+     interp, search) with the dense (kernel 1) and resident (kernel 2)
+     CLIs, the CDF modes at bps 4, --rounds-per-dispatch and --point-batch
+     against the plain sweep (identical rows; kernels 1 and 4 at B = 384
+     bit for bit), --profile-dir, entry() (kernel 4, and kernel 4 bit for
+     bit at its shape [6, 512, 32]) and the C++ oracle against the dense
+     decode, counts set to 0 just before each CLI and
+     read just after.
 Kernel and plain times are CUDA-event medians, taken in turns (kernels 1, 4
 and 5 over runs of 10 calls, whose host overhead the card's work hides;
 kernels 2 and 3 run K steps a call and report ms per step).  Each
@@ -1270,6 +1278,343 @@ def phase_modes(kernels):
         record(kernels, name, mode_launches_per_round=rec)
         log(f"[modes] {name} launches per 128-frame round: {rec}")
 
+# ------------------------------------------------------------------------
+# The sweep surface: the other LLR and CDF modes, rounds per dispatch, point
+# batching, profiling, the entry round and the C++ oracle
+
+# the headline's softening LLR modes, each with the flags that select it
+LLR_FLAGS = {"poly": [], "table": ["--llr-mode", "table"],
+             "interp": ["--llr-mode", "interp"], "search": ["--llr-exact"]}
+
+
+def alternating(order):
+    """The CLI's default Alternating sign configuration of ``order``."""
+    cfg = np.zeros(order, np.uint8)
+    cfg[1::2] = 1
+    return cfg
+
+
+def preamble_ms(dec, mat, snr, bps=2, dtype=torch.float32, rounds=3,
+                **engine_kw):
+    """Host-clock ms of the softening preamble of a 128-frame round
+    (sampling to Alice's LLRs and Bob's word), median over ``rounds`` after
+    a warm-up round, and the most device memory (MiB) one preamble
+    allocated above what was allocated before it."""
+    from qamreconciliation_tpu_torch.models.alphabet import PAMAlphabet
+    from qamreconciliation_tpu_torch.sims.engine import (
+        ReconciliationEngine, round_generator,
+    )
+
+    pa = PAMAlphabet(bps, 2.0)
+    eng = ReconciliationEngine(dec, mat, pa, batch=128, dtype=dtype,
+                               **engine_kw)
+    nm = eng.make_noisemapper(snr, alternating(pa.order))
+    sigma = math.sqrt(eng.noise_var(snr))
+    times, peak = [], 0
+    for r in range(rounds + 1):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        x, y = eng._sample_sb(round_generator(11, r, "cuda"), sigma)
+        eng.round_inputs("softening", nm, x, y, sigma, 1.0)
+        torch.cuda.synchronize()
+        if r:
+            times.append(1e3 * (time.perf_counter() - t0))
+            peak = max(peak, torch.cuda.max_memory_allocated() - base)
+    return statistics.median(times), peak / 2 ** 20
+
+
+def fer_bound(p, frames):
+    """4 standard errors of the difference of two FER estimates at ``p``
+    from ``frames`` frames each."""
+    return 4 * math.sqrt(2 * p * (1 - p) / frames)
+
+
+def rows_of(results):
+    return [(r.snr_dB, r.ber, r.fer, r.iters, r.frames) for r in results]
+
+
+def grid_fps(results):
+    """Frames over seconds of a sequential sweep's points."""
+    return (sum(r.frames for r in results)
+            / sum(r.frames / r.frames_per_s for r in results))
+
+
+def phase_sweep_surface(kernels):
+    """The sweep surface of the headline code through the CLIs a user
+    calls, counts set to 0 just before each CLI and read just after:
+
+    * each softening LLR mode (poly, table, interp, search by --llr-exact)
+      at 3.5 and 4.0 dB, dense f32 phi (kernel 1) and resident bf16
+      (kernel 2; search in float32, as a bf16 Newton g^-1 is refused as in
+      the JAX package), with frames/s, the preamble's ms and peak memory;
+      the interp and search FERs within 4 standard errors of poly's;
+    * each CDF mode at bps 4 (12.0 and 12.5 dB, docs/img/bps4_soft_alt.csv),
+      FERs within 4 standard errors of erf's;
+    * --rounds-per-dispatch 4 against 1 (dense and resident; the new modes
+      together on the resident layered path, kernel 3) and --point-batch
+      over 3 points against the sequential CLI, early exit off: identical
+      rows; kernel 1 at B = 384 and kernel 4 at [7, 32400, 384] against
+      their plain versions, bit for bit;
+    * --profile-dir: the trace names kernel 1's CUDA function;
+    * entry() on the card (kernel 4), and kernel 4 against its plain
+      version at the entry round's shape [6, 512, 32], bit for bit;
+    * the C++ oracle against the f32 phi dense decode on 32 frames at 4.0
+      dB: success identical, iters within 1; its frames/s on one core.
+
+    Each kernel's record gets its launches per 128-frame round on these
+    paths under ``surface_launches_per_round``."""
+    from qamreconciliation_tpu_torch import _graphcore
+    from qamreconciliation_tpu_torch.entry import entry
+    from qamreconciliation_tpu_torch.models.decoder import TannerGraph
+    from qamreconciliation_tpu_torch.models.matrix import Matrix
+    from qamreconciliation_tpu_torch.models.qc_decoder import (
+        QCDecoder, make_qc_ldpc,
+    )
+    from qamreconciliation_tpu_torch.ops.kernels import (
+        bp_check_phase_generic, bp_check_phase_generic_ref,
+        bp_check_phase_qc, bp_check_phase_qc_ref,
+    )
+    from qamreconciliation_tpu_torch.utils.edgefile import make_regular_ldpc
+
+    per_round = {name: {} for name in KERNELS}
+
+    def note(label, res, launches):
+        rounds = sum(r.frames for r in res) / 128
+        for name, n in launches.items():
+            if n:
+                per_round[name][label] = n / rounds
+
+    base, _, _ = make_qc_ldpc(CODE["nb_v"], CODE["z"], CODE["dv"],
+                              CODE["dc"], seed=CODE["seed"])
+    z = CODE["z"]
+    code = qc_code(base, z)
+    dense = QCDecoder(base, z, device="cuda")
+    mat = Matrix(dense.vid, dense.cid)
+    point = ["--snr", "3.5", "4.0", "--nsnr", "2", "--simloops", "256",
+             "--ferr-count-min", "1000000000"]
+
+    # LLR modes, dense f32 phi (kernel 1) and resident bf16 (kernel 2)
+    forms = {"dense": ([], "bp_check_phase_qc"),
+             "resident": (["--resident", "--dtype", "bfloat16"],
+                          "bp_decode_rounds_qc")}
+    fer = {}
+    for form, (flags, kernel) in forms.items():
+        for mode, mode_flags in LLR_FLAGS.items():
+            form_flags = flags
+            if form == "resident" and mode == "search":
+                form_flags = ["--resident", "--dtype", "float32"]
+            label = f"llr {mode} {form}"
+            res, launches, _ = run_cli(code, [*form_flags, *mode_flags,
+                                              *point], label)
+            assert launches[kernel] > 0, (label, launches)
+            if form == "dense":
+                assert launches[kernel] == sum(r.bp_iterations for r in res)
+            note(label, res, launches)
+            fer[form, mode] = res
+        for mode in ("interp", "search"):
+            for got, want in zip(fer[form, mode], fer[form, "poly"]):
+                b = fer_bound(want.fer, want.frames)
+                log(f"[surface] {form} {mode} at {got.snr_dB} dB: FER "
+                    f"{got.fer:.4f} against poly {want.fer:.4f} (bound "
+                    f"+-{b:.4f})")
+                assert abs(got.fer - want.fer) <= b, (form, mode, got.fer)
+    for mode in LLR_FLAGS:
+        for snr in (3.5, 4.0):
+            ms, mib = preamble_ms(dense, mat, snr, llr_mode=mode)
+            log(f"[surface] preamble llr {mode} f32 bps 2 at {snr} dB: "
+                f"{ms:.2f} ms, peak {mib:.1f} MiB above the decoder's")
+    ms, mib = preamble_ms(dense, mat, 12.0, bps=4, llr_mode="search")
+    log(f"[surface] preamble llr search f32 bps 4 at 12.0 dB: {ms:.2f} ms, "
+        f"peak {mib:.1f} MiB above the decoder's")
+
+    # CDF modes at bps 4, dense f32 phi
+    bps4 = ["--bps", "4", "--snr", "12.0", "12.5", "--nsnr", "2",
+            "--simloops", "256", "--ferr-count-min", "1000000000"]
+    cdf = {}
+    for fy in ("erf", "erf_flat", "poly"):
+        label = f"bps4 fy {fy}"
+        res, launches, _ = run_cli(code, ["--fy-mode", fy, *bps4], label)
+        assert launches["bp_check_phase_qc"] == sum(
+            r.bp_iterations for r in res) > 0
+        note(label, res, launches)
+        cdf[fy] = res
+        ms, mib = preamble_ms(dense, mat, 12.0, bps=4, fy_mode=fy)
+        log(f"[surface] preamble fy {fy} f32 bps 4 at 12.0 dB: {ms:.2f} ms, "
+            f"peak {mib:.1f} MiB above the decoder's")
+    for fy in ("erf_flat", "poly"):
+        for got, want in zip(cdf[fy], cdf["erf"]):
+            b = fer_bound(want.fer, want.frames)
+            log(f"[surface] bps 4 fy {fy} at {got.snr_dB} dB: FER "
+                f"{got.fer:.4f} against erf {want.fer:.4f} (bound "
+                f"+-{b:.4f})")
+            assert abs(got.fer - want.fer) <= b, (fy, got.fer, want.fer)
+
+    # rounds per dispatch, early exit off: R = 4 draws the frames of R = 1
+    rpd = ["--snr", "3.5", "4.0", "--nsnr", "2", "--simloops", "512",
+           "--ferr-count-min", "1000000000"]
+    for form, (flags, kernel) in forms.items():
+        out = {}
+        for R in ("1", "4"):
+            label = f"rpd {R} {form}"
+            res, launches, _ = run_cli(
+                code, [*flags, "--rounds-per-dispatch", R, *rpd], label)
+            assert launches[kernel] > 0, (label, launches)
+            note(label, res, launches)
+            out[R] = res
+        assert rows_of(out["1"]) == rows_of(out["4"]), f"rpd {form}"
+        log(f"[surface] {form} --rounds-per-dispatch 4 == 1 (rows "
+            f"identical); frames/s R=1 "
+            f"{[round(r.frames_per_s, 1) for r in out['1']]}, R=4 "
+            f"{[round(r.frames_per_s, 1) for r in out['4']]}")
+    # the new modes together on the resident layered path (kernel 3)
+    label = "layered interp fy-poly rpd 2"
+    res, launches, _ = run_cli(code, [
+        "--schedule", "layered", "--resident", "--check-rule", "minsum",
+        "--dtype", "bfloat16", "--llr-mode", "interp", "--fy-mode", "poly",
+        "--rounds-per-dispatch", "2", *point], label)
+    assert launches["bp_layered_sweeps_qc"] > 0, launches
+    assert launches["bp_check_phase_qc"] == 0
+    note(label, res, launches)
+
+    # point batching, early exit off: the rows of the sequential CLI
+    grids = {"dense": (code, ["--snr", "3.5", "4.0", "--nsnr", "3",
+                              "--simloops", "256"], "bp_check_phase_qc"),
+             "generic dvbs2 1/2": (edge_code(*dvbs2_code("1/2")),
+                                   ["--snr", "3.5", "4.0", "--nsnr", "3",
+                                    "--simloops", "128"],
+                                   "bp_check_phase_generic")}
+    for form, (gcode, flags, kernel) in grids.items():
+        flags = [*flags, "--ferr-count-min", "1000000000"]
+        seq, _, _ = run_cli(gcode, flags, f"sequential {form}")
+        label = f"point-batch {form}"
+        bat, launches, _ = run_cli(gcode, [*flags, "--point-batch"], label)
+        assert rows_of(bat) == rows_of(seq), f"point-batch {form}"
+        iterations = bat[0].bp_iterations
+        assert launches[kernel] == iterations > 0, (label, launches)
+        note(label, bat, launches)
+        log(f"[surface] {form} --point-batch == sequential (rows "
+            f"identical); frames/s {bat[0].frames_per_s:.1f} batched (B = "
+            f"{128 * len(bat)}) against {grid_fps(seq):.1f} sequential; "
+            f"{iterations} iterations at B = {128 * len(bat)}")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shape = (*SHAPE[:3], 384)
+    t = 3.0 * torch.randn(shape, generator=gen, device="cuda")
+    c2v = torch.randn(shape, generator=gen, device="cuda")
+    synd = torch.randint(0, 2, (shape[0], shape[2], 384), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    par = torch.sum(t < 0, dim=1, dtype=torch.int32) & 1
+    synd[..., :96] = par[..., :96]
+    for rule, dt in (("sumproduct", torch.float32),
+                     ("minsum", torch.bfloat16)):
+        args = (t.to(dt), c2v.to(dt), synd)
+        got, gviol = bp_check_phase_qc(*args, rule=rule)
+        plan = bp_check_phase_qc.plan
+        want, wviol = bp_check_phase_qc_ref(*args, rule=rule)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(gviol, wviol), \
+            f"kernel 1 at B = 384 {rule}: not bit-equal"
+        ms, plain_ms = events_ms(
+            lambda: bp_check_phase_qc(*args, rule=rule),
+            lambda: bp_check_phase_qc_ref(*args, rule=rule),
+            reps=5, warmup=2, run=10)
+        log(f"[surface] kernel 1 {shape} {rule} {str(dt)[6:]}: bit-equal, "
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms [{plan_text(plan)}]")
+    g = TannerGraph(*dvbs2_code("1/2"), device="cuda")
+    mask = torch.as_tensor(g._c_mask_T_np, dtype=torch.float32,
+                           device="cuda")
+    t, c2v, synd = generic_inputs(mask, 384, 4)
+    for rule, dt in (("sumproduct", torch.float32),
+                     ("minsum", torch.bfloat16)):
+        args = (t.to(dt), c2v.to(dt), synd, mask)
+        got, gviol = bp_check_phase_generic(*args, rule=rule)
+        plan = bp_check_phase_generic.plan
+        want, wviol = bp_check_phase_generic_ref(*args, rule=rule)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(gviol, wviol), \
+            f"kernel 4 at B = 384 {rule}: not bit-equal"
+        ms, plain_ms = events_ms(
+            lambda: bp_check_phase_generic(*args, rule=rule),
+            lambda: bp_check_phase_generic_ref(*args, rule=rule),
+            reps=5, warmup=2, run=10)
+        log(f"[surface] kernel 4 {tuple(t.shape)} {rule} {str(dt)[6:]}: "
+            f"bit-equal, kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"[{plan_text(plan)}]")
+
+    # profiling: the trace of the first point names kernel 1's function
+    with tempfile.TemporaryDirectory() as prof:
+        res, launches, _ = run_cli(code, [
+            "--snr", "4.0", "4.0", "--nsnr", "1", "--simloops", "128",
+            "--profile-dir", prof], "profile")
+        with open(os.path.join(prof, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    k1 = [e for e in events if e.get("cat") == "kernel"
+          and "check_tile_kernel<" in e.get("name", "")
+          and ", false," in e.get("name", "")]
+    log(f"[surface] --profile-dir: {len(events)} trace events, "
+        f"{len(k1)} of kernel 1 ({k1[0]['name'] if k1 else None}) for "
+        f"{launches['bp_check_phase_qc']} launches")
+    assert k1 and len(k1) == launches["bp_check_phase_qc"]
+
+    # the entry round: one softening round through kernel 4
+    fn, example = entry()
+    reset_counts()
+    out = fn(*example).tolist()
+    launches = counts()
+    log(f"[surface] entry(): counters {out}, launches {launches}")
+    assert launches["bp_check_phase_generic"] > 0
+    assert 0 <= out[1] <= 32 and 0 < out[3] <= 32
+    per_round["bp_check_phase_generic"]["entry (B = 32)"] = \
+        launches["bp_check_phase_generic"]
+    # kernel 4 at the entry round's shape: its code's mask, B = 32
+    g = TannerGraph(*make_regular_ldpc(1024, dv=3, dc=6, seed=0),
+                    device="cuda")
+    mask = torch.as_tensor(g._c_mask_T_np, dtype=torch.float32,
+                           device="cuda")
+    assert tuple(mask.shape) == (6, 512), mask.shape
+    t, c2v, synd = generic_inputs(mask, 32, 6)
+    for rule, dt in (("sumproduct", torch.float32),
+                     ("minsum", torch.bfloat16)):
+        args = (t.to(dt), c2v.to(dt), synd, mask)
+        got, gviol = bp_check_phase_generic(*args, rule=rule)
+        plan = bp_check_phase_generic.plan
+        want, wviol = bp_check_phase_generic_ref(*args, rule=rule)
+        torch.cuda.synchronize()
+        assert torch.equal(gviol, wviol), \
+            f"kernel 4 at the entry shape {rule}: violation counts differ"
+        conv = gviol.sum(0) == 0
+        assert bool(conv[:8].all()) and not bool(conv.all())
+        assert torch.equal(got, want), \
+            f"kernel 4 at the entry shape {rule}: not bit-equal"
+        log(f"[surface] kernel 4 {tuple(t.shape)} (entry code) {rule} "
+            f"{str(dt)[6:]}: bit-equal [{plan_text(plan)}]")
+
+    # the C++ oracle against the f32 phi dense decode
+    lappr, synd = softening_frames(dense, mat, ((4.0, 32),), seed=9)
+    success, iters, _ = dense.decode_batched(lappr, synd, 50)
+    oracle = _graphcore.ScalarDecoder(dense.vid, dense.cid)
+    L = lappr.double().cpu().numpy()
+    S = synd.cpu().numpy().astype(np.uint8)
+    success, iters = success.cpu().tolist(), iters.cpu().tolist()
+    t0 = time.perf_counter()
+    got = [oracle.decode(L[:, b], S[:, b], 50)[:2] for b in range(32)]
+    seconds = time.perf_counter() - t0
+    bad = [(b, got[b], (success[b], iters[b])) for b in range(32)
+           if got[b][0] != success[b] or abs(got[b][1] - iters[b]) > 1]
+    for b, o, d in bad:
+        log(f"[surface] oracle frame {b}: oracle (success, iters) {o}, "
+            f"dense f32 phi {d}")
+    assert not bad, f"{len(bad)} frames disagree with the oracle"
+    log(f"[surface] oracle == dense f32 phi on 32 frames at 4.0 dB "
+        f"({sum(success)} decoded; iters within 1, "
+        f"{sum(o[1] != i for o, i in zip(got, iters))} differ by 1); "
+        f"oracle {32 / seconds:.2f} frames/s on one core")
+
+    for name, rec in per_round.items():
+        record(kernels, name, surface_launches_per_round=rec)
+        log(f"[surface] {name} launches per 128-frame round: {rec}")
+
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
@@ -1301,7 +1646,8 @@ def main(argv=None):
                         (phase_generic_decoder, ()),
                         (phase_generic_main, (kernels,)),
                         (phase_generic_quality, ()),
-                        (phase_modes, (kernels,))):
+                        (phase_modes, (kernels,)),
+                        (phase_sweep_surface, (kernels,))):
         t0 = time.perf_counter()
         phase(*args)
         log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")

@@ -11,7 +11,8 @@
 
 Rounds run layout-native: words, LLRs and noise are ``[N, B]``, the
 decoder's layout.  Every point draws its rounds from the sweep seed 0 (the
-reference's fixed key), one generator per round.
+reference's fixed key), one generator per round; ``rounds_per_dispatch``
+rounds are summed on the device per host read of the counters.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from scipy.special import erfc
 
 from ..config import DEFAULT_DTYPE, as_dtype
 from .engine import (
-    PointResult, bf16_normal, point_result, round_generator, run_rounds,
+    PointResult, bf16_normal, dispatched, point_result, round_generator,
+    run_rounds,
 )
 
 __all__ = ["BitChannelEngine", "bsc_stop", "biawgn_stop"]
@@ -54,9 +56,13 @@ class BitChannelEngine:
         own).
       batch: frames per round.
       dtype: LLR/noise dtype.
+      rounds_per_dispatch: rounds summed on the device per host read of
+        the counters (early exit at ``batch * rounds_per_dispatch``
+        frames).
     """
 
-    def __init__(self, dec, mat, batch: int = 128, dtype=DEFAULT_DTYPE):
+    def __init__(self, dec, mat, batch: int = 128, dtype=DEFAULT_DTYPE,
+                 rounds_per_dispatch: int = 1):
         self.dec = dec
         self.mat = mat
         self.device = dec.device
@@ -68,12 +74,18 @@ class BitChannelEngine:
         self.dtype = as_dtype(dtype)
         self.N = mat.vnum
         self.K = mat.vnum - mat.cnum
-        # BSC counts bit errors over the whole word (N, not K)
-        if self.batch * self.N >= 2 ** 31:
+        if rounds_per_dispatch < 1:
+            raise ValueError("rounds_per_dispatch must be >= 1")
+        self.rounds_per_dispatch = int(rounds_per_dispatch)
+        # BSC counts bit errors over the whole word (N, not K); the JAX
+        # package's bound on a dispatch's sum
+        if self.rounds_per_dispatch * self.batch * self.N >= 2 ** 31:
             raise ValueError(
-                "batch * N must stay below 2^31 (int32 bit-error counts)"
+                "rounds_per_dispatch * batch * N must stay below 2^31 "
+                "(int32 bit-error counts)"
             )
-        self.frames_per_round = self.batch
+        # frames a point advances per dispatch
+        self.frames_per_round = self.batch * self.rounds_per_dispatch
 
     def _bernoulli(self, generator, p):
         """int32 [N, B]: float32 uniforms < p (a float32 ``p``)."""
@@ -158,7 +170,9 @@ class BitChannelEngine:
     def _run(self, round_fn, point, simloops, stop, ber_div, seed):
         it0 = self.dec.iterations_run
         total, frames, elapsed = run_rounds(
-            lambda r: round_fn(round_generator(seed, r, self.device)),
+            dispatched(
+                lambda r: round_fn(round_generator(seed, r, self.device)),
+                self.rounds_per_dispatch),
             max(1, math.ceil(simloops / self.frames_per_round)),
             self.frames_per_round, stop,
         )

@@ -3,15 +3,20 @@
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
+import os
 import warnings
+
+import torch
 
 from ..config import as_dtype, not_ported
 from ..utils.checkpoint import SweepState
 from .engine import PointResult
 
 __all__ = ["add_engine_args", "add_qc_arg", "engine_kwargs",
-           "bit_channel_kwargs", "load_decoder", "write_csv", "sweep"]
+           "bit_channel_kwargs", "load_decoder", "write_csv", "sweep",
+           "profiled"]
 
 
 def add_engine_args(parser: argparse.ArgumentParser):
@@ -35,19 +40,31 @@ def add_engine_args(parser: argparse.ArgumentParser):
     )
     parser.add_argument(
         "--llr-exact", action="store_true",
-        help="Use the exact Newton g^-1 in LLR generation (not ported yet)",
+        help="Softening LLRs with the exact Newton g^-1 (the reference's "
+        "g_inv_search contract; --llr-mode search)",
     )
     parser.add_argument(
         "--llr-mode", choices=["poly", "table", "interp", "search"],
         default=None,
         help="Softening LLR path: 'poly' (piecewise-Chebyshev fit of the "
-        "LLR curves, default) or 'table' (precomputed (n,j)->LLR map); "
-        "'interp' and 'search' are not ported yet.  Overrides --llr-exact.",
+        "LLR curves, default), 'table' (precomputed (n,j)->LLR map), "
+        "'interp' (per-sample LLRs on the interpolated g^-1) or 'search' "
+        "(per-sample LLRs on the Newton g^-1; float32/float64).  Overrides "
+        "--llr-exact.",
     )
     parser.add_argument(
         "--fy-mode", choices=["erf", "erf_flat", "poly"], default="erf",
         help="Marginal-CDF implementation for the softening metric: 'erf' "
-        "(exact mixture, default); the others are not ported yet",
+        "(exact mixture over a component axis, default), 'erf_flat' (the "
+        "same M erfs unrolled, in the sample dtype) or 'poly' (probit-"
+        "warped Chebyshev fit: one erf and one Clenshaw chain a sample; CDF "
+        "fit error <~1e-4 at operating SNRs)",
+    )
+    parser.add_argument(
+        "--rounds-per-dispatch", type=int, default=1,
+        help="Rounds of --batch frames summed on the device per host read "
+        "of the counters; early exit coarsens to batch * R frames, and the "
+        "frames drawn do not depend on R",
     )
     parser.add_argument(
         "--check-rule", choices=["sumproduct", "minsum"],
@@ -74,6 +91,11 @@ def add_engine_args(parser: argparse.ArgumentParser):
         "--resume", action="store_true",
         help="Resume a partially completed sweep from the .partial.jsonl journal",
     )
+    parser.add_argument(
+        "--profile-dir", default=None,
+        help="Write a torch.profiler trace (CPU and CUDA activities, Chrome "
+        "format) of the first SNR point into this directory",
+    )
 
 
 def engine_kwargs(args):
@@ -85,6 +107,7 @@ def engine_kwargs(args):
         dtype=as_dtype(args.dtype),
         llr_mode=llr_mode,
         fy_mode=args.fy_mode,
+        rounds_per_dispatch=args.rounds_per_dispatch,
     )
 
 
@@ -242,14 +265,50 @@ def write_csv(path: str, column: str, rows):
             w.writerow([i, *(float(v) for v in row)])
 
 
-def sweep(out: str, resume: bool, column: str, points, run_point):
-    """Run ``run_point(i, point) -> PointResult`` for each point of the grid
-    that the resume journal of ``out`` does not hold, journal each one,
-    write the CSV with ``column`` as the point's name, and return the list
-    of :class:`PointResult` in grid order."""
+def _report(column, point, r):
+    print(
+        f"[{column}={point:.4g}] frames={r.frames} ber={r.ber:.3e} "
+        f"fer={r.fer:.3e} iters={r.iters:.2f} "
+        f"({r.frames_per_s:.1f} frames/s)"
+    )
+
+
+def sweep(out: str, resume: bool, column: str, points, run_point,
+          batched: bool = False, profile_dir=None, device="cpu"):
+    """Run the points of the grid that the resume journal of ``out`` does
+    not hold, journal each one, write the CSV with ``column`` as the
+    point's name, and return the list of :class:`PointResult` in grid
+    order.
+
+    ``run_point(i, point) -> PointResult`` runs point ``i``; with
+    ``batched``, ``run_point(indices, points) -> [PointResult]`` runs all
+    the pending points at once (their grid indices and values).  With
+    ``profile_dir``, the first call of ``run_point`` is profiled
+    (:func:`profiled` on ``device``)."""
     state = SweepState(out, resume=resume)
+    fresh = {}
+    first = [profile_dir]
+
+    def run(*a):
+        with profiled(first.pop() if first else None, device):
+            return run_point(*a)
+
+    if batched:
+        pending = [i for i, point in enumerate(points)
+                   if state.done(point) is None]
+        if pending:
+            batch = run(pending, [float(points[i]) for i in pending])
+            for i, r in zip(pending, batch):
+                fresh[i] = r
+                _report(column, points[i], r)
+                state.record(points[i], dict(
+                    ber=r.ber, fer=r.fer, iters=r.iters, frames=r.frames,
+                    frames_per_s=r.frames_per_s))
     results = []
     for i, point in enumerate(points):
+        if i in fresh:
+            results.append(fresh[i])
+            continue
         prev = state.done(point)
         if prev is not None:
             results.append(PointResult(
@@ -258,12 +317,8 @@ def sweep(out: str, resume: bool, column: str, points, run_point):
                 frames_per_s=prev.get("frames_per_s", 0.0),
             ))
             continue
-        r = run_point(i, float(point))
-        print(
-            f"[{column}={point:.4g}] frames={r.frames} ber={r.ber:.3e} "
-            f"fer={r.fer:.3e} iters={r.iters:.2f} "
-            f"({r.frames_per_s:.1f} frames/s)"
-        )
+        r = run(i, float(point))
+        _report(column, point, r)
         state.record(point, dict(ber=r.ber, fer=r.fer, iters=r.iters,
                                  frames=r.frames,
                                  frames_per_s=r.frames_per_s))
@@ -271,3 +326,22 @@ def sweep(out: str, resume: bool, column: str, points, run_point):
     write_csv(out, column, [r.as_tuple() for r in results])
     state.cleanup()
     return results
+
+
+@contextlib.contextmanager
+def profiled(profile_dir, device):
+    """Profile the block with ``torch.profiler`` (CPU activity, and CUDA on
+    a CUDA ``device``) and write its Chrome trace to
+    ``profile_dir/trace.json``; a no-op when ``profile_dir`` is None."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))

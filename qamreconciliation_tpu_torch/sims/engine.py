@@ -12,9 +12,13 @@ four exact integer counters.  The three modes:
 * direct -- Alice's symbols are the word, Bob's Gray LLRs of his samples
   feed the decoder.
 
-After each round the host applies the batch-granular early-exit rule
-``frame_errors >= ferr_count_min and frames > simloops/20``.  Randomness
-comes from one ``torch.Generator`` per (seed, round).
+After each dispatch of ``rounds_per_dispatch`` rounds the host reads the
+summed counters once and applies the early-exit rule ``frame_errors >=
+ferr_count_min and frames > simloops/20``.  Randomness comes from one
+``torch.Generator`` per (seed, round), so a point's frames do not depend on
+how its rounds are grouped into dispatches.  ``run_sweep_batched`` advances
+every SNR point of a grid in each dispatch, one decode over all their
+frames.
 """
 
 from __future__ import annotations
@@ -26,17 +30,20 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..config import DEFAULT_DTYPE, as_dtype, not_ported
+from ..config import DEFAULT_DTYPE, as_dtype
 from ..models.alphabet import PAMAlphabet
 from ..models.matrix import Matrix
 from ..models.noisemapper import NoiseMapper
 from ..ops.llr import y_to_lappr_gray_bits
 
 __all__ = ["ReconciliationEngine", "PointResult", "round_generator",
-           "bf16_normal", "run_rounds", "simulate_softening_snr_dB",
-           "simulate_direct_snr_dB", "simulate_hard_reverse_snr_dB"]
+           "point_seed", "bf16_normal", "run_rounds", "dispatched",
+           "simulate_softening_snr_dB", "simulate_direct_snr_dB",
+           "simulate_hard_reverse_snr_dB"]
 
 MODES = ("softening", "hard", "direct")
+LLR_MODES = ("poly", "table", "interp", "search")
+FY_MODES = ("erf", "erf_flat", "poly")
 
 
 @dataclass
@@ -62,6 +69,11 @@ def round_generator(seed: int, r: int, device) -> torch.Generator:
         1, np.uint64
     )[0]
     return torch.Generator(device=device).manual_seed(int(state))
+
+
+def point_seed(seed: int, i: int) -> int:
+    """The seed of point ``i`` of a sweep seeded ``seed`` (the CLIs')."""
+    return int(seed) + 1000003 * int(i)
 
 
 def _bf16_normal_table() -> torch.Tensor:
@@ -104,7 +116,8 @@ def run_rounds(round_fn, n_rounds: int, frames_per_round: int, stop):
     was issued, so the stopping decision ``stop(bit errors, frame errors,
     frames)`` lags one round (the rounds already issued are counted).
 
-    Returns ``(counters [4] as ints, frames, seconds)``.
+    Returns ``(counters [4] as ints, frames, seconds)``.  With
+    :func:`dispatched`, a "round" here is a dispatch of several rounds.
     """
     total = [0, 0, 0, 0]
     frames = 0
@@ -128,6 +141,24 @@ def run_rounds(round_fn, n_rounds: int, frames_per_round: int, stop):
     if pending is not None:
         accumulate(pending)
     return total, frames, time.perf_counter() - t0
+
+
+def dispatched(round_fn, rounds_per_dispatch: int):
+    """``round_fn(r) -> counters`` grouped into dispatches: dispatch ``d``
+    sums rounds ``d*R .. d*R + R - 1`` on the device (no host read between
+    them), so a dispatch of R rounds draws exactly the frames of those R
+    rounds."""
+    R = int(rounds_per_dispatch)
+    if R == 1:
+        return round_fn
+
+    def dispatch(d):
+        out = round_fn(d * R)
+        for s in range(1, R):
+            out = out + round_fn(d * R + s)
+        return out
+
+    return dispatch
 
 
 def point_result(point, total, frames, elapsed, bits_per_frame,
@@ -157,24 +188,33 @@ class ReconciliationEngine:
       pa: alphabet.
       batch: frames per round.
       dtype: LLR/sample dtype.
-      llr_mode: "poly" (piecewise-Chebyshev LLR fit, default) or "table"
-        (tabulated (n, j) -> LLR map + lerp).
-      fy_mode: marginal-CDF form of the softening metric ("erf").
+      llr_mode: Alice's softening LLRs: "poly" (piecewise-Chebyshev LLR
+        fit, default), "table" (tabulated (n, j) -> LLR map + lerp),
+        "interp" or "search" (``NoiseMapper.demap_lappr_array`` with the
+        interpolated or the Newton g^-1; "search" needs float32 or float64).
+      fy_mode: marginal-CDF form of the softening metric: "erf",
+        "erf_flat" or "poly" (``NoiseMapper.F_Y``).
+      rounds_per_dispatch: rounds summed on the device per host read of
+        the counters; early exit coarsens to ``batch * rounds_per_dispatch``
+        frames.
     """
 
     def __init__(self, dec, mat: Matrix, pa: PAMAlphabet, batch: int = 128,
                  dtype=DEFAULT_DTYPE, llr_mode: str = "poly",
-                 fy_mode: str = "erf"):
+                 fy_mode: str = "erf", rounds_per_dispatch: int = 1):
         if mat.vnum % pa.bit_per_symbol != 0:
             raise ValueError(
                 f"code length {mat.vnum} not divisible by bits/symbol "
                 f"{pa.bit_per_symbol}"
             )
-        if llr_mode not in ("poly", "table"):
-            raise not_ported(f"llr_mode={llr_mode!r}",
-                             "Rest of NoiseMapper")
-        if fy_mode != "erf":
-            raise not_ported(f"fy_mode={fy_mode!r}", "Rest of NoiseMapper")
+        if llr_mode not in LLR_MODES:
+            raise ValueError(f"unknown llr_mode {llr_mode!r}; one of "
+                             f"{LLR_MODES}")
+        if fy_mode not in FY_MODES:
+            raise ValueError(f"unknown fy_mode {fy_mode!r}; one of "
+                             f"{FY_MODES}")
+        if rounds_per_dispatch < 1:
+            raise ValueError("rounds_per_dispatch must be >= 1")
         self.dec = dec
         self.mat = mat
         self.pa = pa
@@ -186,11 +226,16 @@ class ReconciliationEngine:
         self.N = mat.vnum
         self.K = mat.vnum - mat.cnum
         self.N_symb = mat.vnum // pa.bit_per_symbol
-        if self.batch * self.K >= 2 ** 31:
+        self.rounds_per_dispatch = int(rounds_per_dispatch)
+        # the JAX package's bound on a dispatch's bit-error sum (int32
+        # on-device counters there)
+        if self.rounds_per_dispatch * self.batch * self.K >= 2 ** 31:
             raise ValueError(
-                "batch * K must stay below 2^31 (int32 bit-error counts)"
+                "rounds_per_dispatch * batch * K must stay below 2^31 "
+                "(int32 bit-error counts)"
             )
-        self.frames_per_round = self.batch
+        # frames a point advances per dispatch
+        self.frames_per_round = self.batch * self.rounds_per_dispatch
         self._s2b = torch.as_tensor(pa.s_to_b.astype(np.int32),
                                     device=self.device)
 
@@ -201,9 +246,12 @@ class ReconciliationEngine:
         cols = [table_col_fn(b, idx_sb) for b in range(self.pa.bit_per_symbol)]
         return torch.stack(cols, dim=1).reshape(self.N, -1)
 
-    def _decode_and_count_nb(self, lappr_nb, word_nb, max_iterations):
+    def _decode_and_count_nb(self, lappr_nb, word_nb, max_iterations,
+                             points=None):
         """[N, B] decode + the four counters as one int64 tensor
-        ``[bit errors, frame errors, iterations of successes, successes]``.
+        ``[bit errors, frame errors, iterations of successes, successes]``;
+        with ``points``, the frames are ``points`` equal groups (one per SNR
+        point) and the counters ``[points, 4]``.
 
         Bit errors are an exact integer XOR count, never a sum in the LLR
         dtype (bf16 sums round above ~256)."""
@@ -217,13 +265,15 @@ class ReconciliationEngine:
         )
         K = self.K
         errb = (final[:K] < 0).to(torch.int32) ^ word_nb[:K].to(torch.int32)
-        errors = torch.sum(errb, dim=0)
-        return torch.stack([
-            torch.sum(errors),
-            torch.sum(errors > 0),
-            torch.sum(torch.where(success, iters, 0)),
-            torch.sum(success),
-        ])
+        errors = torch.sum(errb, dim=0)                   # [B] int64
+        per_frame = torch.stack([
+            errors, (errors > 0).to(errors.dtype),
+            torch.where(success, iters, 0).to(errors.dtype),
+            success.to(errors.dtype),
+        ])                                                 # [4, B]
+        if points is None:
+            return per_frame.sum(dim=1)
+        return per_frame.reshape(4, points, -1).sum(dim=2).T
 
     def _sample_sb(self, generator, sigma):
         """Shaped PAM symbols x [S, B] and their AWGN samples y: the
@@ -242,16 +292,21 @@ class ReconciliationEngine:
 
     def _softening_inputs(self, nm, x, y, alpha):
         """Bob's word [N, B] and Alice's softening LLRs [N, B] from the
-        transmitted symbols x and received samples y ([S, B])."""
+        transmitted symbols x and received samples y ([S, B]).  The
+        "interp"/"search" LLRs are the JAX package's [B, N] function
+        (``demap_lappr_array``) on the samples' transpose."""
         x_hat = nm.hard_decide_index(y)
         n_hat = nm.map_noise(y, x_hat)
         word = self._bits_nb(
             lambda b, idx: self._s2b[:, b][idx.long()], x_hat
         )
+        alpha = torch.tensor(alpha, dtype=self.dtype)
+        if self.llr_mode in ("interp", "search"):
+            llr = nm.demap_lappr_array(n_hat.T, x.T, mode=self.llr_mode)
+            return alpha * llr.T.contiguous(), word
         llr_fn = (nm._poly_llr_bits if self.llr_mode == "poly"
                   else nm._table_llr_bits)
         llr_bits = llr_fn(n_hat, x)
-        alpha = torch.tensor(alpha, dtype=self.dtype)
         lappr = alpha * self._bits_nb(lambda b, _: llr_bits[b], x_hat)
         return lappr, word
 
@@ -304,14 +359,17 @@ class ReconciliationEngine:
                           generator, xy)
 
     def make_noisemapper(self, snr_dB: float, nmconfig=None) -> NoiseMapper:
-        """The point's NoiseMapper, its LLR fit or table built."""
+        """The point's NoiseMapper, with the LLR fit or table and the CDF
+        fit its modes read built."""
         nm = NoiseMapper(self.pa, self.noise_var(snr_dB), nmconfig,
                          dtype=self.dtype, device=self.device,
                          fy_mode=self.fy_mode)
         if self.llr_mode == "table":
             nm._ensure_llr_tab()
-        else:
+        elif self.llr_mode == "poly":
             nm._ensure_llr_poly()
+        if self.fy_mode == "poly":
+            nm._ensure_fy_poly()
         return nm
 
     def mode_noisemapper(self, mode: str, snr_dB: float, nmconfig=None):
@@ -344,27 +402,123 @@ class ReconciliationEngine:
         alpha: float = 1.0,
         nmconfig=None,
         seed: int = 0,
+        timer=None,
     ) -> PointResult:
         """Run one SNR point until the frame budget or the early-exit rule.
 
-        Each round's counters are read after the next round was issued, so
-        the early-exit decision lags one round (the rounds already issued
-        are counted).
+        Round ``r`` draws from ``round_generator(seed, r)``; dispatch ``d``
+        runs rounds ``d*R .. d*R + R - 1`` (``R = rounds_per_dispatch``).
+        Each dispatch's counters are read after the next dispatch was
+        issued, so the early-exit decision lags one dispatch (the dispatches
+        already issued are counted).  ``timer``, a list, gets the point's
+        seconds appended.
         """
         nm = self.mode_noisemapper(mode, snr_dB, nmconfig)
         sigma = math.sqrt(self.noise_var(snr_dB))
         it0 = self.dec.iterations_run
         total, frames, elapsed = run_rounds(
-            lambda r: self.round(
+            dispatched(lambda r: self.round(
                 mode, nm, sigma, alpha, decoder_iterations,
                 generator=round_generator(seed, r, self.device)),
+                self.rounds_per_dispatch),
             max(1, math.ceil(simulation_loops / self.frames_per_round)),
             self.frames_per_round,
             lambda errs, ferrs, frames: (ferrs >= ferr_count_min
                                          and frames > simulation_loops / 20),
         )
+        if timer is not None:
+            timer.append(elapsed)
         return point_result(snr_dB, total, frames, elapsed, self.K,
                             self.dec.iterations_run - it0)
+
+    def run_sweep_batched(
+        self,
+        mode: str,
+        snr_points,
+        decoder_iterations: int,
+        simulation_loops: int,
+        ferr_count_min: int,
+        alpha: float = 1.0,
+        nmconfig=None,
+        seed: int = 0,
+        seeds=None,
+    ) -> list[PointResult]:
+        """Run every SNR point of ``snr_points`` together: each dispatch
+        advances every unfinished point by ``rounds_per_dispatch`` rounds,
+        and each round decodes all their frames in one ``[N, P*B]`` call.
+
+        Point ``p`` draws its rounds from ``round_generator(seeds[p], r)``
+        (default ``seeds[p] = point_seed(seed, p)``, the sequential CLI's
+        seed of grid point ``p``) and runs each round's preamble alone, so
+        its frames are those of ``run_point`` with that seed.  Its early
+        exit is ``run_point``'s, one dispatch late; a finished point leaves
+        the batch.  Since a frame's decode does not depend on the frames
+        decoded beside it, each point's counters equal a sequential
+        sweep's.  ``frames_per_s`` and ``bp_iterations`` are the grid's
+        (total frames over the wall time, the shared decodes' iterations)
+        on every row: the points share each dispatch.
+        """
+        points = [float(s) for s in snr_points]
+        P = len(points)
+        seeds = ([point_seed(seed, p) for p in range(P)] if seeds is None
+                 else [int(s) for s in seeds])
+        if len(seeds) != P:
+            raise ValueError("one seed per SNR point")
+        nms = [self.mode_noisemapper(mode, s, nmconfig) for s in points]
+        sigmas = [math.sqrt(self.noise_var(s)) for s in points]
+        R = self.rounds_per_dispatch
+        n_dispatches = max(1, math.ceil(simulation_loops
+                                        / self.frames_per_round))
+        totals = np.zeros((P, 4), np.int64)
+        frames = np.zeros(P, np.int64)
+        issuing = list(range(P))       # points that issue the next dispatch
+
+        def dispatch(d, pts):
+            out = None
+            for s in range(R):
+                ins = []
+                for p in pts:
+                    gen = round_generator(seeds[p], d * R + s, self.device)
+                    x, y = self._sample_sb(gen, sigmas[p])
+                    ins.append(self.round_inputs(mode, nms[p], x, y,
+                                                 sigmas[p], alpha))
+                counters = self._decode_and_count_nb(
+                    torch.cat([lappr for lappr, _ in ins], dim=1),
+                    torch.cat([word for _, word in ins], dim=1),
+                    decoder_iterations, points=len(pts))
+                out = counters if out is None else out + counters
+            return out
+
+        def accumulate(pts, out):
+            totals[pts] += np.asarray(out.tolist(), np.int64)   # one read
+            frames[pts] += self.frames_per_round
+            for p in pts:
+                if (p in issuing and totals[p, 1] >= ferr_count_min
+                        and frames[p] > simulation_loops / 20):
+                    issuing.remove(p)
+
+        it0 = self.dec.iterations_run
+        t0 = time.perf_counter()
+        pending = None
+        for d in range(n_dispatches):
+            if not issuing:
+                break
+            out = (list(issuing), dispatch(d, issuing))
+            if pending is not None:
+                accumulate(*pending)
+            pending = out
+        if pending is not None:
+            accumulate(*pending)
+        elapsed = time.perf_counter() - t0
+        fps = float(frames.sum()) / elapsed if elapsed > 0 else 0.0
+        iterations = self.dec.iterations_run - it0
+        results = []
+        for p, snr in enumerate(points):
+            r = point_result(snr, totals[p].tolist(), int(frames[p]),
+                             elapsed, self.K, iterations)
+            r.frames_per_s = fps
+            results.append(r)
+        return results
 
 
 # --------------------------------------------------------------------- #

@@ -55,6 +55,7 @@ def main(argv=None):
         np.linspace(args.rber[0], args.rber[1], args.rpoints),
         lambda i, f: eng.run_bsc_point(f, args.maxiter, args.simloops,
                                        args.minerr),
+        profile_dir=args.profile_dir, device=args.device,
     )
 
 

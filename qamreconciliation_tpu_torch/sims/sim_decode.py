@@ -57,6 +57,7 @@ def run_sweep(args, snr_column: str):
         lambda i, snr: eng.run_biawgn_point(
             snr, args.maxiter, args.simloops, args.minerr,
             alpha=args.alpha, hard=args.hard),
+        profile_dir=args.profile_dir, device=args.device,
     )
 
 

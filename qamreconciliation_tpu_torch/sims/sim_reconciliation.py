@@ -6,13 +6,18 @@
         [--alpha 1.0] [--simloops 5000] [--snr 0 5] [--nsnr 11] [--bps 2]
         [--configuration-base] [--hard | --direct] [--device cuda]
         [--resident [--resident-chunk 50]]
-        [--schedule layered [--layered-chunk 4] [--layered-groups -1]] ...
+        [--schedule layered [--layered-chunk 4] [--layered-groups -1]]
+        [--llr-exact | --llr-mode poly|table|interp|search]
+        [--fy-mode erf|erf_flat|poly] [--rounds-per-dispatch 1]
+        [--point-batch] [--profile-dir DIR] ...
 
 EDGEFILE is an expanded ``eid,cid,vid`` edge list (the generic decoder,
 or the QC decoder with a successful ``--lift-qc``) or, with ``--qc``, a
 quasi-cyclic base-edge CSV.  Output CSV: an unnamed index column then
-``EsN0dB,ber,fer,iters``.  SNR
-points run sequentially; each point processes a frame batch per round.
+``EsN0dB,ber,fer,iters``.  SNR points run sequentially, each a frame batch
+per round, or with ``--point-batch`` all pending points together, one
+decode over all their frames per round (the same frames and counters per
+point; ``frames_per_s`` is then the grid's on every row).
 """
 
 import argparse
@@ -25,7 +30,7 @@ from ..models.matrix import Matrix
 from .common import (
     add_engine_args, add_qc_arg, engine_kwargs, load_decoder, sweep,
 )
-from .engine import ReconciliationEngine
+from .engine import ReconciliationEngine, point_seed
 
 __all__ = ["build_parser", "main"]
 
@@ -70,8 +75,11 @@ def build_parser():
                         help="Partition the Tanner graph over devices (not "
                         "ported yet)")
     parser.add_argument("--point-batch", action="store_true",
-                        help="Advance all SNR points per dispatch (not "
-                        "ported yet)")
+                        help="Advance all pending SNR points per dispatch, "
+                        "one decode over all their frames (each point "
+                        "keeps its own seed and early exit).  The "
+                        "journal's frames_per_s then reports the grid's "
+                        "throughput on every row")
     add_engine_args(parser)
     return parser
 
@@ -93,10 +101,8 @@ def main(argv=None):
             "--resident is incompatible with --point-batch (the SNR-point "
             "batch cannot wrap the resident decode kernel)"
         )
-    for flag, item in (("graph_shard", "Multi-GPU"),
-                       ("point_batch", "Sweep plumbing")):
-        if getattr(args, flag):
-            raise not_ported(f"--{flag.replace('_', '-')}", item)
+    if args.graph_shard:
+        raise not_ported("--graph-shard", "Multi-GPU")
     eng_kw = engine_kwargs(args)
     dec, vid, cid = load_decoder(args)
     mat = Matrix(vid, cid)
@@ -110,14 +116,22 @@ def main(argv=None):
             nmconfig[1::2] = 1  # Alternating configuration
 
     eng = ReconciliationEngine(dec, mat, pa, **eng_kw)
+    kw = dict(alpha=args.alpha, nmconfig=nmconfig)
+    if args.point_batch:
+        def run(indices, snrs):
+            return eng.run_sweep_batched(
+                mode, snrs, args.maxiter, args.simloops, args.ferr_count_min,
+                seeds=[point_seed(args.seed, i) for i in indices], **kw)
+    else:
+        def run(i, snr):
+            return eng.run_point(
+                mode, snr, args.maxiter, args.simloops, args.ferr_count_min,
+                seed=point_seed(args.seed, i), **kw)
     return sweep(
         args.out, args.resume, "EsN0dB",
-        np.linspace(args.snr[0], args.snr[1], args.nsnr),
-        lambda i, snr: eng.run_point(
-            mode, snr, args.maxiter, args.simloops, args.ferr_count_min,
-            alpha=args.alpha, nmconfig=nmconfig,
-            seed=args.seed + 1000003 * i,
-        ),
+        np.linspace(args.snr[0], args.snr[1], args.nsnr), run,
+        batched=args.point_batch, profile_dir=args.profile_dir,
+        device=args.device,
     )
 
 

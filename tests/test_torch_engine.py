@@ -126,12 +126,17 @@ def test_cli_writes_csv_schema(qc_code, tmp_path):
     assert [r[0] for r in rows[1:]] == ["0", "1"]
     assert [float(r[1]) for r in rows[1:]] == [3.0, 6.0]
     assert not os.path.exists(out + ".partial.jsonl")
-    for flag in ("--point-batch", "--graph-shard"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sim_reconciliation.main([path, "--qc", "--device", "cpu", flag])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sim_reconciliation.main([path, "--qc", "--device", "cpu",
-                                 "--llr-mode", "interp"])
+                                 "--graph-shard"])
+    # the per-sample LLR path and the point batch write the same schema
+    res = sim_reconciliation.main([
+        path, "--qc", "--snr", "3", "6", "--nsnr", "2", "--simloops", "16",
+        "--batch", "16", "--maxiter", "5", "--device", "cpu", "--out", out,
+        "--llr-mode", "interp", "--point-batch"])
+    assert [r.frames for r in res] == [16, 16]
+    with open(out) as f:
+        assert next(csv.reader(f)) == ["", "EsN0dB", "ber", "fer", "iters"]
 
 
 def test_port_imports_without_jax_or_pandas():
