@@ -60,7 +60,16 @@ Phases (each must pass, or the script exits non-zero):
      bit for bit), --profile-dir, entry() (kernel 4, and kernel 4 bit for
      bit at its shape [6, 512, 32]) and the C++ oracle against the dense
      decode, counts set to 0 just before each CLI and
-     read just after.
+     read just after;
+ 15. streaming and mutual information (phase_streaming): kernels 1-3 at the
+     stream batch B = 64 and at B = 8 and kernel 4 at B = 64 against their
+     plain versions bit for bit; stream_fused at the JAX bench's streaming
+     configuration with the resident (kernel 2), dense (kernel 1) and
+     resident layered (kernel 3) min-sum decoders and the generic one on the
+     exact rate-1/2 H (kernel 4); the split and handoff drivers identical
+     to it on the same frames; a host-time breakdown of one fused batch;
+     MC-MI samples/s and its estimates against the host quadrature, a
+     4096-configuration batched call at bps 4, the compare-signs CLI.
 Kernel and plain times are CUDA-event medians, taken in turns (kernels 1, 4
 and 5 over runs of 10 calls, whose host overhead the card's work hides;
 kernels 2 and 3 run K steps a call and report ms per step).  Each
@@ -1616,6 +1625,484 @@ def phase_sweep_surface(kernels):
         log(f"[surface] {name} launches per 128-frame round: {rec}")
 
 
+# ------------------------------------------------------------------------
+# Block-streamed reconciliation and the mutual-information estimators
+
+# the JAX bench's streaming row (bench.py:776-865): the headline code,
+# 4-PAM with the base sign configuration, 4.0 dB, bf16, batch 64, 256 frames
+# fed in 2.33-frame chunks, maxiter 50, best of 3 after a warm-up
+STREAM = dict(snr=4.0, batch=64, frames=256, chunk=2.33, maxiter=50)
+# its MC-MI row (bench.py:867-901): bps 2, 8.0 dB, float32, 2^21 samples
+MI = dict(bps=2, snr=8.0, n=1 << 21)
+
+
+def stream_groups(B):
+    """Mixed-SNR groups of B frames: a quarter at 7 dB (converge at once),
+    half at 4.5 dB, a quarter at 2.5 dB (never converge)."""
+    q = max(B // 4, 1)
+    return ((7.0, q), (4.5, B - 2 * q), (2.5, q))
+
+
+def stream_kernels(base, per_batch):
+    """Kernels 1, 2 and 3 at the headline code with the stream's batch
+    (B = 64) and a test batch (B = 8), kernel 4 on the exact DVB-S2 rate-1/2
+    H at B = 64: each against its plain version, torch.equal on every
+    output; min-sum bf16 and f32 phi (kernel 2: tanh-F/B bf16, the resident
+    decoder's rule in bf16) as the decoders use them.  Each case's launch
+    plan and ms per step go to the log and ``per_batch``."""
+    from qamreconciliation_tpu_torch.models.decoder import TannerGraph
+    from qamreconciliation_tpu_torch.ops.kernels import (
+        bp_check_phase_generic, bp_check_phase_generic_ref,
+        bp_check_phase_qc, bp_check_phase_qc_ref, bp_decode_rounds_qc,
+        bp_decode_rounds_qc_ref, bp_layered_sweeps_qc,
+        bp_layered_sweeps_qc_ref,
+    )
+
+    z, bf16, f32 = CODE["z"], torch.bfloat16, torch.float32
+    for B in (64, 8):
+        gen = torch.Generator(device="cuda").manual_seed(B)
+        shape = (*SHAPE[:3], B)
+        t = 3.0 * torch.randn(shape, generator=gen, device="cuda")
+        c2v = torch.randn(shape, generator=gen, device="cuda")
+        synd = torch.randint(0, 2, (shape[0], z, B), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        par = torch.sum(t < 0, dim=1, dtype=torch.int32) & 1
+        synd[..., : B // 4] = par[..., : B // 4]
+        for rule, dt in (("minsum", bf16), ("sumproduct", f32)):
+            args = (t.to(dt), c2v.to(dt), synd)
+            got = bp_check_phase_qc(*args, rule=rule)
+            plan = bp_check_phase_qc.plan
+            want = bp_check_phase_qc_ref(*args, rule=rule)
+            torch.cuda.synchronize()
+            assert all(map(torch.equal, got, want)), \
+                f"kernel 1 B={B} {rule}: not bit-equal"
+            ms, plain_ms = events_ms(
+                lambda: bp_check_phase_qc(*args, rule=rule),
+                lambda: bp_check_phase_qc_ref(*args, rule=rule),
+                reps=5, warmup=2, run=10)
+            per_batch["bp_check_phase_qc"][f"B={B} {rule} {str(dt)[6:]}"] = ms
+            log(f"[stream kernels] kernel 1 {shape} {rule} {str(dt)[6:]}: "
+                f"bit-equal, kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                f"[{plan_text(plan)}]")
+        lappr, synd, dec = softening_llrs(base, z, stream_groups(B))
+        tables = dec.tables
+        synd8 = synd.reshape(tables.nb_c, z, B).to(torch.int8).contiguous()
+        warm, K, maxiter = 5, 25, 50        # the stream decoder's chunk 25
+        for rule, md in (("minsum", bf16), ("tanhfb", bf16)):
+            prior = lappr.to(md).reshape(tables.nb_v, z, B).contiguous()
+            state = [prior.clone(),
+                     torch.zeros((tables.E, z, B), dtype=md, device="cuda"),
+                     prior, synd8,
+                     torch.zeros(B, dtype=torch.int32, device="cuda"),
+                     torch.zeros(B, dtype=torch.int32, device="cuda")]
+            bp_decode_rounds_qc_ref(tables, 0, maxiter, *state, rule=rule,
+                                    k_rounds=warm)
+            want = [x.clone() for x in state]
+            bp_decode_rounds_qc(tables, warm, maxiter, *state, rule=rule,
+                                k_rounds=K)
+            plan = bp_decode_rounds_qc.plan
+            bp_decode_rounds_qc_ref(tables, warm, maxiter, *want, rule=rule,
+                                    k_rounds=K)
+            torch.cuda.synchronize()
+            compare_state(state[:2] + state[4:], want[:2] + want[4:],
+                          f"kernel 2 B={B} {rule}")
+            scratch = [x.clone() for x in state]
+            ms, = events_ms(lambda: bp_decode_rounds_qc(
+                tables, warm, maxiter, *scratch, rule=rule, k_rounds=K),
+                reps=5, warmup=1)
+            plain_ms, = events_ms(lambda: bp_decode_rounds_qc_ref(
+                tables, warm, maxiter, *scratch, rule=rule, k_rounds=K),
+                reps=2, warmup=0)
+            ms, plain_ms = ms / K, plain_ms / K
+            per_batch["bp_decode_rounds_qc"][f"B={B} {rule} bf16"] = ms
+            log(f"[stream kernels] kernel 2 B={B} {rule} bf16: done "
+                f"{int(want[4].sum())}/{B}, bit-equal; per iteration kernel "
+                f"{ms:.4f} ms plain {plain_ms:.4f} ms "
+                f"[{resident_plan_text(plan)}]")
+        for rule, md in (("minsum", bf16), ("sumproduct", f32)):
+            state = [lappr.float().reshape(tables.nb_v, z, B).contiguous(),
+                     torch.zeros((tables.E, z, B), dtype=md, device="cuda"),
+                     synd8, torch.zeros(B, dtype=torch.int32, device="cuda"),
+                     torch.zeros(B, dtype=torch.int32, device="cuda")]
+            bp_layered_sweeps_qc_ref(tables, 0, maxiter, *state, rule=rule,
+                                     k_sweeps=2)
+            want = [x.clone() for x in state]
+            bp_layered_sweeps_qc(tables, 2, maxiter, *state, rule=rule,
+                                 k_sweeps=4)
+            plan = bp_layered_sweeps_qc.plan
+            bp_layered_sweeps_qc_ref(tables, 2, maxiter, *want, rule=rule,
+                                     k_sweeps=4)
+            torch.cuda.synchronize()
+            compare_state(state[:2] + state[3:], want[:2] + want[3:],
+                          f"kernel 3 B={B} {rule}")
+            scratch = [x.clone() for x in state]
+            ms, = events_ms(lambda: bp_layered_sweeps_qc(
+                tables, 2, maxiter, *scratch, rule=rule, k_sweeps=4),
+                reps=5, warmup=1)
+            plain_ms, = events_ms(lambda: bp_layered_sweeps_qc_ref(
+                tables, 2, maxiter, *scratch, rule=rule, k_sweeps=4),
+                reps=2, warmup=0)
+            ms, plain_ms = ms / 4, plain_ms / 4
+            per_batch["bp_layered_sweeps_qc"][
+                f"B={B} {rule} {str(md)[6:]}"] = ms
+            log(f"[stream kernels] kernel 3 B={B} {rule} {str(md)[6:]}: done "
+                f"{int(want[3].sum())}/{B}, bit-equal; per sweep kernel "
+                f"{ms:.4f} ms plain {plain_ms:.4f} ms "
+                f"[{resident_plan_text(plan)}]")
+    g = TannerGraph(*dvbs2_code("1/2"), device="cuda")
+    mask = torch.as_tensor(g._c_mask_T_np, dtype=torch.float32,
+                           device="cuda")
+    t, c2v, synd = generic_inputs(mask, 64, 8)
+    for rule, dt in (("minsum", bf16), ("sumproduct", f32)):
+        args = (t.to(dt), c2v.to(dt), synd, mask)
+        got = bp_check_phase_generic(*args, rule=rule)
+        plan = bp_check_phase_generic.plan
+        want = bp_check_phase_generic_ref(*args, rule=rule)
+        torch.cuda.synchronize()
+        assert all(map(torch.equal, got, want)), \
+            f"kernel 4 B=64 {rule}: not bit-equal"
+        ms, plain_ms = events_ms(
+            lambda: bp_check_phase_generic(*args, rule=rule),
+            lambda: bp_check_phase_generic_ref(*args, rule=rule),
+            reps=5, warmup=2, run=10)
+        per_batch["bp_check_phase_generic"][f"B=64 {rule} {str(dt)[6:]}"] = ms
+        log(f"[stream kernels] kernel 4 {tuple(t.shape)} {rule} "
+            f"{str(dt)[6:]}: bit-equal, kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms [{plan_text(plan)}]")
+
+
+def stream_data(pa, N0, N_symb, frames, seed=3):
+    """The bench's stream: (x, y) of ``frames`` frames (numpy, seed 3) and
+    their 2.33-frame chunks."""
+    rng = np.random.default_rng(seed)
+    x = rng.choice(pa.order, size=frames * N_symb, p=pa.probabilities)
+    y = pa.constellation[x] + math.sqrt(N0) * rng.standard_normal(x.size)
+    chunk = int(STREAM["chunk"] * N_symb)
+    return (x, y, [y[a:a + chunk] for a in range(0, x.size, chunk)],
+            [x[a:a + chunk] for a in range(0, x.size, chunk)])
+
+
+def merged(parts):
+    """One StreamResult of the per-call results ``parts``."""
+    from qamreconciliation_tpu_torch.sims.streaming import StreamResult
+
+    out = StreamResult()
+    for r in parts:
+        out.frames += r.frames
+        out.success += r.success
+        out.iterations += r.iterations
+        out.bit_errors += r.bit_errors
+        out.decoded_words += r.decoded_words
+    return out
+
+
+def same_results(a, b, what):
+    assert (a.frames, a.success, a.iterations, a.bit_errors) == \
+        (b.frames, b.success, b.iterations, b.bit_errors), what
+    assert all(np.array_equal(u, v) for u, v in
+               zip(a.decoded_words, b.decoded_words)), what
+
+
+def stream_fused_best(make, stream, label, reps=3):
+    """stream_fused of ``make()``'s reconciler over the chunked stream, best
+    of ``reps`` after a one-batch warm-up; counts set to 0 just before each
+    rep and read just after (the last rep's are returned)."""
+    from qamreconciliation_tpu_torch.ops import kernels as K
+
+    x, y, ycks, xcks = stream
+    warm = make()
+    need = warm.batch * warm.N_symb
+    warm.stream_fused(y[:need], x[:need], STREAM["maxiter"])
+    times = []
+    for _ in range(reps):
+        sr = make()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sr.stream_fused(ycks, xcks, STREAM["maxiter"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches = counts()
+    multi = {n: (getattr(K, n).iterations, getattr(K, n).device_launches)
+             for n in ("bp_decode_rounds_qc", "bp_layered_sweeps_qc")}
+    rate = x.size / min(times)
+    its = statistics.mean(res.iterations)
+    log(f"[stream] {label}: {res.frames} frames, {x.size / min(times):.1f} "
+        f"symbols/s best of {reps} (reps "
+        f"{[round(x.size / t, 1) for t in times]}), FER {res.fer:.4f}, mean "
+        f"iterations {its:.2f}, bit errors {res.bit_errors}, "
+        f"{sr.decode_dispatches} decode dispatches; launches {launches}; "
+        f"kernels 2/3 (steps, device launches) {multi}")
+    assert res.frames == x.size // sr.N_symb
+    return res, launches, rate
+
+
+def stream_drivers(make, stream, fused):
+    """The same frames through the split API (immediate, then defer=True)
+    and the handoff API: each identical to ``fused``; returns each driver's
+    (symbols/s, decode dispatches)."""
+    x, _, ycks, xcks = stream
+    mi_ = STREAM["maxiter"]
+    empty = np.empty(0, np.int64)
+    out = {}
+    for driver in ("split immediate", "split defer", "handoff"):
+        sr = make(defer=driver == "split defer")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parts = []
+        if driver == "handoff":
+            for yc, xc in zip(ycks, xcks):
+                parts.append(sr.alice_step(sr.bob_step(yc), xc, mi_))
+            parts.append(sr.alice_step(sr.bob_step_flush(), empty, mi_))
+        else:
+            for yc, xc in zip(ycks, xcks):
+                w, s, nh = sr.bob_process(yc)
+                parts.append(sr.alice_process(nh, xc, s, mi_, bob_words=w))
+            if sr.defer:
+                w, s, nh = sr.bob_flush()
+                parts.append(sr.alice_process(nh, empty, s, mi_,
+                                              bob_words=w))
+                parts.append(sr.alice_flush(mi_))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        same_results(merged(parts), fused, f"{driver} != stream_fused")
+        out[driver] = (x.size / seconds, sr.decode_dispatches)
+        log(f"[stream] {driver}: identical to stream_fused (success, "
+            f"iterations, words, bit errors); {x.size / seconds:.1f} "
+            f"symbols/s, {sr.decode_dispatches} decode dispatches")
+    assert out["split defer"][1] <= out["split immediate"][1]
+    return out
+
+
+def stream_breakdown(make, stream):
+    """Host-clock ms of the stages of one fused 64-frame batch (median of
+    3, each stage ended by a synchronize): the carry (the growing
+    np.concatenate the JAX driver uses, and the port's preallocated carry),
+    the host cast and upload, Bob's round, Alice's LLRs, the decode, the
+    harvest (bit errors, packing, download, unpacking)."""
+    from qamreconciliation_tpu_torch.sims.streaming import _Queue
+
+    x, y, ycks, xcks = stream
+    sr = make()
+    need = sr.batch * sr.N_symb
+    stages = {k: [] for k in ("concatenate carry", "preallocated carry",
+                              "cast + upload", "Bob's round",
+                              "Alice's LLRs", "decode", "harvest")}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name].append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def concat():
+        cy, cx, i = np.empty(0), np.empty(0, np.int64), 0
+        while cy.size < need:
+            cy = np.concatenate([cy, np.asarray(ycks[i], np.float64)])
+            cx = np.concatenate([cx, np.asarray(xcks[i], np.int64)])
+            i += 1
+        return cy[:need], cx[:need]
+
+    def prealloc():
+        cy, cx, i = _Queue(np.float64), _Queue(np.int64), 0
+        while len(cy) < need:
+            cy.append(ycks[i])
+            cx.append(xcks[i])
+            i += 1
+        return cy.take(need), cx.take(need)
+
+    for _ in range(4):
+        timed("concatenate carry", concat)
+        yb, xb = timed("preallocated carry", prealloc)
+        y_dev, x_dev = timed("cast + upload", lambda: (
+            sr._upload_y(yb.reshape(sr.batch, -1)),
+            sr._upload_x(xb.reshape(sr.batch, -1))))
+        words, synd, n_hat = timed("Bob's round",
+                                   lambda: sr._bob_round(y_dev))
+        lappr = timed("Alice's LLRs", lambda: sr.nm.demap_lappr_array(
+            n_hat, x_dev, mode=sr.llr_mode))
+        success, iters, total = timed("decode", lambda: sr._decode_fn(
+            lappr.T, synd.T, STREAM["maxiter"]))
+
+        def harvest():
+            bits = (total.T < 0).to(torch.int32)
+            errs = torch.sum(bits ^ words.to(torch.int32), dim=1)
+            packed = sr._pack(bits)
+            return (success.cpu().numpy(), iters.cpu().numpy(),
+                    errs.cpu().numpy(), np.unpackbits(
+                        packed.cpu().numpy(), axis=1, bitorder="little"))
+        timed("harvest", harvest)
+    med = {k: statistics.median(v[1:]) for k, v in stages.items()}
+    log(f"[stream breakdown] one fused {sr.batch}-frame batch, ms (median "
+        f"of 3 after a warm-up): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in med.items()))
+    return med
+
+
+def phase_streaming(kernels):
+    """Block-streamed reconciliation (sims/streaming.py) and the
+    mutual-information estimators, each run with the counts set to 0 just
+    before it and read just after:
+
+    * kernels 1-3 at B = 64 and B = 8, kernel 4 at B = 64, bit for bit
+      against their plain versions (stream_kernels);
+    * stream_fused at the JAX bench's streaming configuration (STREAM) with
+      the resident min-sum decoder, chunk 25 (kernel 2), the dense min-sum
+      decoder (kernel 1) and the resident layered one (kernel 3), and the
+      generic min-sum decoder on the exact DVB-S2 rate-1/2 H (kernel 4, 128
+      frames): symbols/s, FER, mean iterations, dispatches, launches;
+    * the same 256 frames through the split API (immediate and deferred)
+      and the handoff API, identical to stream_fused;
+    * the host-time breakdown of one fused batch (stream_breakdown);
+    * MC-MI at the bench's configuration (MI), "poly" and "interp": samples/s
+      best of 3, the three estimates within 4 standard errors of the host
+      quadrature with the reference's signs; the peak device memory of a
+      4096-configuration batched call at bps 4; the compare-signs CLI with
+      --montecarlo at bps 2.
+
+    Each kernel's record gets its stream-batch times under
+    ``stream_ms_by_batch`` and its launches on the streaming paths under
+    ``stream_launches``."""
+    from qamreconciliation_tpu_torch.models import mutual_information as mi
+    from qamreconciliation_tpu_torch.models.alphabet import PAMAlphabet
+    from qamreconciliation_tpu_torch.models.decoder import Decoder
+    from qamreconciliation_tpu_torch.models.matrix import Matrix
+    from qamreconciliation_tpu_torch.models.noisemapper import NoiseMapper
+    from qamreconciliation_tpu_torch.models.qc_decoder import (
+        QCDecoder, make_qc_ldpc,
+    )
+    from qamreconciliation_tpu_torch.sims import (
+        sim_mutual_information_compare_signs,
+    )
+    from qamreconciliation_tpu_torch.sims.streaming import StreamReconciler
+
+    per_batch = {name: {} for name in KERNELS}
+    launches_of = {name: {} for name in KERNELS}
+    base, vid, cid = make_qc_ldpc(CODE["nb_v"], CODE["z"], CODE["dv"],
+                                  CODE["dc"], seed=CODE["seed"])
+    stream_kernels(base, per_batch)
+
+    pa = PAMAlphabet(2, 2.0)
+    N0 = pa.variance * 10 ** (-STREAM["snr"] / 10) / 2
+    nm = NoiseMapper(pa, N0, dtype="bfloat16", device="cuda")
+    mat = Matrix(vid, cid)
+    S = mat.vnum // pa.bit_per_symbol
+    stream = stream_data(pa, N0, S, STREAM["frames"])
+    z, bf16 = CODE["z"], "bfloat16"
+    decoders = {
+        "resident min-sum chunk 25 (kernel 2)": (QCDecoder(
+            base, z, bf16, device="cuda", check_rule="minsum", resident=True,
+            resident_chunk=25), "bp_decode_rounds_qc"),
+        "dense min-sum (kernel 1)": (QCDecoder(
+            base, z, bf16, device="cuda", check_rule="minsum"),
+            "bp_check_phase_qc"),
+        "layered resident min-sum (kernel 3)": (QCDecoder(
+            base, z, bf16, device="cuda", check_rule="minsum",
+            schedule="layered", resident=True), "bp_layered_sweeps_qc"),
+    }
+    rates = {}
+    for label, (dec, kernel) in decoders.items():
+        def make(defer=False, dec=dec):
+            return StreamReconciler(dec, mat, pa, nm, batch=STREAM["batch"],
+                                    defer=defer)
+        res, launches, rates[label] = stream_fused_best(make, stream, label)
+        assert launches[kernel] > 0, (label, launches)
+        launches_of[kernel][f"stream_fused {label}"] = launches[kernel]
+        if kernel == "bp_decode_rounds_qc":
+            assert launches["bp_check_phase_qc"] == 0
+            assert res.fer <= 0.05, res.fer
+            drivers = stream_drivers(make, stream, res)
+            breakdown = stream_breakdown(make, stream)
+    vid2, cid2 = dvbs2_code("1/2")
+    gdec = Decoder(vid2, cid2, bf16, device="cuda", check_rule="minsum")
+    gmat = Matrix(vid2, cid2)
+    gstream = stream_data(pa, N0, gmat.vnum // 2, 128, seed=4)
+    res, launches, rates["generic DVB-S2 1/2 min-sum (kernel 4)"] = \
+        stream_fused_best(lambda: StreamReconciler(
+            gdec, gmat, pa, nm, batch=STREAM["batch"]), gstream,
+            "generic DVB-S2 1/2 min-sum (kernel 4)")
+    assert launches["bp_check_phase_generic"] > 0
+    assert launches["bp_check_phase_qc"] == 0
+    launches_of["bp_check_phase_generic"]["stream_fused generic DVB-S2 1/2"] \
+        = launches["bp_check_phase_generic"]
+
+    # MC-MI
+    mpa = PAMAlphabet(MI["bps"], 2.0)
+    mnm = NoiseMapper(mpa, mpa.variance * 10 ** (-MI["snr"] / 10) / 2,
+                      dtype="float32", device="cuda")
+    mnm._ensure_ginv_poly()
+    p = mi.P_xhat(mnm)
+    quad = (-mi.mutual_information_X_Xhat(mnm, p),
+            -mi.mutual_information_X_Y(mnm),
+            mi.mutual_information_base_scheme(mnm, p))
+    mi_rates = {}
+    for mode in ("poly", "interp"):
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        mi.montecarlo_information(gen, mpa, mnm, p, MI["n"], ginv_mode=mode)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            est = mi.montecarlo_information(gen, mpa, mnm, p, MI["n"],
+                                            ginv_mode=mode)
+            times.append(time.perf_counter() - t0)
+        xy = mi._draw(gen, mpa, mnm, (1, MI["n"]))
+        p_rows = torch.as_tensor(p, dtype=torch.float32,
+                                 device="cuda")[None, :]
+        terms = mi._mc_terms(mpa, mnm, p_rows, *xy, (True,) * 3, mode)
+        mi_rates[mode] = MI["n"] / min(times)
+        for e, name in enumerate(("I(X;Xhat)", "I(X;Y)", "I(X,N;Xhat)")):
+            se = float(terms[e].double().std()) / math.sqrt(MI["n"])
+            log(f"[mc-mi] {mode} {name}: {est[e]:.6f} against quadrature "
+                f"{quad[e]:.6f} (4 SE {4 * se:.6f})")
+            assert abs(est[e] - quad[e]) <= 4 * se, (mode, name, est[e])
+        log(f"[mc-mi] {mode}: {mi_rates[mode]:.1f} samples/s best of 3 "
+            f"({[round(MI['n'] / t, 1) for t in times]})")
+    # a 4096-configuration chunk at bps 4 (the compare-signs CLI's default
+    # chunk and samples): time and peak device memory of one batched call
+    cpa = PAMAlphabet(4, 2.0)
+    cbase = NoiseMapper(cpa, cpa.variance * 10 ** (-12.0 / 10) / 2,
+                        dtype="float64", device="cuda")
+    cbase._ensure_ginv_poly()
+    configs, _ = sim_mutual_information_compare_signs.enumerate_configs(16)
+    cnms = [cbase.with_sign_config(c) for c in configs[:4096]]
+    cp = np.broadcast_to(mi.P_xhat(cbase), (4096, 16))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = mi.montecarlo_information_batched(
+        torch.Generator(device="cuda").manual_seed(1), cpa, cnms, cp, 4096,
+        (False, False, True), "poly")
+    seconds = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+    assert np.isfinite(out[:, 2]).all()
+    log(f"[mc-mi] batched bps 4, 12.0 dB, 4096 configurations x 4096 "
+        f"samples (float64, poly): {seconds:.2f} s, peak {peak:.2f} GiB "
+        f"above what was allocated; I(X,N;Xhat) {out[:, 2].min():.4f} .. "
+        f"{out[:, 2].max():.4f}")
+    with tempfile.TemporaryDirectory() as tmp:
+        out_csv = os.path.join(tmp, "signs.csv")
+        t0 = time.perf_counter()
+        rows = sim_mutual_information_compare_signs.main([
+            "--montecarlo", "--bps", "2", "--snr", "4", "8", "--nsnr", "3",
+            "--nloops", "4", "--device", "cuda", "--out", out_csv])
+        with open(out_csv) as f:
+            header = next(csv.reader(f))
+    assert len(rows) == 3 and len(header) == 2 + 10
+    assert all(0.0 < v < 2.0 for r in rows for v in r[1:]), rows
+    log(f"[mc-mi] compare-signs --montecarlo bps 2, 3 points x 10 configs: "
+        f"{time.perf_counter() - t0:.2f} s; I(X,N;Xhat) at 8 dB "
+        f"{min(rows[2][1:]):.4f} .. {max(rows[2][1:]):.4f}")
+    for name in KERNELS:
+        record(kernels, name, stream_ms_by_batch=per_batch[name],
+               stream_launches=launches_of[name])
+    log(f"[stream] symbols/s: {rates}; drivers {drivers}; breakdown ms "
+        f"{breakdown}; MC-MI samples/s {mi_rates}")
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     sass_dir = argv[argv.index("--sass") + 1] if "--sass" in argv else None
@@ -1647,7 +2134,8 @@ def main(argv=None):
                         (phase_generic_main, (kernels,)),
                         (phase_generic_quality, ()),
                         (phase_modes, (kernels,)),
-                        (phase_sweep_surface, (kernels,))):
+                        (phase_sweep_surface, (kernels,)),
+                        (phase_streaming, (kernels,))):
         t0 = time.perf_counter()
         phase(*args)
         log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")

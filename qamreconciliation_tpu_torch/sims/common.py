@@ -6,6 +6,7 @@ import argparse
 import contextlib
 import csv
 import os
+import sys
 import warnings
 
 import torch
@@ -15,8 +16,8 @@ from ..utils.checkpoint import SweepState
 from .engine import PointResult
 
 __all__ = ["add_engine_args", "add_qc_arg", "engine_kwargs",
-           "bit_channel_kwargs", "load_decoder", "write_csv", "sweep",
-           "profiled"]
+           "bit_channel_kwargs", "load_decoder", "write_table", "write_csv",
+           "pyplot", "sweep", "profiled"]
 
 
 def add_engine_args(parser: argparse.ArgumentParser):
@@ -255,14 +256,32 @@ def load_decoder(args):
     return Decoder(vid, cid, **dec_kw), vid, cid
 
 
+def write_table(path: str, columns, rows):
+    """Write ``rows`` under the header ``, *columns``, each row led by its
+    index (the layout of a pandas ``DataFrame.to_csv``)."""
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["", *columns])
+        for i, row in enumerate(rows):
+            w.writerow([i, *(float(v) for v in row)])
+
+
 def write_csv(path: str, column: str, rows):
     """Write ``rows`` of (point, ber, fer, iters) under the header ``,
     column, ber, fer, iters``, each row led by its index."""
-    with open(path, "w", newline="") as f:
-        w = csv.writer(f)
-        w.writerow(["", column, "ber", "fer", "iters"])
-        for i, row in enumerate(rows):
-            w.writerow([i, *(float(v) for v in row)])
+    write_table(path, [column, "ber", "fer", "iters"], rows)
+
+
+def pyplot():
+    """``matplotlib.pyplot``, imported on first use, or None (with a
+    message on stderr) where matplotlib is not installed."""
+    try:
+        from matplotlib import pyplot as plt
+    except ImportError:
+        print("--display needs matplotlib, which is not installed; the CSV "
+              "was written, nothing is shown", file=sys.stderr)
+        return None
+    return plt
 
 
 def _report(column, point, r):

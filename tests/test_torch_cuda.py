@@ -730,3 +730,132 @@ def test_cuda_generic_decode_matches_plain_and_cpu(kw, dtype):
     else:
         torch.testing.assert_close(gpu[2].cpu(), cpu[2], rtol=1e-4,
                                    atol=1e-4)
+
+
+# ------------------------------------------------ the streaming batches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [8, 64])
+@pytest.mark.parametrize("rule,dtype", [("minsum", torch.bfloat16),
+                                        ("sumproduct", torch.float32)])
+def test_qc_kernel_at_stream_batches(rule, dtype, B):
+    """Kernel 1 at the headline check-phase shape [90, 6, 360, B] with the
+    stream's batch (64) and a test batch (8)."""
+    need_cuda()
+    t, c2v, synd = (torch.from_numpy(a).cuda()
+                    for a in make_inputs(41, (90, 6, 360, B),
+                                         irregular=False))
+    args = (t.to(dtype), c2v.to(dtype), synd)
+    n0 = bp_check_phase_qc.launches
+    got = bp_check_phase_qc(*args, rule=rule)
+    assert bp_check_phase_qc.launches == n0 + 1
+    want = bp_check_phase_qc_ref(*args, rule=rule)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [8, 64])
+@pytest.mark.parametrize("rule,m_dtype", [("minsum", torch.bfloat16),
+                                          ("tanhfb", torch.bfloat16),
+                                          ("sumproduct", torch.float32)])
+@pytest.mark.parametrize("kernel", ["rounds", "sweeps"])
+def test_resident_kernels_at_stream_batches(kernel, rule, m_dtype, B):
+    """Kernels 2 and 3 at B = 8 and 64 (fewer blocks than SMs), bit for
+    bit on all four state tensors after plain steps."""
+    need_cuda()
+    rows, z = STEP_CODES["regular"]
+    tables = QCTables(rows, z)
+    layered = kernel == "sweeps"
+    warm = [x.cuda() for x in step_state(tables, m_dtype, m_dtype, 11,
+                                         layered, B=B)]
+    if layered:
+        bp_layered_sweeps_qc_ref(tables, 0, 50, *warm, rule=rule, k_sweeps=1)
+    else:
+        bp_decode_rounds_qc_ref(tables, 0, 50, *warm, rule=rule, k_rounds=2)
+    state = [x.clone() for x in warm]
+    run_pair(kernel, tables, state, warm, rule, 1 if layered else 2, 50, 6)
+    assert (bp_layered_sweeps_qc if layered else bp_decode_rounds_qc
+            ).plan.grid == B
+    assert_state_equal(state, warm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule,dtype", [("minsum", torch.bfloat16),
+                                        ("sumproduct", torch.float32)])
+def test_generic_kernel_at_the_stream_batch(rule, dtype):
+    """Kernel 4 at the DVB-S2 rate-1/2 check-phase shape [7, 32400, 64]."""
+    need_cuda()
+    t, c2v, synd, mask = (torch.from_numpy(a).cuda()
+                          for a in generic_inputs(43, 7, 32400, 64))
+    args = (t.to(dtype), c2v.to(dtype), synd, mask)
+    got = bp_check_phase_generic(*args, rule=rule)
+    want = bp_check_phase_generic_ref(*args, rule=rule)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+def _stream_run(dec, mat, plain=None, frames=10, batch=4):
+    """stream_fused of ``dec`` on the card over misaligned chunks of a
+    numpy-seeded 4-PAM stream at 3.5 dB; ``plain`` replaces the decoder's
+    check phase."""
+    from qamreconciliation_tpu_torch.models.alphabet import PAMAlphabet
+    from qamreconciliation_tpu_torch.models.noisemapper import NoiseMapper
+    from qamreconciliation_tpu_torch.sims.streaming import StreamReconciler
+
+    if plain is not None:
+        dec.check_phase = plain
+    pa = PAMAlphabet(2, 2.0)
+    N0 = pa.variance * 10 ** (-3.5 / 10) / 2
+    nm = NoiseMapper(pa, N0, dtype=dec.dtype, device="cuda")
+    S = mat.vnum // 2
+    rng = np.random.default_rng(6)
+    x = rng.integers(0, 4, frames * S)
+    y = pa.constellation[x] + np.sqrt(N0) * rng.standard_normal(x.size)
+    cut = int(1.7 * S)
+    chunks = range(0, x.size, cut)
+    return StreamReconciler(dec, mat, pa, nm, batch=batch).stream_fused(
+        [y[a:a + cut] for a in chunks], [x[a:a + cut] for a in chunks], 20)
+
+
+def _same_stream(a, b):
+    assert (a.frames, a.success, a.iterations, a.bit_errors) == \
+        (b.frames, b.success, b.iterations, b.bit_errors)
+    assert all(np.array_equal(u, v) for u, v in
+               zip(a.decoded_words, b.decoded_words))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_fused_on_the_card_equals_the_plain_check_phase(dtype):
+    """The fused stream driver on the card: the dense QC decoder through
+    kernel 1 == through its plain check phase; the resident decoder
+    (kernel 2) == dense, the resident layered one (kernel 3) == the serial
+    plain layered loop, in min-sum; the generic decoder through kernel 4
+    == through its plain check phase."""
+    need_cuda()
+    base, vid, cid = make_qc_ldpc(12, 32, 3, 6, seed=7)
+    mat = Matrix(vid, cid)
+    kw = dict(dtype=dtype, device="cuda", check_rule="minsum")
+    n0 = bp_check_phase_qc.launches
+    dense = _stream_run(QCDecoder(base, 32, **kw), mat)
+    assert bp_check_phase_qc.launches > n0
+    assert 0 < sum(dense.success) < dense.frames
+    _same_stream(dense, _stream_run(QCDecoder(base, 32, **kw), mat,
+                                    plain=bp_check_phase_qc_ref))
+    n0 = bp_decode_rounds_qc.launches
+    _same_stream(dense, _stream_run(QCDecoder(
+        base, 32, resident=True, resident_chunk=6, **kw), mat))
+    assert bp_decode_rounds_qc.launches > n0
+    n0 = bp_layered_sweeps_qc.launches
+    lay = _stream_run(QCDecoder(base, 32, schedule="layered",
+                                resident=True, **kw), mat)
+    assert bp_layered_sweeps_qc.launches > n0
+    _same_stream(lay, _stream_run(QCDecoder(
+        base, 32, schedule="layered", layered_groups=False, **kw), mat))
+    n0 = bp_check_phase_generic.launches
+    gen = _stream_run(Decoder(vid, cid, **kw), mat)
+    assert bp_check_phase_generic.launches > n0
+    _same_stream(gen, _stream_run(Decoder(vid, cid, **kw), mat,
+                                  plain=bp_check_phase_generic_ref))
