@@ -69,7 +69,16 @@ Phases (each must pass, or the script exits non-zero):
      exact rate-1/2 H (kernel 4); the split and handoff drivers identical
      to it on the same frames; a host-time breakdown of one fused batch;
      MC-MI samples/s and its estimates against the host quadrature, a
-     4096-configuration batched call at bps 4, the compare-signs CLI.
+     4096-configuration batched call at bps 4, the compare-signs CLI;
+ 16. multi-device reconciliation (phase_multidevice): two ranks on the card
+     (gloo), kernels 4 and 1 at one rank's shapes [7, 16200, 128] and [90,
+     6, 180, 128] bit for bit; frame-shard rounds of kernels 1-4 whose
+     world-2 counters equal the sum of the ranks' single rounds, frames/s
+     at world 2 beside world 1; ShardedDecoder (DVB-S2 1/2) against the
+     single-device decoder (success, iters and finals as the tests bind
+     them), ShardedQCDecoder torch.equal to it; the --devices 2 and --graph-shard CLIs (one CSV,
+     rank 0's) and the knee watch at --devices 2; the frame-sharded
+     stream_fused equal to the single-device one; dryrun_multichip(2).
 Kernel and plain times are CUDA-event medians, taken in turns (kernels 1, 4
 and 5 over runs of 10 calls, whose host overhead the card's work hides;
 kernels 2 and 3 run K steps a call and report ms per step).  Each
@@ -2103,6 +2112,514 @@ def phase_streaming(kernels):
         f"{breakdown}; MC-MI samples/s {mi_rates}")
 
 
+# ------------------------------------------------------------------------
+# Multi-device reconciliation (phase 16): two ranks on one card
+
+MULTI = dict(world=2, snr=3.5, frames=512, seed=21, timeout=420)
+# the tests' stated tolerances of the check-sharded decoder's finals
+# (tests/test_torch_graph_shard.py): bf16 elementwise BF16_TOL; float32
+# every hard decision equal and the magnitudes bound to F32_TOL as far as
+# the phi rule lets them: its extrinsic phi(S - phi_i) moves by up to
+# phi's clamp on a one-ulp change of S where one input dominates a row
+# (2 of 8294400 elements beyond F32_TOL on the DVB-S2 1/2 H, one 33.3
+# apart), so at most SHARD_BEYOND of the elements may lie beyond it, and
+# on each converged frame the median element within it.  A wrong exchange
+# (a partial lost, scaled or counted twice) moves most elements of the
+# frames it touches.
+SHARD_TOL = {torch.float32: dict(rtol=4e-3, atol=1e-3),
+             torch.bfloat16: dict(rtol=2.0 ** -7, atol=0.0)}
+SHARD_BEYOND = 1e-5
+
+
+def shard_finals(got, want, success, dtype):
+    """(finals [V, B] agree as the tests bind them, the largest |got -
+    want|, the elements beyond the bound atol + rtol |want| of
+    SHARD_TOL[dtype], the largest median |got - want| / bound of a
+    converged frame):
+    bf16 binds every element to that bound; float32 every hard decision,
+    at most SHARD_BEYOND of the elements beyond it, and each converged
+    frame's median |got - want| / bound to 1."""
+    tol = SHARD_TOL[dtype]
+    diff = (got.double() - want.double()).abs()
+    ratio = diff / (tol["atol"] + tol["rtol"] * want.double().abs())
+    beyond = int((ratio > 1).sum())
+    med = float(ratio[:, success].median(dim=0).values.max()) \
+        if bool(success.any()) else 0.0
+    if dtype == torch.float32:
+        ok = (torch.equal(got < 0, want < 0)
+              and beyond <= SHARD_BEYOND * got.numel() and med <= 1)
+    else:
+        ok = beyond == 0
+    return ok, float(diff.max()), beyond, med
+
+
+def multi_paths():
+    """The frame-shard paths of phase 16, label -> (decoder factory, (vid,
+    cid), dtype, its kernel): the headline code dense f32 phi (kernel 1),
+    --resident bf16 (kernel 2), resident layered bf16 min-sum (kernel 3),
+    and the exact DVB-S2 rate-1/2 H with the generic f32 phi decoder
+    (kernel 4)."""
+    from qamreconciliation_tpu_torch.models.decoder import Decoder
+    from qamreconciliation_tpu_torch.models.qc_decoder import (
+        QCDecoder, make_qc_ldpc,
+    )
+
+    base, vid, cid = make_qc_ldpc(CODE["nb_v"], CODE["z"], CODE["dv"],
+                                  CODE["dc"], seed=CODE["seed"])
+    z, bf16 = CODE["z"], "bfloat16"
+    dvid, dcid = dvbs2_code("1/2")
+    return {
+        "dense f32 phi": (lambda: QCDecoder(base, z, device="cuda"),
+                          (vid, cid), "float32", "bp_check_phase_qc"),
+        "resident bf16": (lambda: QCDecoder(
+            base, z, bf16, device="cuda", resident=True, resident_chunk=50),
+            (vid, cid), bf16, "bp_decode_rounds_qc"),
+        "layered resident bf16 min-sum": (lambda: QCDecoder(
+            base, z, bf16, device="cuda", check_rule="minsum",
+            schedule="layered", resident=True), (vid, cid), bf16,
+            "bp_layered_sweeps_qc"),
+        "generic DVB-S2 1/2 f32 phi": (lambda: Decoder(
+            dvid, dcid, device="cuda"), (dvid, dcid), "float32",
+            "bp_check_phase_generic"),
+    }
+
+
+def multi_point(eng):
+    """run_point of phase 16's frame-shard rows (512 frames at 3.5 dB,
+    Alternating signs, at most 50 iterations, no early exit)."""
+    return eng.run_point("softening", MULTI["snr"], 50, MULTI["frames"],
+                         10 ** 9, nmconfig=ALTERNATING, seed=MULTI["seed"])
+
+
+def multi_kernels(kernels):
+    """Kernels 4 and 1 at one rank's shapes against their plain versions,
+    torch.equal on every output: kernel 4 at [7, 16200, 128] on the first
+    half of the DVB-S2 rate-1/2 H's checks (ShardedDecoder's rank 0 block),
+    kernel 1 at [90, 6, 180, 128] (ShardedQCDecoder's lanes of a rank),
+    f32 phi and bf16 min-sum; launch plan and ms per call logged."""
+    from qamreconciliation_tpu_torch.models.decoder import TannerGraph
+    from qamreconciliation_tpu_torch.ops.kernels import (
+        bp_check_phase_generic, bp_check_phase_generic_ref,
+        bp_check_phase_qc, bp_check_phase_qc_ref,
+    )
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    g = TannerGraph(*dvbs2_code("1/2"), device="cuda")
+    mask = torch.as_tensor(g._c_mask_T_np[:, : g.cnum // 2],
+                           dtype=torch.float32, device="cuda").contiguous()
+    t, c2v, synd = generic_inputs(mask, 128, 16)
+    per_rank = {}
+    for rule, dt in (("sumproduct", f32), ("minsum", bf16)):
+        args = (t.to(dt), c2v.to(dt), synd, mask)
+        got = bp_check_phase_generic(*args, rule=rule)
+        plan = bp_check_phase_generic.plan
+        want = bp_check_phase_generic_ref(*args, rule=rule)
+        torch.cuda.synchronize()
+        assert all(map(torch.equal, got, want)), \
+            f"kernel 4 {tuple(t.shape)} {rule}: not bit-equal"
+        ms, plain_ms = events_ms(
+            lambda: bp_check_phase_generic(*args, rule=rule),
+            lambda: bp_check_phase_generic_ref(*args, rule=rule),
+            reps=5, warmup=2, run=10)
+        per_rank.setdefault("bp_check_phase_generic", {})[
+            f"{list(t.shape)} {rule} {str(dt)[6:]}"] = ms
+        log(f"[multi kernels] kernel 4 {tuple(t.shape)} {rule} "
+            f"{str(dt)[6:]}: bit-equal, kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms [{plan_text(plan)}]")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    shape = (SHAPE[0], SHAPE[1], SHAPE[2] // MULTI["world"], SHAPE[3])
+    t = 3.0 * torch.randn(shape, generator=gen, device="cuda")
+    c2v = torch.randn(shape, generator=gen, device="cuda")
+    synd = torch.randint(0, 2, (shape[0], shape[2], shape[3]), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    par = torch.sum(t < 0, dim=1, dtype=torch.int32) & 1
+    synd[..., : shape[3] // 4] = par[..., : shape[3] // 4]
+    for rule, dt in (("sumproduct", f32), ("minsum", bf16)):
+        args = (t.to(dt), c2v.to(dt), synd)
+        got = bp_check_phase_qc(*args, rule=rule)
+        plan = bp_check_phase_qc.plan
+        want = bp_check_phase_qc_ref(*args, rule=rule)
+        torch.cuda.synchronize()
+        assert all(map(torch.equal, got, want)), \
+            f"kernel 1 {shape} {rule}: not bit-equal"
+        ms, plain_ms = events_ms(
+            lambda: bp_check_phase_qc(*args, rule=rule),
+            lambda: bp_check_phase_qc_ref(*args, rule=rule),
+            reps=5, warmup=2, run=10)
+        per_rank.setdefault("bp_check_phase_qc", {})[
+            f"{list(shape)} {rule} {str(dt)[6:]}"] = ms
+        log(f"[multi kernels] kernel 1 {shape} {rule} {str(dt)[6:]}: "
+            f"bit-equal, kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"[{plan_text(plan)}]")
+    for name, by_case in per_rank.items():
+        record(kernels, name, multidevice_ms=by_case)
+
+
+def stream_view(res):
+    """A StreamResult's outputs as host values (words packed)."""
+    return (res.frames, list(res.success), list(res.iterations),
+            res.bit_errors,
+            np.packbits(np.asarray(res.decoded_words, np.uint8), axis=1))
+
+
+def _multidevice_rank(work, fps1, knee1):
+    """One of phase 16's two ranks (see phase_multidevice).  Returns its
+    failed checks, its launches by item, and what the parent compares."""
+    import torch.distributed as dist
+
+    from qamreconciliation_tpu_torch.entry import dryrun_multichip
+    from qamreconciliation_tpu_torch.models.alphabet import PAMAlphabet
+    from qamreconciliation_tpu_torch.models.decoder import Decoder
+    from qamreconciliation_tpu_torch.models.matrix import Matrix
+    from qamreconciliation_tpu_torch.models.noisemapper import NoiseMapper
+    from qamreconciliation_tpu_torch.models.qc_decoder import (
+        QCDecoder, make_qc_ldpc,
+    )
+    from qamreconciliation_tpu_torch.parallel import (
+        ShardedDecoder, ShardedQCDecoder, make_mesh, shard_round,
+    )
+    from qamreconciliation_tpu_torch.sims import sim_bsc, sim_reconciliation
+    from qamreconciliation_tpu_torch.sims.engine import (
+        ReconciliationEngine, round_generator,
+    )
+    from qamreconciliation_tpu_torch.sims.streaming import StreamReconciler
+
+    world = MULTI["world"]
+    mesh = make_mesh(world, "dp", device="cuda")
+    rank = mesh.rank
+    log(f"[multi] rank {rank}: world size {mesh.world}, backend "
+        f"{mesh.backend}, device {mesh.device} "
+        f"({torch.cuda.get_device_name(mesh.device)})")
+    say = log if rank == 0 else (lambda msg: None)
+    fails, launches = [], {name: {} for name in KERNELS}
+    out = {"rank": rank, "fails": fails, "launches": launches, "fps": {}}
+
+    def check(ok, what):
+        if not ok:
+            fails.append(what)
+            log(f"[multi] rank {rank} FAILED: {what}")
+
+    def counted(label, fn):
+        """fn() with the counts set to 0 just before and read just after."""
+        torch.cuda.synchronize()
+        reset_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        got = {n: c for n, c in counts().items() if c}
+        log(f"[multi] rank {rank} {label}: launches {got}")
+        for name, c in got.items():
+            launches[name][label] = c
+        return result
+
+    # what gloo does with CUDA tensors, and the collectives' cost at the
+    # sharded decoders' sizes
+    x = torch.arange(4, dtype=torch.float32, device=mesh.device) + 10 * rank
+    try:
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x)
+        exact = all(torch.equal(parts[k], x - 10 * rank + 10 * k)
+                    for k in range(world))
+        say(f"[multi] gloo all_gather on CUDA tensors: "
+            f"{'exact' if exact else 'WRONG values'}")
+    except RuntimeError as e:
+        say(f"[multi] gloo all_gather on CUDA tensors raises: "
+            f"{str(e).splitlines()[0][:160]}")
+    for label, fn, shape in (
+            ("all_reduce_sum [64800, 128] f32 (ShardedDecoder partials)",
+             mesh.all_reduce_sum, (64800, 128)),
+            ("all_gather [90, 6, 180, 128] f32 (ShardedQCDecoder messages)",
+             mesh.all_gather, (90, 6, 180, 128))):
+        buf = torch.ones(shape, device=mesh.device)
+        times = []
+        for _ in range(4):
+            mesh.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(buf)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        say(f"[multi] {label}: {statistics.median(times[1:]):.2f} ms median "
+            f"of 3 (two ranks on one card, gloo)")
+        out.setdefault("collective_ms", {})[label] = statistics.median(
+            times[1:])
+        del buf
+
+    # 2. frame-shard rounds at the headline
+    pa = PAMAlphabet(2, 2.0)
+    snr, seed = MULTI["snr"], MULTI["seed"]
+    for label, (make, (vid, cid), dtype, kernel) in multi_paths().items():
+        dec = make()
+        mat = Matrix(vid, cid)
+        local = ReconciliationEngine(dec, mat, pa, batch=128, dtype=dtype)
+        nm = local.make_noisemapper(snr, ALTERNATING)
+        sigma = math.sqrt(local.noise_var(snr))
+
+        def one(gen):
+            return local.round("softening", nm, sigma, 1.0, 50,
+                               generator=gen)
+
+        got = counted(f"{label}, world-2 round",
+                      lambda: shard_round(one, mesh)(seed, 0)).tolist()
+        want = [0, 0, 0, 0]
+        for k in range(world):
+            c = one(round_generator(seed, 0, "cuda", rank=k)).tolist()
+            want = [a + b for a, b in zip(want, c)]
+        check(got == want, f"{label}: world-2 counters {got} != the sum of "
+              f"the rank rounds {want}")
+        check(launches[kernel].get(f"{label}, world-2 round", 0) > 0,
+              f"{label}: no {kernel} launch")
+        sharded = ReconciliationEngine(dec, mat, pa, batch=128, dtype=dtype,
+                                       mesh_axis=(mesh, "dp"))
+        r = counted(f"{label}, world-2 point",
+                    lambda: multi_point(sharded))
+        out["fps"][label] = r.frames_per_s
+        say(f"[multi] {label}: world-2 round counters {got} == sum of the "
+            f"two ranks' single rounds {want}; {r.frames} frames at {snr} "
+            f"dB: FER {r.fer:.4f}, {r.frames_per_s:.1f} frames/s at world 2 "
+            f"against {fps1[label]:.1f} at world 1 (two ranks on one card)")
+        del dec, local, sharded
+
+    # 3. graph sharding
+    gs = make_mesh(world, "gs", device="cuda")
+    dvid, dcid = dvbs2_code("1/2")
+    dmat = Matrix(dvid, dcid)
+    lappr, synd = softening_frames(Decoder(dvid, dcid, device="cuda"), dmat,
+                                   ((3.75, 128),), seed=seed)
+    for dt, kw in ((torch.float32, {}),
+                   (torch.bfloat16, dict(check_rule="minsum"))):
+        name = f"{str(dt)[6:]} {'min-sum' if kw else 'phi'}"
+        want = Decoder(dvid, dcid, dt, device="cuda", **kw).decode_batched(
+            lappr, synd, 50)
+        sdec = ShardedDecoder(dvid, dcid, gs, dtype=dt, **kw)
+        t0 = time.perf_counter()
+        got = counted(f"ShardedDecoder DVB-S2 1/2 {name}",
+                      lambda: sdec.decode_batched(lappr, synd, 50))
+        secs = time.perf_counter() - t0
+        ok, diff, beyond, med = shard_finals(got[2], want[2], want[0], dt)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"ShardedDecoder {name}: success or iters differ")
+        check(ok, f"ShardedDecoder {name}: finals differ beyond the tests' "
+              f"rule (max |diff| {diff:.3e}, {beyond} elements beyond "
+              f"{SHARD_TOL[dt]}, largest converged-frame median {med:.3e} "
+              f"of the bound)")
+        say(f"[multi] ShardedDecoder DVB-S2 1/2 {name}, 128 frames at 3.75 "
+            f"dB: success {int(got[0].sum())}/128, iters"
+            f"{' and every hard decision' if dt == torch.float32 else ''} "
+            f"equal to the single device; final max |diff| {diff:.3e}, "
+            f"{beyond} of {got[2].numel()} elements beyond {SHARD_TOL[dt]} "
+            f"(at most {SHARD_BEYOND:g} of them for float32), largest "
+            f"converged-frame median {med:.3e} of that bound; "
+            f"{sdec.iterations_run} iterations, "
+            f"{1e3 * secs / max(sdec.iterations_run, 1):.2f} ms each")
+    base, vid, cid = make_qc_ldpc(CODE["nb_v"], CODE["z"], CODE["dv"],
+                                  CODE["dc"], seed=CODE["seed"])
+    z = CODE["z"]
+    lappr, synd, _ = softening_llrs(base, z, ((4.0, 128),), seed=seed)
+    for dt, kw in ((torch.float32, {}),
+                   (torch.bfloat16, dict(check_rule="minsum"))):
+        name = f"{str(dt)[6:]} {'min-sum' if kw else 'phi'}"
+        want = QCDecoder(base, z, dt, device="cuda", **kw).decode_batched(
+            lappr, synd, 50)
+        sdec = ShardedQCDecoder(base, z, gs, dtype=dt, **kw)
+        t0 = time.perf_counter()
+        got = counted(f"ShardedQCDecoder headline {name}",
+                      lambda: sdec.decode_batched(lappr, synd, 50))
+        secs = time.perf_counter() - t0
+        check(all(map(torch.equal, got, want)),
+              f"ShardedQCDecoder {name}: not torch.equal to the dense "
+              f"decoder")
+        say(f"[multi] ShardedQCDecoder headline {name}, 128 frames at 4.0 "
+            f"dB: torch.equal to the single-device dense decoder "
+            f"({int(got[0].sum())}/128 decoded); {sdec.iterations_run} "
+            f"iterations, {1e3 * secs / max(sdec.iterations_run, 1):.2f} "
+            f"ms each")
+
+    # 4. the CLIs, as ranks of this group
+    qc_csv = os.path.join(work, "qc.csv")
+    common = ["--batch", "128", "--maxiter", "50", "--device", "cuda",
+              "--devices", str(world)]
+    recon = ["--snr", "3.5", "4.0", "--nsnr", "2", "--simloops", "256"]
+    knee = ["--snr", "3.5", "3.5", "--nsnr", "1", "--simloops", "1024",
+            "--ferr-count-min", "1000000000", "--resident", "--dtype",
+            "bfloat16"]
+    out["cli"] = {}
+    for label, module, argv in (
+            ("dense", sim_reconciliation, [qc_csv, "--qc", *recon]),
+            ("resident", sim_reconciliation,
+             [qc_csv, "--qc", "--resident", "--dtype", "bfloat16", *recon]),
+            ("graph-shard", sim_reconciliation,
+             [qc_csv, "--qc", "--graph-shard", *recon]),
+            ("bsc", sim_bsc, [qc_csv, "--qc", "--rber", "0.03", "0.03",
+                              "--rpoints", "1", "--simloops", "256"]),
+            ("knee", sim_reconciliation,
+             [os.path.join(work, "knee.csv"), "--qc", *knee])):
+        res = counted(f"CLI {label}", lambda: module.main(
+            argv + common + ["--out", os.path.join(work, f"{label}.out")]))
+        out["cli"][label] = [(r.snr_dB, r.frames, r.fer, r.frames_per_s)
+                             for r in res]
+        for r in res:
+            say(f"[multi] CLI {label} --devices {world}: point {r.snr_dB}: "
+                f"{r.frames} frames, FER {r.fer:.4f}, mean iters "
+                f"{r.iters:.2f}, {r.frames_per_s:.1f} frames/s (two ranks "
+                f"on one card)")
+    fer2 = out["cli"]["knee"][0][2]
+    bound = fer_bound(knee1, 1024)
+    say(f"[multi] knee watch, resident bf16, 1024 frames at 3.5 dB: FER "
+        f"{fer2:.4f} at --devices 2 against {knee1:.4f} on one device "
+        f"(4 standard errors {bound:.4f})")
+    check(abs(fer2 - knee1) <= bound, f"knee FER {fer2} at world 2 against "
+          f"{knee1} at world 1, beyond {bound:.4f}")
+
+    # 5. the frame-sharded fused stream at the JAX bench's streaming row
+    s_mesh = make_mesh(world, "sdp", device="cuda")
+    N0 = pa.variance * 10 ** (-STREAM["snr"] / 10) / 2
+    nm = NoiseMapper(pa, N0, dtype="bfloat16", device="cuda")
+    mat = Matrix(vid, cid)
+    sdec = QCDecoder(base, z, "bfloat16", device="cuda",
+                     check_rule="minsum", resident=True, resident_chunk=25)
+    stream = stream_data(pa, N0, mat.vnum // 2, STREAM["frames"])
+    res, slaunch, rate = stream_fused_best(
+        lambda: StreamReconciler(sdec, mat, pa, nm, batch=STREAM["batch"],
+                                 mesh_axis=(s_mesh, "sdp")),
+        stream, f"rank {rank} frame-sharded stream_fused, resident min-sum "
+        f"chunk 25, {STREAM['batch'] // world} frames a rank")
+    for name, c in slaunch.items():
+        if c:
+            launches[name]["stream_fused frame-sharded"] = c
+    out["stream"] = (stream_view(res), rate)
+
+    # 6. the dry run
+    out["dryrun"] = counted("dryrun_multichip(2)",
+                            lambda: dryrun_multichip(world, "cuda"))
+    return out
+
+
+def phase_multidevice(kernels):
+    """Multi-device reconciliation (parallel/) on two ranks that share the
+    card (gloo: NCCL takes one rank a card), each rank with the counts set
+    to 0 just before each item and read just after:
+
+    1. kernels 4 and 1 at one rank's shapes against their plain versions
+       (multi_kernels, in this process before the ranks start);
+    2. frame-shard rounds at the headline (4-PAM softening, B = 128 a rank,
+       3.5 dB, 50 iterations) on the dense f32 phi (kernel 1), resident
+       bf16 (kernel 2), resident layered bf16 min-sum (kernel 3) and the
+       exact DVB-S2 1/2 H's generic f32 phi (kernel 4) decoders: the
+       world-2 counters equal the sum of the two ranks' single rounds, and
+       frames/s at world 2 beside world 1 (this process, alone);
+    3. ShardedDecoder on the DVB-S2 1/2 H (128 frames at 3.75 dB, f32 phi
+       and bf16 min-sum) against the single-device Decoder: success and
+       iters equal, finals as the tests bind them (bf16 within one ulp,
+       f32 every hard decision, its magnitudes reported); ShardedQCDecoder
+       on the headline (f32 phi, bf16 min-sum) torch.equal to the dense
+       QCDecoder;
+    4. the CLIs as ranks: sim_reconciliation --qc --devices 2 (dense,
+       --resident), --graph-shard, sim_bsc --devices 2, one CSV each from
+       rank 0; the knee watch at --devices 2 within 4 standard errors of
+       the single-device FER;
+    5. stream_fused frame-sharded at the JAX bench's streaming row (STREAM),
+       equal on all 256 frames to the single-device driver (this process),
+       symbols/s;
+    6. dryrun_multichip(2).
+
+    Each kernel's record gets its per-rank-shape times under
+    ``multidevice_ms`` and its launches on these paths, by rank and item,
+    under ``multidevice_launches``."""
+    from qamreconciliation_tpu_torch.models.alphabet import PAMAlphabet
+    from qamreconciliation_tpu_torch.models.matrix import Matrix
+    from qamreconciliation_tpu_torch.models.noisemapper import NoiseMapper
+    from qamreconciliation_tpu_torch.models.qc_decoder import (
+        QCDecoder, make_qc_ldpc, save_qc_csv,
+    )
+    from qamreconciliation_tpu_torch.parallel.mesh import run_ranks
+    from qamreconciliation_tpu_torch.sims import sim_reconciliation
+    from qamreconciliation_tpu_torch.sims.engine import ReconciliationEngine
+    from qamreconciliation_tpu_torch.sims.streaming import StreamReconciler
+
+    multi_kernels(kernels)
+    pa = PAMAlphabet(2, 2.0)
+    fps1 = {}
+    for label, (make, (vid, cid), dtype, _) in multi_paths().items():
+        eng = ReconciliationEngine(make(), Matrix(vid, cid), pa, batch=128,
+                                   dtype=dtype)
+        eng.run_point("softening", MULTI["snr"], 50, 128, 10 ** 9,
+                      nmconfig=ALTERNATING)              # warm-up
+        fps1[label] = multi_point(eng).frames_per_s
+        del eng
+    base, vid, cid = make_qc_ldpc(CODE["nb_v"], CODE["z"], CODE["dv"],
+                                  CODE["dc"], seed=CODE["seed"])
+    z = CODE["z"]
+    N0 = pa.variance * 10 ** (-STREAM["snr"] / 10) / 2
+    mat = Matrix(vid, cid)
+    stream = stream_data(pa, N0, mat.vnum // 2, STREAM["frames"])
+    sdec = QCDecoder(base, z, "bfloat16", device="cuda", check_rule="minsum",
+                     resident=True, resident_chunk=25)
+    nm = NoiseMapper(pa, N0, dtype="bfloat16", device="cuda")
+    single, _, rate1 = stream_fused_best(
+        lambda: StreamReconciler(sdec, mat, pa, nm, batch=STREAM["batch"]),
+        stream, "single-device stream_fused, resident min-sum chunk 25")
+    with tempfile.TemporaryDirectory() as work:
+        save_qc_csv(os.path.join(work, "qc.csv"), base, z)
+        kbase, _, _ = make_qc_ldpc(KNEE_CODE["nb_v"], KNEE_CODE["z"],
+                                   KNEE_CODE["dv"], KNEE_CODE["dc"],
+                                   seed=KNEE_CODE["seed"])
+        save_qc_csv(os.path.join(work, "knee.csv"), kbase, KNEE_CODE["z"])
+        knee1 = sim_reconciliation.main([
+            os.path.join(work, "knee.csv"), "--qc", "--snr", "3.5", "3.5",
+            "--nsnr", "1", "--simloops", "1024", "--ferr-count-min",
+            "1000000000", "--resident", "--dtype", "bfloat16", "--batch",
+            "128", "--maxiter", "50", "--device", "cuda", "--out",
+            os.path.join(work, "knee1.out")])[0].fer
+        os.remove(os.path.join(work, "knee1.out"))
+        del sdec, nm
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        results = run_ranks(_multidevice_rank, MULTI["world"],
+                            (work, fps1, knee1), device="cuda",
+                            timeout=MULTI["timeout"])
+        log(f"[multi] two ranks ran in {time.perf_counter() - t0:.1f} s")
+        outs = sorted(os.listdir(work))
+    want_files = sorted(["qc.csv", "knee.csv", "dense.out", "resident.out",
+                         "graph-shard.out", "bsc.out", "knee.out"])
+    fails = [f"rank {r['rank']}: {f}" for r in results for f in r["fails"]]
+    if outs != want_files:
+        fails.append(f"CLI outputs {outs}, expected one CSV a CLI")
+    r0 = results[0]
+    if any([row[:3] for row in rows] != [row[:3] for row in r0["cli"][k]]
+           for r in results for k, rows in r["cli"].items()):
+        fails.append("the ranks' CLI results differ")
+    view, rate2 = r0["stream"]
+    if any(r["stream"][0][:4] != view[:4]
+           or not np.array_equal(r["stream"][0][4], view[4])
+           for r in results):
+        fails.append("the ranks' streams differ")
+    want = stream_view(single)
+    if view[:4] != want[:4] or not np.array_equal(view[4], want[4]):
+        fails.append("the frame-sharded stream differs from the "
+                     "single-device one")
+    log(f"[multi] frame-sharded stream_fused == single device on all "
+        f"{view[0]} frames (success, iterations, words, bit errors): "
+        f"{view[:4] == want[:4] and np.array_equal(view[4], want[4])}; "
+        f"{rate2:.1f} symbols/s at world 2 against {rate1:.1f} at world 1 "
+        f"(two ranks on one card)")
+    for line in r0["dryrun"]:
+        log(f"[multi] {line}")
+    if len(r0["dryrun"]) != 7:
+        fails.append(f"dryrun_multichip(2) printed {len(r0['dryrun'])} lines")
+    for name in KERNELS:
+        by_item = {f"rank {r['rank']}: {item}": c for r in results
+                   for item, c in r["launches"][name].items()}
+        record(kernels, name, multidevice_launches=by_item)
+        if name != "check_node_update_fused" and not any(
+                r["launches"][name] for r in results):
+            fails.append(f"{name} was not launched on the multi-device "
+                         f"paths")
+    for f in fails:
+        log(f"[multi] FAILED: {f}")
+    assert not fails, f"phase 16: {len(fails)} check(s) failed"
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     sass_dir = argv[argv.index("--sass") + 1] if "--sass" in argv else None
@@ -2135,7 +2652,8 @@ def main(argv=None):
                         (phase_generic_quality, ()),
                         (phase_modes, (kernels,)),
                         (phase_sweep_surface, (kernels,)),
-                        (phase_streaming, (kernels,))):
+                        (phase_streaming, (kernels,)),
+                        (phase_multidevice, (kernels,))):
         t0 = time.perf_counter()
         phase(*args)
         log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")

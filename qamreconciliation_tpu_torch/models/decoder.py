@@ -249,6 +249,7 @@ class Decoder:
         # the check phase's mask, float32 in every dtype (0/1 exactly)
         self._c_mask_T = torch.as_tensor(g._c_mask_T_np, dtype=torch.float32,
                                          device=self.device)
+        self._c_mask_T_i = g.on(self.device)["c_mask_T_i"]
         self._v_mask_T = torch.as_tensor(g._v_mask_T_np, device=self.device
                                          ).to(self.sum_dtype)
         # the fused check phase; a test may put the plain version
@@ -293,15 +294,19 @@ class Decoder:
 
         Flooding BP until every frame satisfies its syndrome or
         ``max_iterations`` iterations ran, with one host read of "all
-        done?" per iteration.
+        done?" per iteration.  ``iters`` is the 0-based iteration at which
+        a frame first satisfied its syndrome and ``final`` its totals from
+        that moment (captured at convergence); failures report
+        ``max_iterations`` and the totals after the last iteration.
         """
-        g, dev, B = self.graph, self.device, prior_vb.shape[1]
+        dev, B = self.device, prior_vb.shape[1]
         maxiter = int(max_iterations)
         prior = prior_vb.to(dev, self.dtype)
         prior_sum = prior.to(self.sum_dtype)
-        synd = synd_cb.to(dev, torch.int32).contiguous()
+        synd = self._check_synd(synd_cb.to(dev, torch.int32))
 
-        c2v = torch.zeros((g.dc_max, g.cnum, B), dtype=self.dtype, device=dev)
+        c2v = torch.zeros((self.graph.dc_max, synd.shape[0], B),
+                          dtype=self.dtype, device=dev)
         total = prior
         final = prior
         done = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -309,14 +314,14 @@ class Decoder:
         it = 0
         all_done = False
         while it < maxiter and not all_done:
-            t = g.gather_checks(total)                       # gather 1
+            t = self._check_inputs(total)                    # gather 1
             # convergence of the current totals (after iteration it; at
             # it = 0 the test of the prior) and the new messages
             c2v, viol = self.check_phase(
                 t, c2v, synd, self._c_mask_T, rule=self.rule,
                 ms_alpha=self.minsum_alpha, ms_beta=self.minsum_beta,
             )
-            conv = viol.sum(0) == 0
+            conv = self._frame_violations(viol.sum(0)) == 0
             newly = conv & ~done
             iters = torch.where(newly, it, iters)
             done = done | conv
@@ -333,7 +338,7 @@ class Decoder:
 
         # frames that converged at the last allowed iteration exit the loop
         # untested: one final syndrome test covers them
-        conv = g.lappr_consistent(total, synd)
+        conv = self._consistent(total, synd)
         newly = conv & ~done
         iters = torch.where(newly, min(it, maxiter), iters)
         final = torch.where(newly, total, final)
@@ -342,6 +347,31 @@ class Decoder:
         # failures: the totals at max_iterations
         final = torch.where(done, final, total)
         return done, iters, final
+
+    # The steps of decode_batched that a mesh of ranks overrides
+    # (parallel/graph_shard.ShardedDecoder): on one device they cover
+    # every check.
+
+    def _check_synd(self, synd):
+        """synd [C, B] -> the syndrome rows of the checks updated here."""
+        return synd.contiguous()
+
+    def _check_inputs(self, total):
+        """total [V, B] -> the check phase's t [dc_max, C, B] of the checks
+        updated here (gather 1)."""
+        return self.graph.gather_checks(total)
+
+    def _frame_violations(self, viol):
+        """[B] violated checks among those updated here -> among all."""
+        return viol
+
+    def _consistent(self, total, synd):
+        """[B] bool: every check's hard-decision parity equals its
+        syndrome."""
+        bits = (self._check_inputs(total) < 0).to(torch.int32) \
+            * self._c_mask_T_i[:, :, None]
+        parity = torch.sum(bits, dim=0, dtype=torch.int32) & 1
+        return self._frame_violations((parity != synd).sum(0)) == 0
 
     def _build_decode(self):
         """The [V, B] decode entry the engine calls."""

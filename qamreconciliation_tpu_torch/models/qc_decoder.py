@@ -464,18 +464,19 @@ class QCDecoder:
             and len(self._scatter_groups[0][0]) == self.nb_v
         )
 
-    def _gather(self, total, pad_value):
-        """[nb_v, z, B] -> [nb_c, dc, z, B] by the circulant index, padded
-        slots filled with ``pad_value``."""
+    def _gather(self, total, pad_value, idx=None):
+        """[nb_v, z, B] -> [nb_c, dc, z, B] by the circulant index (or the
+        lanes of ``idx``, a part of it: [nb_c, dc, lanes, B]), padded slots
+        filled with ``pad_value``."""
         B = total.shape[-1]
         flat = torch.cat([
             total.reshape(self.vnum, B),
             torch.full((1, B), pad_value, dtype=total.dtype,
                        device=total.device),
         ])
-        return flat.index_select(0, self._gather_idx).view(
-            self.nb_c, self.dc, self.z, B
-        )
+        idx = self._gather_idx if idx is None else idx
+        return flat.index_select(0, idx).view(
+            self.nb_c, self.dc, idx.numel() // (self.nb_c * self.dc), B)
 
     def gather_totals(self, total):
         """total [nb_v, z, B] -> t [nb_c, dc, z, B]; padded slots of short
@@ -546,9 +547,10 @@ class QCDecoder:
             .reshape(self.nb_v, z, B)
         synd = synd_cb.to(self.device, torch.int32).reshape(
             self.nb_c, z, B).contiguous()
+        synd_chk = self._check_synd(synd)
 
-        c2v = torch.zeros((self.nb_c, self.dc, z, B), dtype=self.dtype,
-                          device=self.device)
+        c2v = torch.zeros((self.nb_c, self.dc, synd_chk.shape[1], B),
+                          dtype=self.dtype, device=self.device)
         total = prior
         final = prior
         done = torch.zeros(B, dtype=torch.bool, device=self.device)
@@ -556,12 +558,11 @@ class QCDecoder:
         it = 0
         all_done = False
         while it < max_iterations and not all_done:
-            t = self.gather_totals(total)
             c2v, viol = self.check_phase(
-                t, c2v, synd, rule=self.rule, ms_alpha=self.minsum_alpha,
-                ms_beta=self.minsum_beta,
+                self._check_inputs(total), c2v, synd_chk, rule=self.rule,
+                ms_alpha=self.minsum_alpha, ms_beta=self.minsum_beta,
             )
-            conv = viol.sum(0) == 0
+            conv = self._frame_violations(viol.sum(0)) == 0
             newly = conv & ~done
             iters = torch.where(newly, it, iters)
             done = done | conv
@@ -573,11 +574,12 @@ class QCDecoder:
             if any_new:
                 final = torch.where(newly, total, final)
             total = (
-                prior.to(self.sum_dtype) + self.scatter_partials(c2v)
+                prior.to(self.sum_dtype) + self._var_sums(c2v)
             ).to(self.acc_dtype)
             it += 1
             self.iterations_run += 1
 
+        # the totals cover every lane: the test of every check
         conv = self._consistent(self.gather_totals(total), synd)
         newly = conv & ~done
         iters = torch.where(newly, min(it, max_iterations), iters)
@@ -586,6 +588,28 @@ class QCDecoder:
         iters = torch.where(done, iters, max_iterations)
         final = torch.where(done, final, total)
         return done, iters, final.reshape(self.vnum, B)
+
+    # The steps of _decode_dense that a mesh of ranks overrides
+    # (parallel/graph_shard.ShardedQCDecoder): on one device they cover
+    # every lane.
+
+    def _check_synd(self, synd):
+        """synd [nb_c, z, B] -> the lanes of it updated here."""
+        return synd
+
+    def _check_inputs(self, total):
+        """total [nb_v, z, B] -> the check phase's t [nb_c, dc, lanes, B]
+        of the lanes updated here."""
+        return self.gather_totals(total)
+
+    def _frame_violations(self, viol):
+        """[B] violated checks among the lanes updated here -> among all."""
+        return viol
+
+    def _var_sums(self, c2v):
+        """The messages of the lanes updated here -> every variable's sum
+        [nb_v, z, B] in ``sum_dtype``."""
+        return self.scatter_partials(c2v)
 
     def _consistent_flat(self, total, synd):
         """[B] bool: the hard decision of total [nb_v, z, B] satisfies the

@@ -12,7 +12,9 @@
 Rounds run layout-native: words, LLRs and noise are ``[N, B]``, the
 decoder's layout.  Every point draws its rounds from the sweep seed 0 (the
 reference's fixed key), one generator per round; ``rounds_per_dispatch``
-rounds are summed on the device per host read of the counters.
+rounds are summed on the device per host read of the counters.  With
+``mesh_axis`` each rank runs a full batch a round on its own generator and
+the counters are summed over the ranks, as in ``ReconciliationEngine``.
 """
 
 from __future__ import annotations
@@ -25,8 +27,8 @@ from scipy.special import erfc
 
 from ..config import DEFAULT_DTYPE, as_dtype
 from .engine import (
-    PointResult, bf16_normal, dispatched, point_result, round_generator,
-    run_rounds,
+    PointResult, bf16_normal, mesh_of, point_result, run_rounds,
+    seeded_dispatches,
 )
 
 __all__ = ["BitChannelEngine", "bsc_stop", "biawgn_stop"]
@@ -58,11 +60,13 @@ class BitChannelEngine:
       dtype: LLR/noise dtype.
       rounds_per_dispatch: rounds summed on the device per host read of
         the counters (early exit at ``batch * rounds_per_dispatch``
-        frames).
+        frames, times the ranks on a mesh).
+      mesh_axis: optional ``(mesh, axis_name)``: frame-shard data
+        parallelism over the mesh's ranks, as ``ReconciliationEngine``'s.
     """
 
     def __init__(self, dec, mat, batch: int = 128, dtype=DEFAULT_DTYPE,
-                 rounds_per_dispatch: int = 1):
+                 rounds_per_dispatch: int = 1, mesh_axis=None):
         self.dec = dec
         self.mat = mat
         self.device = dec.device
@@ -84,8 +88,10 @@ class BitChannelEngine:
                 "rounds_per_dispatch * batch * N must stay below 2^31 "
                 "(int32 bit-error counts)"
             )
-        # frames a point advances per dispatch
-        self.frames_per_round = self.batch * self.rounds_per_dispatch
+        self.mesh = mesh_of(mesh_axis)
+        # frames a point advances per dispatch, over every rank
+        self.frames_per_round = self.batch * self.rounds_per_dispatch * (
+            1 if self.mesh is None else self.mesh.world)
 
     def _bernoulli(self, generator, p):
         """int32 [N, B]: float32 uniforms < p (a float32 ``p``)."""
@@ -170,9 +176,8 @@ class BitChannelEngine:
     def _run(self, round_fn, point, simloops, stop, ber_div, seed):
         it0 = self.dec.iterations_run
         total, frames, elapsed = run_rounds(
-            dispatched(
-                lambda r: round_fn(round_generator(seed, r, self.device)),
-                self.rounds_per_dispatch),
+            seeded_dispatches(round_fn, seed, self.rounds_per_dispatch,
+                              self.device, self.mesh),
             max(1, math.ceil(simloops / self.frames_per_round)),
             self.frames_per_round, stop,
         )

@@ -1,4 +1,11 @@
-"""Shared CLI plumbing for the sweep CLIs."""
+"""Shared CLI plumbing for the sweep CLIs.
+
+``--devices D`` runs a sweep on D ranks (``parallel.mesh``): under a
+launcher such as ``torchrun --nproc-per-node D`` each CLI process is a rank
+of the launcher's process group, and from a plain command the CLI starts
+the D ranks itself (:func:`ranks_to_start`).  Only rank 0 prints the
+per-point lines and writes the CSV and the resume journal.
+"""
 
 from __future__ import annotations
 
@@ -11,11 +18,12 @@ import warnings
 
 import torch
 
-from ..config import as_dtype, not_ported
+from ..config import as_dtype
 from ..utils.checkpoint import SweepState
 from .engine import PointResult
 
-__all__ = ["add_engine_args", "add_qc_arg", "engine_kwargs",
+__all__ = ["add_engine_args", "add_qc_arg", "init_runtime",
+           "ranks_to_start", "run_cli", "engine_kwargs",
            "bit_channel_kwargs", "load_decoder", "write_table", "write_csv",
            "pyplot", "sweep", "profiled"]
 
@@ -37,7 +45,9 @@ def add_engine_args(parser: argparse.ArgumentParser):
     )
     parser.add_argument(
         "--devices", type=int, default=1,
-        help="Shard each round over this many devices (not ported yet)",
+        help="Shard each round over this many ranks, one a device, their "
+        "counters summed (under a launcher such as torchrun: its "
+        "WORLD_SIZE; else the CLI starts the ranks itself)",
     )
     parser.add_argument(
         "--llr-exact", action="store_true",
@@ -99,17 +109,72 @@ def add_engine_args(parser: argparse.ArgumentParser):
     )
 
 
+def init_runtime(device="cuda") -> bool:
+    """Per-CLI runtime init: join a launcher's process group
+    (``parallel.mesh.maybe_distributed_init``).  Every sweep ``main()``
+    calls this before touching devices.  True iff a process group is up."""
+    from ..parallel import mesh
+
+    return bool(mesh.maybe_distributed_init(device=device))
+
+
+def ranks_to_start(args) -> int:
+    """How many ranks a CLI run of ``args`` must start itself: 0 when this
+    process runs the sweep (one device, a launcher's rank or a rank this
+    CLI started), else ``args.devices``.  Under a process group
+    ``--devices`` must equal its world size; a launcher whose group failed
+    to start (:func:`init_runtime` warned) cannot run ``--devices > 1``."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import LAUNCHER_VARS
+
+    if init_runtime(args.device):
+        world = dist.get_world_size()
+        if args.devices != world:
+            raise SystemExit(f"--devices {args.devices} must equal the "
+                             f"process group's world size {world}")
+        return 0
+    if args.devices <= 1:
+        return 0
+    if any(v in os.environ for v in LAUNCHER_VARS):
+        raise SystemExit(f"--devices {args.devices}: a launcher set "
+                         f"{'/'.join(LAUNCHER_VARS)} but its process group "
+                         "did not start (see the warning above)")
+    return args.devices
+
+
+def run_cli(main, argv, args):
+    """Start ``args.devices`` ranks, each running ``main(argv)``, and return
+    rank 0's result; None when this process runs the sweep itself
+    (:func:`ranks_to_start`)."""
+    n = ranks_to_start(args)
+    if not n:
+        return None
+    from ..parallel.mesh import run_ranks
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    return run_ranks(main, n, (argv,), device=args.device)[0]
+
+
 def engine_kwargs(args):
-    if args.devices > 1:
-        raise not_ported("--devices > 1", "Multi-GPU")
+    """The engine's keywords of ``args``; with ``--devices > 1``, the
+    frame-shard mesh ``mesh_axis=(mesh, "dp")`` over the running ranks, and
+    ``args.device`` becomes this rank's device."""
     llr_mode = args.llr_mode or ("search" if args.llr_exact else "poly")
-    return dict(
+    kw = dict(
         batch=args.batch,
         dtype=as_dtype(args.dtype),
         llr_mode=llr_mode,
         fy_mode=args.fy_mode,
         rounds_per_dispatch=args.rounds_per_dispatch,
     )
+    if args.devices > 1:
+        from ..parallel import make_mesh
+
+        mesh = make_mesh(args.devices, "dp", device=args.device)
+        args.device = str(mesh.device)
+        kw["mesh_axis"] = (mesh, "dp")
+    return kw
 
 
 def bit_channel_kwargs(args):
@@ -292,8 +357,8 @@ def _report(column, point, r):
     )
 
 
-def sweep(out: str, resume: bool, column: str, points, run_point,
-          batched: bool = False, profile_dir=None, device="cpu"):
+def sweep(out: str, resume: bool, column: str, points, run_point, *,
+          device, batched: bool = False, profile_dir=None, mesh=None):
     """Run the points of the grid that the resume journal of ``out`` does
     not hold, journal each one, write the CSV with ``column`` as the
     point's name, and return the list of :class:`PointResult` in grid
@@ -303,14 +368,30 @@ def sweep(out: str, resume: bool, column: str, points, run_point,
     ``batched``, ``run_point(indices, points) -> [PointResult]`` runs all
     the pending points at once (their grid indices and values).  With
     ``profile_dir``, the first call of ``run_point`` is profiled
-    (:func:`profiled` on ``device``)."""
-    state = SweepState(out, resume=resume)
+    (:func:`profiled` on ``device``, the device every caller names).
+
+    With a ``mesh`` of several ranks every rank runs the same points:
+    rank 0 alone prints the per-point lines, profiles, and writes the
+    journal and the CSV; the other ranks read the journal and check, by a
+    sum over the ranks, that they skip the points rank 0 skips."""
+    writer = mesh is None or mesh.rank == 0
+    state = SweepState(out, resume=resume, writer=writer)
+    if mesh is not None and mesh.world > 1:
+        done = torch.tensor([state.done(p) is not None for p in points],
+                            dtype=torch.int64, device=mesh.device)
+        if not torch.equal(mesh.all_reduce_sum(done.clone()),
+                           done * mesh.world):
+            raise RuntimeError("the ranks read different resume journals")
     fresh = {}
-    first = [profile_dir]
+    first = [profile_dir if writer else None]
 
     def run(*a):
         with profiled(first.pop() if first else None, device):
             return run_point(*a)
+
+    def report(point, r):
+        if writer:
+            _report(column, point, r)
 
     if batched:
         pending = [i for i, point in enumerate(points)
@@ -319,7 +400,7 @@ def sweep(out: str, resume: bool, column: str, points, run_point,
             batch = run(pending, [float(points[i]) for i in pending])
             for i, r in zip(pending, batch):
                 fresh[i] = r
-                _report(column, points[i], r)
+                report(points[i], r)
                 state.record(points[i], dict(
                     ber=r.ber, fer=r.fer, iters=r.iters, frames=r.frames,
                     frames_per_s=r.frames_per_s))
@@ -337,12 +418,13 @@ def sweep(out: str, resume: bool, column: str, points, run_point,
             ))
             continue
         r = run(i, float(point))
-        _report(column, point, r)
+        report(point, r)
         state.record(point, dict(ber=r.ber, fer=r.fer, iters=r.iters,
                                  frames=r.frames,
                                  frames_per_s=r.frames_per_s))
         results.append(r)
-    write_csv(out, column, [r.as_tuple() for r in results])
+    if writer:
+        write_csv(out, column, [r.as_tuple() for r in results])
     state.cleanup()
     return results
 

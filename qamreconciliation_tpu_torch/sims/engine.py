@@ -18,7 +18,9 @@ ferr_count_min and frames > simloops/20``.  Randomness comes from one
 ``torch.Generator`` per (seed, round), so a point's frames do not depend on
 how its rounds are grouped into dispatches.  ``run_sweep_batched`` advances
 every SNR point of a grid in each dispatch, one decode over all their
-frames.
+frames.  With ``mesh_axis`` every rank of the mesh runs a full batch a
+round on its own generator and the counters are summed over the ranks
+(frame-shard data parallelism).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from ..ops.llr import y_to_lappr_gray_bits
 
 __all__ = ["ReconciliationEngine", "PointResult", "round_generator",
            "point_seed", "bf16_normal", "run_rounds", "dispatched",
+           "seeded_dispatches", "mesh_of",
            "simulate_softening_snr_dB", "simulate_direct_snr_dB",
            "simulate_hard_reverse_snr_dB"]
 
@@ -63,11 +66,15 @@ class PointResult:
         return (self.snr_dB, self.ber, self.fer, self.iters)
 
 
-def round_generator(seed: int, r: int, device) -> torch.Generator:
-    """The generator of round ``r`` of a sweep seeded ``seed``."""
-    state = np.random.SeedSequence([int(seed), int(r)]).generate_state(
-        1, np.uint64
-    )[0]
+def round_generator(seed: int, r: int, device, rank=None) -> torch.Generator:
+    """The generator of round ``r`` of a sweep seeded ``seed``: from
+    ``np.random.SeedSequence([seed, r])`` on one device, and from
+    ``SeedSequence([seed, r, rank])`` on rank ``rank`` of a mesh, so the
+    ranks draw decorrelated frames that do not depend on the world size
+    (the JAX package folds the key with the mesh axis index, whose streams
+    torch cannot reproduce)."""
+    entropy = [int(seed), int(r)] + ([] if rank is None else [int(rank)])
+    state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state))
 
 
@@ -143,6 +150,36 @@ def run_rounds(round_fn, n_rounds: int, frames_per_round: int, stop):
     return total, frames, time.perf_counter() - t0
 
 
+def seeded_dispatches(round_fn, seed: int, rounds_per_dispatch: int, device,
+                      mesh=None):
+    """``round_fn(generator) -> counters`` as dispatches of
+    :func:`dispatched`, round ``r`` on ``round_generator(seed, r, device)``.
+    On a mesh, round ``r`` runs on this rank's generator
+    ``round_generator(seed, r, device, mesh.rank)`` and each dispatch's
+    counters are summed over the ranks (one all-reduce a dispatch), so
+    every rank reads the same totals and takes the same stopping
+    decisions."""
+    rank = None if mesh is None else mesh.rank
+    fn = dispatched(lambda r: round_fn(round_generator(seed, r, device, rank)),
+                    rounds_per_dispatch)
+    if mesh is None:
+        return fn
+    return lambda d: mesh.all_reduce_sum(fn(d))
+
+
+def mesh_of(mesh_axis):
+    """The :class:`~qamreconciliation_tpu_torch.parallel.mesh.Mesh` of a
+    ``(mesh, axis_name)`` pair (None for None); the axis must be the
+    mesh's."""
+    if mesh_axis is None:
+        return None
+    mesh, axis = mesh_axis
+    if axis != mesh.axis_name:
+        raise ValueError(f"axis {axis!r} is not the mesh's axis "
+                         f"{mesh.axis_name!r}")
+    return mesh
+
+
 def dispatched(round_fn, rounds_per_dispatch: int):
     """``round_fn(r) -> counters`` grouped into dispatches: dispatch ``d``
     sums rounds ``d*R .. d*R + R - 1`` on the device (no host read between
@@ -196,12 +233,20 @@ class ReconciliationEngine:
         "erf_flat" or "poly" (``NoiseMapper.F_Y``).
       rounds_per_dispatch: rounds summed on the device per host read of
         the counters; early exit coarsens to ``batch * rounds_per_dispatch``
-        frames.
+        frames (times the ranks on a mesh).
+      mesh_axis: optional ``(mesh, axis_name)``
+        (``parallel.mesh.make_mesh``): each rank runs ``batch`` frames a
+        round on its own generator (``round_generator(..., rank)``) and the
+        counters of each dispatch are summed over the ranks, so every rank
+        takes the same stopping decisions; ``frames_per_round`` is
+        ``batch * rounds_per_dispatch * world``.  The decoder lives on this
+        rank's device.
     """
 
     def __init__(self, dec, mat: Matrix, pa: PAMAlphabet, batch: int = 128,
                  dtype=DEFAULT_DTYPE, llr_mode: str = "poly",
-                 fy_mode: str = "erf", rounds_per_dispatch: int = 1):
+                 fy_mode: str = "erf", rounds_per_dispatch: int = 1,
+                 mesh_axis=None):
         if mat.vnum % pa.bit_per_symbol != 0:
             raise ValueError(
                 f"code length {mat.vnum} not divisible by bits/symbol "
@@ -234,8 +279,10 @@ class ReconciliationEngine:
                 "rounds_per_dispatch * batch * K must stay below 2^31 "
                 "(int32 bit-error counts)"
             )
-        # frames a point advances per dispatch
-        self.frames_per_round = self.batch * self.rounds_per_dispatch
+        self.mesh = mesh_of(mesh_axis)
+        # frames a point advances per dispatch, over every rank
+        self.frames_per_round = self.batch * self.rounds_per_dispatch * (
+            1 if self.mesh is None else self.mesh.world)
         self._s2b = torch.as_tensor(pa.s_to_b.astype(np.int32),
                                     device=self.device)
 
@@ -406,8 +453,10 @@ class ReconciliationEngine:
     ) -> PointResult:
         """Run one SNR point until the frame budget or the early-exit rule.
 
-        Round ``r`` draws from ``round_generator(seed, r)``; dispatch ``d``
-        runs rounds ``d*R .. d*R + R - 1`` (``R = rounds_per_dispatch``).
+        Round ``r`` draws from ``round_generator(seed, r)`` (on a mesh,
+        rank ``k`` from ``round_generator(seed, r, rank=k)``, the dispatch's
+        counters summed over the ranks); dispatch ``d`` runs rounds ``d*R
+        .. d*R + R - 1`` (``R = rounds_per_dispatch``).
         Each dispatch's counters are read after the next dispatch was
         issued, so the early-exit decision lags one dispatch (the dispatches
         already issued are counted).  ``timer``, a list, gets the point's
@@ -417,10 +466,10 @@ class ReconciliationEngine:
         sigma = math.sqrt(self.noise_var(snr_dB))
         it0 = self.dec.iterations_run
         total, frames, elapsed = run_rounds(
-            dispatched(lambda r: self.round(
-                mode, nm, sigma, alpha, decoder_iterations,
-                generator=round_generator(seed, r, self.device)),
-                self.rounds_per_dispatch),
+            seeded_dispatches(
+                lambda gen: self.round(mode, nm, sigma, alpha,
+                                       decoder_iterations, generator=gen),
+                seed, self.rounds_per_dispatch, self.device, self.mesh),
             max(1, math.ceil(simulation_loops / self.frames_per_round)),
             self.frames_per_round,
             lambda errs, ferrs, frames: (ferrs >= ferr_count_min
@@ -456,7 +505,10 @@ class ReconciliationEngine:
         decoded beside it, each point's counters equal a sequential
         sweep's.  ``frames_per_s`` and ``bp_iterations`` are the grid's
         (total frames over the wall time, the shared decodes' iterations)
-        on every row: the points share each dispatch.
+        on every row: the points share each dispatch.  On a mesh every
+        rank runs all the points, rank ``k`` on ``round_generator(seeds[p],
+        r, rank=k)``, and the ``[P, 4]`` counters are summed over the
+        ranks.
         """
         points = [float(s) for s in snr_points]
         P = len(points)
@@ -467,6 +519,7 @@ class ReconciliationEngine:
         nms = [self.mode_noisemapper(mode, s, nmconfig) for s in points]
         sigmas = [math.sqrt(self.noise_var(s)) for s in points]
         R = self.rounds_per_dispatch
+        rank = None if self.mesh is None else self.mesh.rank
         n_dispatches = max(1, math.ceil(simulation_loops
                                         / self.frames_per_round))
         totals = np.zeros((P, 4), np.int64)
@@ -478,7 +531,8 @@ class ReconciliationEngine:
             for s in range(R):
                 ins = []
                 for p in pts:
-                    gen = round_generator(seeds[p], d * R + s, self.device)
+                    gen = round_generator(seeds[p], d * R + s, self.device,
+                                          rank)
                     x, y = self._sample_sb(gen, sigmas[p])
                     ins.append(self.round_inputs(mode, nms[p], x, y,
                                                  sigmas[p], alpha))
@@ -487,7 +541,7 @@ class ReconciliationEngine:
                     torch.cat([word for _, word in ins], dim=1),
                     decoder_iterations, points=len(pts))
                 out = counters if out is None else out + counters
-            return out
+            return out if self.mesh is None else self.mesh.all_reduce_sum(out)
 
         def accumulate(pts, out):
             totals[pts] += np.asarray(out.tolist(), np.int64)   # one read

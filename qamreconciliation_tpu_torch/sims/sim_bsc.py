@@ -2,7 +2,8 @@
 
     python -m qamreconciliation_tpu_torch.sims.sim_bsc EDGEFILE [--qc |
         --lift-qc] [--out out.csv] [--maxiter 30] [--minerr 20]
-        [--simloops 30] [--rber 0.01 0.04] [--rpoints 31] [--device cuda] ...
+        [--simloops 30] [--rber 0.01 0.04] [--rpoints 31] [--device cuda]
+        [--devices D] ...
 
 Output CSV: an unnamed index column then ``f,ber,fer,iters``; the LLRs
 have the constant log-base-2 magnitude of the reference (see
@@ -16,7 +17,8 @@ import numpy as np
 from ..models.matrix import Matrix
 from .bitchannel import BitChannelEngine
 from .common import (
-    add_engine_args, add_qc_arg, bit_channel_kwargs, load_decoder, sweep,
+    add_engine_args, add_qc_arg, bit_channel_kwargs, load_decoder, run_cli,
+    sweep,
 )
 
 __all__ = ["build_parser", "main"]
@@ -47,6 +49,9 @@ def main(argv=None):
     """Run the sweep; returns the list of per-point :class:`PointResult`
     (``snr_dB`` holds the flip probability f)."""
     args = build_parser().parse_args(argv)
+    started = run_cli(main, argv, args)
+    if started is not None:
+        return started
     kw = bit_channel_kwargs(args)
     dec, vid, cid = load_decoder(args)
     eng = BitChannelEngine(dec, Matrix(vid, cid), **kw)
@@ -55,7 +60,7 @@ def main(argv=None):
         np.linspace(args.rber[0], args.rber[1], args.rpoints),
         lambda i, f: eng.run_bsc_point(f, args.maxiter, args.simloops,
                                        args.minerr),
-        profile_dir=args.profile_dir, device=args.device,
+        profile_dir=args.profile_dir, device=args.device, mesh=eng.mesh,
     )
 
 

@@ -3,7 +3,7 @@
     python -m qamreconciliation_tpu_torch.sims.sim_decode EDGEFILE [--qc |
         --lift-qc] [--out out.csv] [--maxiter 30] [--minerr 20]
         [--simloops 30] [--snr 0 5] [--nsnr 11] [--alpha 1.0] [--hard]
-        [--device cuda] ...
+        [--device cuda] [--devices D] ...
 
 Output CSV: an unnamed index column then ``EbN0dB,ber,fer,iters``; soft
 LLRs ``2*alpha/v*r``, or ``LLR0*sign(r)`` with ``--hard``.
@@ -16,7 +16,8 @@ import numpy as np
 from ..models.matrix import Matrix
 from .bitchannel import BitChannelEngine
 from .common import (
-    add_engine_args, add_qc_arg, bit_channel_kwargs, load_decoder, sweep,
+    add_engine_args, add_qc_arg, bit_channel_kwargs, load_decoder, run_cli,
+    sweep,
 )
 
 __all__ = ["build_parser", "run_sweep", "main"]
@@ -47,7 +48,8 @@ def build_parser():
 
 def run_sweep(args, snr_column: str):
     """The BI-AWGN sweep of parsed ``args``, the CSV's point column named
-    ``snr_column``; returns the list of per-point :class:`PointResult`."""
+    ``snr_column``; returns the list of per-point :class:`PointResult`.
+    This process is one rank of the sweep (``common.run_cli``)."""
     kw = bit_channel_kwargs(args)
     dec, vid, cid = load_decoder(args)
     eng = BitChannelEngine(dec, Matrix(vid, cid), **kw)
@@ -57,12 +59,16 @@ def run_sweep(args, snr_column: str):
         lambda i, snr: eng.run_biawgn_point(
             snr, args.maxiter, args.simloops, args.minerr,
             alpha=args.alpha, hard=args.hard),
-        profile_dir=args.profile_dir, device=args.device,
+        profile_dir=args.profile_dir, device=args.device, mesh=eng.mesh,
     )
 
 
 def main(argv=None):
-    return run_sweep(build_parser().parse_args(argv), "EbN0dB")
+    args = build_parser().parse_args(argv)
+    started = run_cli(main, argv, args)
+    if started is not None:
+        return started
+    return run_sweep(args, "EbN0dB")
 
 
 if __name__ == "__main__":

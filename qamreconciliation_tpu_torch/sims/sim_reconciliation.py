@@ -9,7 +9,7 @@
         [--schedule layered [--layered-chunk 4] [--layered-groups -1]]
         [--llr-exact | --llr-mode poly|table|interp|search]
         [--fy-mode erf|erf_flat|poly] [--rounds-per-dispatch 1]
-        [--point-batch] [--profile-dir DIR] ...
+        [--point-batch] [--profile-dir DIR] [--devices D [--graph-shard]] ...
 
 EDGEFILE is an expanded ``eid,cid,vid`` edge list (the generic decoder,
 or the QC decoder with a successful ``--lift-qc``) or, with ``--qc``, a
@@ -18,17 +18,24 @@ quasi-cyclic base-edge CSV.  Output CSV: an unnamed index column then
 per round, or with ``--point-batch`` all pending points together, one
 decode over all their frames per round (the same frames and counters per
 point; ``frames_per_s`` is then the grid's on every row).
+
+``--devices D`` runs D ranks (``torchrun --nproc-per-node D``, or started
+by the CLI itself from a plain command): each runs a full batch a round and
+the counters are summed over the ranks.  With ``--graph-shard`` the ranks
+split the code's Tanner graph instead (``parallel/graph_shard.py``: the
+circulant lanes of a QC code, the checks of any other), frames whole.
+Rank 0 writes the CSV and the journal.
 """
 
 import argparse
 
 import numpy as np
 
-from ..config import not_ported
+from ..config import as_dtype
 from ..models.alphabet import PAMAlphabet
 from ..models.matrix import Matrix
 from .common import (
-    add_engine_args, add_qc_arg, engine_kwargs, load_decoder, sweep,
+    add_engine_args, add_qc_arg, engine_kwargs, load_decoder, run_cli, sweep,
 )
 from .engine import ReconciliationEngine, point_seed
 
@@ -72,8 +79,15 @@ def build_parser():
                         help="Instead of the Alternating configuration, use "
                         "the Base configuration")
     parser.add_argument("--graph-shard", action="store_true",
-                        help="Partition the Tanner graph over devices (not "
-                        "ported yet)")
+                        help="Partition the Tanner graph over the --devices "
+                        "ranks (for codes too large for one device); frames "
+                        "stay whole.  Generic codes shard check nodes (the "
+                        "variable partial sums all-reduced an iteration); "
+                        "--qc/--lift-qc codes shard the circulant lane axis "
+                        "(the messages all-gathered an iteration, bit-equal "
+                        "to one device).  Composes with --check-rule/"
+                        "--check-phi/--minsum-alpha/--minsum-beta; mutually "
+                        "exclusive with frame sharding and --point-batch")
     parser.add_argument("--point-batch", action="store_true",
                         help="Advance all pending SNR points per dispatch, "
                         "one decode over all their frames (each point "
@@ -101,10 +115,31 @@ def main(argv=None):
             "--resident is incompatible with --point-batch (the SNR-point "
             "batch cannot wrap the resident decode kernel)"
         )
-    if args.graph_shard:
-        raise not_ported("--graph-shard", "Multi-GPU")
+    started = run_cli(main, argv, args)
+    if started is not None:
+        return started
     eng_kw = engine_kwargs(args)
+    mesh = eng_kw["mesh_axis"][0] if "mesh_axis" in eng_kw else None
+    if args.graph_shard:
+        from ..parallel import make_mesh
+
+        # --devices carries the graph shards here, not frame sharding
+        eng_kw.pop("mesh_axis", None)
+        mesh = make_mesh(args.devices, axis_name="gs", device=args.device)
+        args.device = str(mesh.device)
     dec, vid, cid = load_decoder(args)
+    if args.graph_shard:
+        from ..models.qc_decoder import QCDecoder
+        from ..parallel.graph_shard import ShardedDecoder, ShardedQCDecoder
+
+        gs_kw = dict(dtype=as_dtype(args.dtype), check_rule=args.check_rule,
+                     check_phi=args.check_phi,
+                     minsum_alpha=args.minsum_alpha,
+                     minsum_beta=args.minsum_beta)
+        if isinstance(dec, QCDecoder):
+            dec = ShardedQCDecoder(dec.base_edges, dec.z, mesh, **gs_kw)
+        else:
+            dec = ShardedDecoder(vid, cid, mesh, **gs_kw)
     mat = Matrix(vid, cid)
     pa = PAMAlphabet(args.bps, 2)
 
@@ -131,7 +166,7 @@ def main(argv=None):
         args.out, args.resume, "EsN0dB",
         np.linspace(args.snr[0], args.snr[1], args.nsnr), run,
         batched=args.point_batch, profile_dir=args.profile_dir,
-        device=args.device,
+        device=args.device, mesh=mesh,
     )
 
 

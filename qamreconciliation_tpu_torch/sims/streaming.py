@@ -11,7 +11,8 @@ The Bob-side and Alice-side steps are split as the protocol splits them:
 metrics); ``alice_process`` consumes (softening metrics, Alice's x) with
 Bob's syndromes and emits corrected hard words.  ``bob_step`` /
 ``alice_step`` keep Bob's outputs on the device between the two sides, and
-``stream_fused`` runs both sides in one pass a batch.
+``stream_fused`` runs both sides in one pass a batch, on one device or
+frame-sharded over the ranks of a mesh (``mesh_axis``).
 
 Host arrays are cast to the mapper's dtype on the host before they are
 uploaded (a float64 sample rounds to bf16 through float32, as the JAX
@@ -25,7 +26,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..config import not_ported
+from .engine import mesh_of
 
 __all__ = ["StreamReconciler", "StreamResult", "DeviceHandoff"]
 
@@ -153,7 +154,13 @@ class StreamReconciler:
         newest batch pending and harvests it on the next call.  Drain the
         tails with ``bob_flush()`` / ``alice_flush()``.  Default False
         (emit-immediately semantics).
-      mesh_axis: the JAX package's frame-sharded fused driver; not ported.
+      mesh_axis: optional ``(mesh, axis_name)``
+        (``parallel.mesh.make_mesh``): ``stream_fused`` shards each batch's
+        frames over the mesh's ranks, ``batch / world`` frames a rank
+        (``batch`` must divide), and all-gathers the per-frame outputs in
+        frame order, so every rank's ``StreamResult`` equals the
+        single-device one.  The decoder and the mapper live on this rank's
+        device.  The split and handoff drivers stay single-device.
     """
 
     def __init__(self, dec, mat, pa, nm, batch: int = 32,
@@ -161,8 +168,10 @@ class StreamReconciler:
                  mesh_axis=None):
         if mat.vnum % pa.bit_per_symbol != 0:
             raise ValueError("code length not divisible by bits/symbol")
-        if mesh_axis is not None:
-            raise not_ported("mesh_axis", "Multi-GPU")
+        self.mesh = mesh_of(mesh_axis)
+        if self.mesh is not None and batch % self.mesh.world:
+            raise ValueError(
+                f"batch {batch} must divide over the {self.mesh} mesh")
         self.dec = dec
         self.mat = mat
         self.pa = pa
@@ -230,6 +239,18 @@ class StreamReconciler:
         """Bob's round feeding Alice's, in one pass on the device."""
         words, synd, n_hat = self._bob_round(y)
         return self._alice_handoff_round(n_hat, x, synd, words, max_iter)
+
+    def _sharded_fused_round(self, yb, xb, max_iter):
+        """:meth:`_fused_round` on this rank's ``batch / world`` frames of
+        the host batch ``(yb, xb)``; the outputs all-gathered in frame
+        order, the same on every rank."""
+        mesh = self.mesh
+        b = self.batch // mesh.world
+        lo = mesh.rank * b
+        out = self._fused_round(self._upload_y(yb[lo:lo + b]),
+                                self._upload_x(xb[lo:lo + b]), max_iter)
+        return tuple(mesh.all_gather(o).reshape(self.batch, *o.shape[1:])
+                     for o in out)
 
     def _pad(self, blk):
         """A block of fewer than ``batch`` rows padded by its last row."""
@@ -537,7 +558,7 @@ class StreamReconciler:
         frames complete when both streams cover them.  A batch is read back
         after the next one was issued; the tail is padded once.  Returns a
         StreamResult with per-frame success/iterations, decoded words and
-        bit_errors.
+        bit_errors.  On a mesh every rank must be fed the same streams.
         """
         if isinstance(y_stream, np.ndarray):
             y_stream = [y_stream]
@@ -553,8 +574,12 @@ class StreamReconciler:
         def dispatch(yb, xb, take):
             nonlocal pending
             self.decode_dispatches += 1
-            out = self._fused_round(self._upload_y(yb), self._upload_x(xb),
-                                    int(max_iterations))
+            if self.mesh is None:
+                out = self._fused_round(self._upload_y(yb),
+                                        self._upload_x(xb),
+                                        int(max_iterations))
+            else:
+                out = self._sharded_fused_round(yb, xb, int(max_iterations))
             if pending is not None:
                 self._harvest_packed(res, pending)
             pending = (out, take)

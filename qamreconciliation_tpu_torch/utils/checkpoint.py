@@ -14,10 +14,15 @@ __all__ = ["SweepState"]
 
 
 class SweepState:
-    """Append-per-point sweep journal next to the output CSV."""
+    """Append-per-point sweep journal next to the output CSV.
 
-    def __init__(self, out_csv: str, resume: bool = False):
+    ``writer=False`` (a rank other than 0 of a mesh) reads the journal on
+    ``resume`` and never writes or removes it."""
+
+    def __init__(self, out_csv: str, resume: bool = False,
+                 writer: bool = True):
         self.path = out_csv + ".partial.jsonl"
+        self.writer = writer
         self.rows: dict[float, dict] = {}
         if resume and os.path.exists(self.path):
             with open(self.path) as f:
@@ -27,7 +32,7 @@ class SweepState:
                         continue
                     row = json.loads(line)
                     self.rows[float(row["point"])] = row
-        elif os.path.exists(self.path):
+        elif writer and os.path.exists(self.path):
             os.remove(self.path)
 
     def done(self, point: float) -> dict | None:
@@ -36,9 +41,11 @@ class SweepState:
     def record(self, point: float, values: dict):
         row = {"point": float(point), **values}
         self.rows[float(point)] = row
+        if not self.writer:
+            return
         with open(self.path, "a") as f:
             f.write(json.dumps(row) + "\n")
 
     def cleanup(self):
-        if os.path.exists(self.path):
+        if self.writer and os.path.exists(self.path):
             os.remove(self.path)

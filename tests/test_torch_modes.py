@@ -11,7 +11,6 @@
 * Every path still to port names a ROADMAP item by its title.
 """
 
-import argparse
 import math
 import os
 import re
@@ -240,8 +239,6 @@ def test_unknown_mode_raises():
 def test_not_ported_names_a_roadmap_item_by_title():
     """Each path still to port names, by its title, an item of ROADMAP.md's
     list of modules still to port (so a renumbering cannot make it stale)."""
-    from qamreconciliation_tpu_torch.sims import common, sim_reconciliation
-
     with open(os.path.join(REPO, "ROADMAP.md")) as f:
         roadmap = f.read()
     queue = roadmap[roadmap.index("### 1. Modules still to port"):
@@ -256,8 +253,6 @@ def test_not_ported_names_a_roadmap_item_by_title():
     paths = [
         lambda: QCDecoder(QC[0], 32, device="cpu", compressed=True),
         lambda: QCDecoder(QC[0], 32, device="cpu", sr_messages=True),
-        lambda: common.engine_kwargs(argparse.Namespace(devices=2)),
-        lambda: sim_reconciliation.main(["x.csv", "--graph-shard"]),
     ]
     # the modes of the rest of NoiseMapper and the sweep plumbing run
     NoiseMapper(pa, 0.5, device="cpu", fy_mode="poly")

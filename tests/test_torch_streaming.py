@@ -17,7 +17,8 @@ Tiers:
 
 The bf16 cases build and run the JAX side with x64 off (the tests'
 conftest turns it on, which makes JAX's bf16 ``F_Y`` float64).  The JAX
-mesh case becomes the port's ``not_ported`` error naming "Multi-GPU".
+mesh case runs on a one-rank mesh here; ``tests/test_torch_parallel.py``
+runs it on two ranks.
 """
 
 import jax
@@ -416,15 +417,30 @@ def test_stream_fused_tail_and_uneven_streams(chains):
 
 
 def test_frame_sharded_fused_driver_is_not_ported(chains):
-    """The JAX package's mesh-sharded stream_fused (``mesh_axis``) belongs
-    to the Multi-GPU item."""
+    """The JAX package's mesh-sharded stream_fused (``mesh_axis``) is
+    ported (the Multi-GPU slice): on a one-rank mesh it equals the
+    single-device driver; a batch the mesh's ranks do not divide, or a
+    code length the bits per symbol do not divide, raises as in JAX
+    (``tests/test_torch_parallel.py`` runs two ranks)."""
+    from qamreconciliation_tpu_torch.parallel.mesh import Mesh, make_mesh
+
     c = chains["torch"]
-    with pytest.raises(NotImplementedError, match="'Multi-GPU'"):
-        tstream.StreamReconciler(c.dec, c.mat, c.pa, c.nm, batch=8,
-                                 mesh_axis=(object(), "sdp"))
+    x, y = stream(c, 5, seed=12)
+    mesh = make_mesh(1, "sdp", device="cpu")
+    results = []
+    for kw in ({}, dict(mesh_axis=(mesh, "sdp"))):
+        sr = c.reconciler(batch=4, **kw)
+        results.append((sr.stream_fused(y, x, max_iterations=8),
+                        sr.decode_dispatches))
+    assert_results_equal(results[1][0], results[0][0])
+    assert results[1][1] == results[0][1] == 2
+    two_ranks = Mesh(None, 0, 2, "cpu", "sdp", "gloo")
+    with pytest.raises(ValueError, match="must divide"):
+        tstream.StreamReconciler(c.dec, c.mat, c.pa, c.nm, batch=3,
+                                 mesh_axis=(two_ranks, "sdp"))
     with pytest.raises(ValueError, match="divisible"):
         tstream.StreamReconciler(c.dec, Matrix([0, 1, 2], [0, 0, 0]),
-                                 c.pa, c.nm, mesh_axis=(object(), "sdp"))
+                                 c.pa, c.nm, mesh_axis=(two_ranks, "sdp"))
 
 
 def run_handoff(chain, n_frames=7, batch=3, seed=21):
