@@ -34,7 +34,10 @@ Phases (each must pass, or the script exits non-zero):
   9. kernel 4 (bp_check_phase_generic) against its plain version at the
      DVB-S2 shapes [7, 32400, 128] (rate 1/2) and [14, 16200, 128] (rate
      3/4) with the codes' masks and random ones, every rule and dtype, and
-     kernel 5 (check_node_update_fused) at [32400, 7, 128], bit for bit;
+     kernel 5 (check_node_update_fused) in float32 and bfloat16 at [32400,
+     7, 128] and [16200, 14, 128] (the codes' masks) and [8100, 32, 128]
+     (a random mask), bit for bit, each case with its plan, ms and its
+     instance's ptxas registers and spills (phase_check_major);
  10. the generic decoder on the exact DVB-S2 rate-1/2 H: kernel against
      plain check phase on the card, bit for bit;
  11. main paths, counts set to 0 just before each and read just after: the
@@ -78,7 +81,15 @@ Phases (each must pass, or the script exits non-zero):
      single-device decoder (success, iters and finals as the tests bind
      them), ShardedQCDecoder torch.equal to it; the --devices 2 and --graph-shard CLIs (one CSV,
      rank 0's) and the knee watch at --devices 2; the frame-sharded
-     stream_fused equal to the single-device one; dryrun_multichip(2).
+     stream_fused equal to the single-device one; dryrun_multichip(2);
+ 17. the Tail (phase_tail): compressed-state min-sum against the dense
+     min-sum decode through kernel 1 on identical headline inputs (bf16,
+     3.5 dB), torch.equal on success, iters and finals, ms an iteration of
+     both; the --sr-messages CLI on the headline at 3.5 / 4.0 dB (kernel 1
+     launched no time) and its knee watch held to the JAX package's CPU
+     figure; 8 headline frames of the numpy softening oracle through
+     DecoderNp on the host and the dense decoder on the card, success and
+     hard decisions equal.
 Kernel and plain times are CUDA-event medians, taken in turns (kernels 1, 4
 and 5 over runs of 10 calls, whose host overhead the card's work hides;
 kernels 2 and 3 run K steps a call and report ms per step).  Each
@@ -145,7 +156,7 @@ OPS_PER_SLOT = {"sumproduct": 30, "tanhfb": 20, "minsum": 12}
 CSRC = "qamreconciliation_tpu_torch/csrc"
 PALLAS = "qamreconciliation_tpu/ops/pallas_kernels.py"
 # wrapper in ops/kernels.py -> (its source in csrc/, the TPU kernel it
-# replaces); kernel 5 is a mode of kernel 4's source
+# replaces); kernel 5 is a second kernel in kernel 4's source
 KERNELS = {
     "bp_check_phase_qc": ("bp_check_phase_qc", f"{PALLAS}:158"),
     "bp_decode_rounds_qc": ("bp_decode_rounds_qc", f"{PALLAS}:580"),
@@ -224,8 +235,12 @@ def finish_record(rec):
 
 
 def plan_text(plan):
+    """A staged-tile plan (kernels 1, 4 and 5) as text."""
+    threads = getattr(plan, "threads", None)
+    block = (f"{threads} threads x {plan.blocks_per_sm} an SM, "
+             if threads else "")
     return (f"{plan.path} {plan.checks}x{plan.frames} tile, {plan.stages} "
-            f"stage(s), {plan.grid} blocks, {plan.smem} B smem")
+            f"stage(s), {block}{plan.grid} blocks, {plan.smem} B smem")
 
 
 def resident_plan_text(plan):
@@ -239,7 +254,11 @@ def resident_plan_text(plan):
 PTXAS = {}
 # sources whose kernel instances may not spill
 NO_SPILL = ("bp_decode_rounds_qc", "bp_layered_sweeps_qc",
-            "bp_check_phase_qc")
+            "bp_check_phase_qc", "bp_check_phase_generic")
+
+
+# mangled template argument of each message dtype
+MANGLED = {torch.float32: "f", torch.bfloat16: "13__nv_bfloat16"}
 
 
 def ptxas_of(source, kernel, rule, *dtypes):
@@ -248,10 +267,15 @@ def ptxas_of(source, kernel, rule, *dtypes):
     library, from ptxas's report (its mangled name)."""
     from qamreconciliation_tpu_torch.ops.kernels import RULES
 
-    names = {torch.float32: "f", torch.bfloat16: "13__nv_bfloat16"}
     args = "".join("S1_" if i and dt == dtypes[i - 1] == torch.bfloat16
-                   else names[dt] for i, dt in enumerate(dtypes))
-    key = f"{len(kernel)}{kernel}I{args}Li{RULES[rule]}E"
+                   else MANGLED[dt] for i, dt in enumerate(dtypes))
+    return ptxas_entry(source,
+                       f"{len(kernel)}{kernel}I{args}Li{RULES[rule]}E")
+
+
+def ptxas_entry(source, key):
+    """'N registers, M bytes spill stores' of the kernel instance whose
+    mangled name holds ``key``, from ptxas's report of ``source``."""
     lines = PTXAS[source].splitlines()
     for i, line in enumerate(lines):
         if "entry function" in line and key in line:
@@ -900,13 +924,12 @@ def generic_inputs(mask, B, seed):
 
 def phase_generic_kernels(kernels):
     """Kernel 4 against its plain version at the rate-1/2 shape [7, 32400,
-    128] and the rate-3/4 shape [14, 16200, 128] (MAXD 32) with the codes'
-    masks, every rule and dtype, plus random non-prefix masks; kernel 5 at
-    [32400, 7, 128].  All bit for bit."""
+    128] and the rate-3/4 shape [14, 16200, 128] with the codes' masks,
+    every rule and dtype, plus random non-prefix masks; then kernel 5
+    (phase_check_major).  All bit for bit."""
     from qamreconciliation_tpu_torch.models.decoder import TannerGraph
     from qamreconciliation_tpu_torch.ops.kernels import (
         bp_check_phase_generic, bp_check_phase_generic_ref,
-        check_node_update_fused, check_node_update_fused_ref,
     )
 
     B = 128
@@ -955,23 +978,62 @@ def phase_generic_kernels(kernels):
                 record(kernels, "bp_check_phase_generic", max_abs_err=err,
                        ms=ms, plain_ms=plain_ms, bytes=nbytes,
                        ops=OPS_PER_SLOT[rule] * t.numel())
-        if rate == "1/2":
-            v = data["code"][1][0].transpose(0, 1).contiguous()
-            args = (v, data["code"][1][2], code_mask.T.contiguous())
+    phase_check_major(kernels)
+
+
+def phase_check_major(kernels):
+    """Kernel 5 against its plain version, bit for bit, in float32 and
+    bfloat16: [32400, 7, 128] (the exact DVB-S2 rate-1/2 H and its mask),
+    [16200, 14, 128] (rate 3/4) and [8100, 32, 128] with a random mask;
+    each case prints its plan, ms (CUDA events over runs of 10 calls) and
+    its instance's ptxas registers and spills."""
+    from qamreconciliation_tpu_torch.models.decoder import TannerGraph
+    from qamreconciliation_tpu_torch.ops.kernels import (
+        check_node_update_fused, check_node_update_fused_ref,
+    )
+
+    B = 128
+    masks = {}
+    for rate in ("1/2", "3/4"):
+        g = TannerGraph(*dvbs2_code(rate), device="cuda")
+        masks[rate] = torch.as_tensor(g._c_mask_T_np, dtype=torch.float32,
+                                      device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    masks["dc 32"] = (torch.rand((32, 8100), generator=gen, device="cuda")
+                      < 0.8).float()
+    for dt in (torch.float32, torch.bfloat16):
+        regs = ptxas_entry("bp_check_phase_generic",
+                           f"check_major_tile_kernelI{MANGLED[dt]}E")
+        log(f"[kernel5] {str(dt)[6:]} instance: ptxas {regs}")
+        assert regs.endswith(" 0 bytes spill stores"), "kernel 5 spills"
+    for which, mask in masks.items():
+        t, _, synd = generic_inputs(mask, B, 3)
+        v32 = t.transpose(0, 1).contiguous()
+        cmask = mask.T.contiguous()
+        for dt in (torch.float32, torch.bfloat16):
+            args = (v32.to(dt), synd, cmask)
             got = check_node_update_fused(*args)
             want = check_node_update_fused_ref(*args)
             torch.cuda.synchronize()
-            assert torch.equal(got, want), "kernel 5: not bit-equal"
+            assert torch.equal(got, want), \
+                f"kernel 5 {which} {dt}: not bit-equal"
+            plan = check_node_update_fused.plan
+            assert plan.path == "staged", plan
             ms, plain_ms = events_ms(
                 lambda: check_node_update_fused(*args),
                 lambda: check_node_update_fused_ref(*args),
                 reps=5, warmup=2, run=10)
-            log(f"[kernel5] {tuple(v.shape)} f32 phi bit-equal kernel "
-                f"{ms:.4f} ms  plain {plain_ms:.4f} ms")
-            record(kernels, "check_node_update_fused", max_abs_err=float(
-                (got - want).abs().max()), ms=ms, plain_ms=plain_ms,
-                bytes=moved(*args, got),
-                ops=OPS_PER_SLOT["sumproduct"] * v.numel())
+            nbytes = moved(args[0], synd, cmask, got)
+            bound = 1e3 * nbytes / HBM_BYTES_PER_S
+            log(f"[kernel5] {which} {tuple(args[0].shape)} {str(dt)[6:]} "
+                f"phi bit-equal kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+                f"  {nbytes / 1e6:.1f} MB, memory bound {bound:.4f} ms "
+                f"({100 * bound / ms:.1f}%)  [{plan_text(plan)}]")
+            if which == "1/2" and dt == torch.float32:
+                record(kernels, "check_node_update_fused", max_abs_err=float(
+                    (got - want).abs().max()), ms=ms, plain_ms=plain_ms,
+                    bytes=nbytes,
+                    ops=OPS_PER_SLOT["sumproduct"] * got.numel())
 
 
 def phase_generic_decoder():
@@ -2620,6 +2682,128 @@ def phase_multidevice(kernels):
     assert not fails, f"phase 16: {len(fails)} check(s) failed"
 
 
+# ------------------------------------------------------------------------
+# The Tail: compressed-state min-sum, stochastically rounded messages, the
+# numpy oracles (phase 17)
+
+# the JAX package's own FER at the knee configuration with the SR flags
+# (dense bf16 tanh-F/B, --sr-messages) on the CPU:
+#   JAX_PLATFORMS=cpu python scripts/run_r5_knee.py \
+#       --configs "dense bf16 tanhfb SR"
+# and its TPU figure (BASELINE.md:727), printed beside it
+KNEE_SR_FER_CPU = 0.52734375
+KNEE_SR_FER_TPU = 0.5889
+# the oracle frames: 8 headline frames at this point (4-PAM, Alternating)
+ORACLE = dict(frames=8, snr=4.5, seed=1)
+
+
+def timed_decode(dec, lappr, synd, maxiter=50):
+    """(success, iters, final), ms an iteration, iterations run."""
+    dec.iterations_run = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = dec.decode_batched(lappr, synd, maxiter)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return out, ms / max(dec.iterations_run, 1), dec.iterations_run
+
+
+def phase_tail():
+    """Compressed-state min-sum against the dense min-sum decode through
+    kernel 1 on identical headline inputs (bf16, 3.5 dB, B = 128),
+    torch.equal on success, iters and finals, ms an iteration of both;
+    the --sr-messages CLI on the headline at 3.5 / 4.0 dB (the plain check
+    update: kernel 1 launched no time); the --sr-messages knee watch held
+    to the JAX package's CPU figure; 8 headline frames of the numpy
+    softening oracle through DecoderNp on the host and the dense decoder
+    on the card, success and hard decisions compared."""
+    from qamreconciliation_tpu_torch.models.alphabet import PAMAlphabet
+    from qamreconciliation_tpu_torch.models.decoder_np import DecoderNp
+    from qamreconciliation_tpu_torch.models.noisemapper import NoiseMapper
+    from qamreconciliation_tpu_torch.models.qc_decoder import (
+        QCDecoder, make_qc_ldpc,
+    )
+    from qamreconciliation_tpu_torch.utils.reference_np import (
+        softening_frames_np,
+    )
+
+    base, vid, cid = make_qc_ldpc(CODE["nb_v"], CODE["z"], CODE["dv"],
+                                  CODE["dc"], seed=CODE["seed"])
+    z = CODE["z"]
+    lappr, synd, _ = softening_llrs(base, z, ((3.5, 128),), seed=11)
+    outs = {}
+    for compressed in (False, True):
+        dec = QCDecoder(base, z, "bfloat16", device="cuda",
+                        check_rule="minsum", compressed=compressed)
+        timed_decode(dec, lappr, synd, 3)                   # warm-up
+        reset_counts()
+        out, ms, its = timed_decode(dec, lappr, synd)
+        launches = counts()["bp_check_phase_qc"]
+        label = "compressed" if compressed else "dense"
+        log(f"[tail] headline bf16 min-sum 3.5 dB, {label}: "
+            f"{int(out[0].sum())}/128 decoded, {its} iterations, "
+            f"{ms:.3f} ms an iteration, kernel 1 launches {launches}")
+        assert launches == (0 if compressed else its) and its > 0
+        outs[label] = out
+    for a, b in zip(outs["compressed"], outs["dense"]):
+        assert torch.equal(a, b), "compressed != dense min-sum"
+    log("[tail] compressed == dense min-sum through kernel 1 (torch.equal "
+        "on success, iters, finals)")
+
+    res, launches, _ = run_cli(qc_code(base, z), [
+        "--dtype", "bfloat16", "--sr-messages", "--snr", "3.5", "4.0",
+        "--nsnr", "2", "--simloops", "256"], "tail sr headline")
+    assert launches["bp_check_phase_qc"] == 0
+    assert sum(r.bp_iterations for r in res) > 0
+    assert res[1].fer <= res[0].fer + 0.05
+
+    kz = KNEE_CODE["z"]
+    kbase, _, _ = make_qc_ldpc(KNEE_CODE["nb_v"], kz, KNEE_CODE["dv"],
+                               KNEE_CODE["dc"], seed=KNEE_CODE["seed"])
+    res, launches, _ = run_cli(qc_code(kbase, kz), [
+        "--dtype", "bfloat16", "--check-phi", "tanhfb", "--sr-messages",
+        "--snr", "3.5", "3.5", "--nsnr", "1", "--simloops", "1024",
+        "--ferr-count-min", "1000000000"], "tail sr knee")
+    fer, p = res[0].fer, KNEE_SR_FER_CPU
+    assert res[0].frames == 1024 and launches["bp_check_phase_qc"] == 0
+    bound = 4 * math.sqrt(2 * p * (1 - p) / 1024)
+    log(f"[knee] flooding CLI --dtype bfloat16 --check-phi tanhfb "
+        f"--sr-messages FER {fer:.4f}  JAX CPU {p:.4f} (bound "
+        f"+-{bound:.4f}); JAX TPU {KNEE_SR_FER_TPU}")
+    assert abs(fer - p) <= bound, (fer, p, bound)
+
+    pa = PAMAlphabet(2, 2.0)
+    N0 = pa.variance * 10 ** (-ORACLE["snr"] / 10) / 2
+    nm = NoiseMapper(pa, N0, ALTERNATING, dtype=torch.float64, device="cpu")
+    t0 = time.perf_counter()
+    oracle = DecoderNp(vid, cid)
+    # 4-PAM: two bits a symbol
+    lap, word = softening_frames_np(nm, pa, ORACLE["frames"],
+                                    CODE["nb_v"] * z // 2,
+                                    seed=ORACLE["seed"])
+    host = [oracle.decode(lap[f], oracle.eval_syndrome(word[f]), 50)
+            for f in range(ORACLE["frames"])]
+    host_s = time.perf_counter() - t0
+    dec = QCDecoder(base, z, device="cuda")
+    wsynd = dec.syndrome_from_bits(torch.as_tensor(word.T, device="cuda"))
+    reset_counts()
+    s, i, fin = dec.decode_batched(torch.as_tensor(lap.T, device="cuda"),
+                                   wsynd, 50)
+    assert counts()["bp_check_phase_qc"] == dec.iterations_run > 0
+    same_s = [bool(s[f]) == host[f][0] for f in range(ORACLE["frames"])]
+    same_hd = [torch.equal(fin[:, f].cpu() < 0,
+                           torch.from_numpy(host[f][2] < 0))
+               for f in range(ORACLE["frames"])]
+    log(f"[tail] oracle: {ORACLE['frames']} headline frames at "
+        f"{ORACLE['snr']} dB, softening_frames_np -> DecoderNp on the host "
+        f"({host_s:.1f} s; success {[h[0] for h in host]}, iters "
+        f"{[h[1] for h in host]}) and the dense f32 phi decoder on the card "
+        f"(iters {i.tolist()}): success agrees {sum(same_s)}/"
+        f"{ORACLE['frames']}, hard decisions agree {sum(same_hd)}/"
+        f"{ORACLE['frames']}")
+    assert all(same_s) and all(same_hd)
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     sass_dir = argv[argv.index("--sass") + 1] if "--sass" in argv else None
@@ -2653,7 +2837,8 @@ def main(argv=None):
                         (phase_modes, (kernels,)),
                         (phase_sweep_surface, (kernels,)),
                         (phase_streaming, (kernels,)),
-                        (phase_multidevice, (kernels,))):
+                        (phase_multidevice, (kernels,)),
+                        (phase_tail, ())):
         t0 = time.perf_counter()
         phase(*args)
         log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")

@@ -31,16 +31,6 @@ def as_dtype(dtype) -> torch.dtype:
         raise ValueError(f"unsupported dtype {dtype!r}") from None
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for a path of the JAX package this port does not have yet,
-    naming by its title the item of ``ROADMAP.md``'s list of modules still
-    to port that ports it."""
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, modules still to port, "
-        f"item '{item}')"
-    )
-
-
 def finite_llr_max(dtype) -> float:
     """A large-but-safe LLR magnitude for the given dtype.
 

@@ -1,8 +1,8 @@
 // Device math shared by the BP kernels: loads and stores in the message
-// dtype, rounding to the storage type, phi(x) = -log(tanh(x/2)) (both
-// regimes, and the branching form that evaluates only the regime taken), the
-// tanh-F/B saturation of a degree-1 check, and the masked phi magnitudes of
-// kernel 5.  Users: bp_check_tile.cuh (kernels 1 and 4, through
+// dtype, rounding to the storage type, phi(x) = -log(tanh(x/2)) (the
+// branching form that evaluates only the regime taken, in float32 or with
+// every operation rounded to the message dtype), and the tanh-F/B saturation
+// of a degree-1 check.  Users: bp_check_tile.cuh (kernels 1 and 4, through
 // bp_check_phase_qc.cu and bp_check_phase_generic.cu), bp_resident.cuh
 // (kernels 2 and 3, through bp_decode_rounds_qc.cu and
 // bp_layered_sweeps_qc.cu) and bp_check_phase_generic.cu (kernel 5).  Each
@@ -53,19 +53,11 @@ __device__ __forceinline__ float round_as<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// phi(x) = -log(tanh(x/2)), two regimes split at 10 (ops/boxplus.phi_llr).
-__device__ __forceinline__ float phi_llr(float x, float tiny) {
-  x = fmaxf(x, tiny);
-  const float ex = expf(-fmaxf(x, 10.0f));
-  const float big = log1pf(ex) - log1pf(-ex);
-  const float small = -logf(tanhf(fminf(x, 10.0f) / 2.0f));
-  return x < 10.0f ? small : big;
-}
-
-// phi_llr evaluating only the regime x takes: the same function on the same
-// input, so the same bits, at about half the instructions.  The _rn
-// intrinsics keep the compiler from contracting the halving or the
-// difference into a neighbouring operation of the caller.
+// phi(x) = -log(tanh(x/2)) as ops/boxplus.phi_llr computes it in float32
+// (two regimes split at 10), evaluating only the regime x takes: the same
+// function on the same input, so the same bits, at about half the
+// instructions.  The _rn intrinsics keep the compiler from contracting the
+// halving or the difference into a neighbouring operation of the caller.
 __device__ __forceinline__ float phi_llr_branch(float x, float tiny) {
   x = fmaxf(x, tiny);
   if (x < 10.0f) return -logf(tanhf(__fmul_rn(x, 0.5f)));
@@ -79,25 +71,28 @@ inline float tanh_saturation() {
   return (float)(std::log1p(1.0 - 6e-8) - std::log1p(-(1.0 - 6e-8)));
 }
 
-// The phi magnitudes of a padded row, slot d real when m[d] > 0 (the
-// generic decoder's mask, any float): phi(|v|) * m, then the left-fold sum.
-// Padded slots' magnitudes are finite, and the caller multiplies them by m.
-template <int MAXD>
-__device__ __forceinline__ void masked_phi_magnitudes(const float (&v)[MAXD],
-                                                      const float (&m)[MAXD],
-                                                      int dc, float tiny,
-                                                      float (&mag)[MAXD]) {
-  float sum = 0.0f;
-#pragma unroll
-  for (int d = 0; d < MAXD; ++d) {
-    if (d < dc) {
-      mag[d] = __fmul_rn(phi_llr(fabsf(v[d]), tiny), m[d]);
-      sum += mag[d];
-    }
-  }
-#pragma unroll
-  for (int d = 0; d < MAXD; ++d)
-    if (d < dc) mag[d] = phi_llr(sum - mag[d], tiny);
+// phi_llr_branch in the message dtype T, in three parts: ops/boxplus.phi_llr
+// run on T tensors rounds every operation's float result to T (the clamp;
+// tanh and log; exp, log1p and their difference), and so do these.  For
+// float they are phi_llr_branch.  phi_small is the regime x < 10 and is
+// finite for any x >= 0, so a caller can run it on several values in
+// lockstep, with no branch between their chains, and replace the result by
+// phi_large only where x >= 10.
+template <typename T>
+__device__ __forceinline__ float phi_clamp(float x, float tiny) {
+  return round_as<T>(fmaxf(x, tiny));
+}
+
+template <typename T>
+__device__ __forceinline__ float phi_small(float x) {
+  return -round_as<T>(logf(round_as<T>(tanhf(__fmul_rn(x, 0.5f)))));
+}
+
+template <typename T>
+__device__ __forceinline__ float phi_large(float x) {
+  const float ex = round_as<T>(expf(-x));
+  return round_as<T>(
+      __fsub_rn(round_as<T>(log1pf(ex)), round_as<T>(log1pf(-ex))));
 }
 
 }  // namespace bp

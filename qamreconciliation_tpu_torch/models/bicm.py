@@ -6,7 +6,8 @@ The binary-reflected Gray code of symbol ``s`` is ``s ^ (s >> 1)``; column
 
 import numpy as np
 
-__all__ = ["generate_table_s_to_b", "gray_bit_masks"]
+__all__ = ["generate_table_s_to_b", "generate_error_number_table",
+           "gray_bit_masks"]
 
 
 def generate_table_s_to_b(log_order: int) -> np.ndarray:
@@ -20,6 +21,17 @@ def generate_table_s_to_b(log_order: int) -> np.ndarray:
     gray = s ^ (s >> 1)
     k = np.arange(log_order, dtype=np.int64)
     return ((gray[:, None] >> k[None, :]) & 1).astype(np.uint8)
+
+
+def generate_error_number_table(s_to_b: np.ndarray) -> np.ndarray:
+    """Pairwise Hamming distance between symbol bit labels.
+
+    ``n_err[i, j]`` = number of bit errors when symbol ``a_i`` is decided
+    given ``a_j`` was transmitted.  Symmetric, zero diagonal.
+    """
+    s_to_b = np.asarray(s_to_b, dtype=np.int64)
+    diff = s_to_b[:, None, :] ^ s_to_b[None, :, :]
+    return diff.sum(axis=-1).astype(np.int64)
 
 
 def gray_bit_masks(log_order: int) -> np.ndarray:

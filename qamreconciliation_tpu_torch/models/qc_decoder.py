@@ -5,12 +5,16 @@ base edges ``(check_block, var_block, shift)``: variable ``vb*z + k`` meets
 check ``cb*z + ((k + shift) % z)``.  The decode state keeps the JAX
 package's layouts (frames last): totals ``[nb_v, z, B]``, messages
 ``[nb_c, dc, z, B]`` (dense path) or flat ``[E, z, B]`` (resident and
-layered paths).  Four decode loops, as in
+layered paths).  The decode loops of
 ``qamreconciliation_tpu.models.qc_decoder.QCDecoder``:
 
 * dense flooding: per iteration the totals are gathered into the message
   layout, the fused check phase runs (ops/kernels.bp_check_phase_qc) and
-  the new messages are summed back per variable in a fixed order;
+  the new messages are summed back per variable in a fixed order; with
+  ``sr_messages`` the plain check update runs instead and its bf16 message
+  stores are stochastically rounded;
+* compressed-state min-sum flooding: the messages kept as two magnitudes
+  and a packed argmin/sign word per check, in plain PyTorch;
 * resident flooding: ``resident_chunk`` iterations per call of
   ops/kernels.bp_decode_rounds_qc, with one host read per call;
 * layered: serial-C sweeps over the block rows in plain PyTorch, the
@@ -28,11 +32,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import DEFAULT_DTYPE, as_dtype, not_ported
-from ..ops.boxplus import BIG, MINSUM_ALPHA
+from ..config import DEFAULT_DTYPE, as_dtype
+from ..ops.boxplus import (
+    BIG, MINSUM_ALPHA, minsum_mag, stochastic_round_bf16,
+)
 from ..ops.kernels import (
-    QCTables, bp_check_phase_qc, bp_decode_rounds_qc, bp_layered_sweeps_qc,
-    layered_sweep,
+    QCTables, bp_check_phase_qc, bp_check_phase_qc_ref, bp_decode_rounds_qc,
+    bp_layered_sweeps_qc, layered_sweep,
 )
 
 __all__ = ["QCDecoder", "make_qc_ldpc", "make_qc_ira", "color_disjoint_rows",
@@ -282,7 +288,18 @@ class QCDecoder:
         devices (a doubled VMEM totals buffer, the VMEM z-chunk and the
         register-pressure row split), and the Hopper kernels pick their
         own launch shapes.  ``resident_rowgroup == 1`` is still refused.
-      compressed, sr_messages: the JAX decoder's other paths; not ported.
+      compressed: the compressed-state min-sum flooding loop
+        (:meth:`_decode_compressed`): each check's messages kept as two
+        magnitudes and a packed argmin/sign word, bit-identical to the
+        dense min-sum decode.  Flooding, min-sum, check degree <= 26 and
+        not resident only.
+      sr_messages: stochastically round the bf16 message stores of the
+        dense flooding loop (:func:`~qamreconciliation_tpu_torch.ops.
+        boxplus.stochastic_round_bf16`), with bits from a generator seeded
+        0x5eed at every decode, one draw an iteration, so a decode is
+        deterministic given its inputs.  bfloat16 and the dense flooding
+        path only; it runs the plain check update, as the JAX package runs
+        its XLA one, because kernel 1 rounds to nearest inside.
     """
 
     def __init__(self, base_edges, z: int, dtype=DEFAULT_DTYPE, *,
@@ -337,10 +354,19 @@ class QCDecoder:
         self.resident_rowgroup = (
             None if resident_rowgroup is None else int(resident_rowgroup)
         )
-        if compressed:
-            raise not_ported("compressed=True", "Tail")
-        if sr_messages:
-            raise not_ported("sr_messages=True", "Tail")
+        self.compressed = bool(compressed)
+        if self.compressed and check_rule != "minsum":
+            raise ValueError(
+                "compressed=True requires check_rule='minsum' (exact "
+                "sum-product magnitudes are not selection-compressible)")
+        self.sr_messages = bool(sr_messages)
+        if self.sr_messages:
+            if self.dtype != torch.bfloat16:
+                raise ValueError("sr_messages=True requires bfloat16 "
+                                 "message storage")
+            if resident or compressed or schedule != "flooding":
+                raise ValueError("sr_messages=True supports only the "
+                                 "dense flooding path")
         if totals_dtype not in ("storage", "float32"):
             raise ValueError(f"unknown totals_dtype {totals_dtype!r}")
         self.totals_dtype = totals_dtype
@@ -379,6 +405,10 @@ class QCDecoder:
                 "check_rule='minsum' requires check-block degree >= 2 "
                 "(degree-1 checks have no finite min-sum extrinsic)"
             )
+        if self.compressed and self.dc > 26:
+            raise ValueError(
+                "compressed=True packs per-slot signs into an int32 meta "
+                "word: check degree must be <= 26")
         # magnitude rule of the dense and layered paths
         self.rule = (
             "tanhfb"
@@ -536,11 +566,15 @@ class QCDecoder:
             return self._decode_layered(prior_vb, synd_cb, max_iterations)
         if self.resident:
             return self._decode_resident(prior_vb, synd_cb, max_iterations)
+        if self.compressed:
+            return self._decode_compressed(prior_vb, synd_cb,
+                                           max_iterations)
         return self._decode_dense(prior_vb, synd_cb, max_iterations)
 
     def _decode_dense(self, prior_vb, synd_cb, max_iterations: int):
         """The dense flooding loop: one check-phase kernel call and one
-        host read per iteration."""
+        host read per iteration (with ``sr_messages``, the stochastically
+        rounded plain check update in place of the kernel)."""
         z, B = self.z, prior_vb.shape[1]
         max_iterations = int(max_iterations)
         prior = prior_vb.to(self.device, self.dtype).to(self.acc_dtype) \
@@ -555,30 +589,51 @@ class QCDecoder:
         final = prior
         done = torch.zeros(B, dtype=torch.bool, device=self.device)
         iters = torch.zeros(B, dtype=torch.int32, device=self.device)
+        gen = None
+        if self.sr_messages:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(0x5eed)
         it = 0
         all_done = False
         while it < max_iterations and not all_done:
-            c2v, viol = self.check_phase(
-                self._check_inputs(total), c2v, synd_chk, rule=self.rule,
-                ms_alpha=self.minsum_alpha, ms_beta=self.minsum_beta,
-            )
+            if gen is None:
+                c2v, viol = self.check_phase(
+                    self._check_inputs(total), c2v, synd_chk,
+                    rule=self.rule, ms_alpha=self.minsum_alpha,
+                    ms_beta=self.minsum_beta,
+                )
+            else:
+                c2v, viol = self._sr_check_phase(total, c2v, synd_chk, gen)
             conv = self._frame_violations(viol.sum(0)) == 0
-            newly = conv & ~done
-            iters = torch.where(newly, it, iters)
-            done = done | conv
-            # one host read per iteration: skip the snapshot when no frame
-            # newly converged, stop when all have
-            any_new, all_done = torch.stack(
-                [newly.any(), done.all()]
-            ).tolist()
-            if any_new:
-                final = torch.where(newly, total, final)
+            final, done, iters, all_done = self._record_converged(
+                conv, it, total, final, done, iters)
             total = (
                 prior.to(self.sum_dtype) + self._var_sums(c2v)
             ).to(self.acc_dtype)
             it += 1
             self.iterations_run += 1
+        return self._finish_flooding(total, final, done, iters, synd, it,
+                                     max_iterations)
 
+    def _record_converged(self, conv, it, total, final, done, iters):
+        """The flooding loops' bookkeeping of iteration ``it``: frames
+        whose pre-update totals satisfy their syndrome (``conv``) and were
+        not done take ``iters == it`` and ``final == total``.  One host read
+        an iteration: the snapshot is skipped when no frame newly
+        converged, and the last value says whether every frame is done."""
+        newly = conv & ~done
+        iters = torch.where(newly, it, iters)
+        done = done | conv
+        any_new, all_done = torch.stack([newly.any(), done.all()]).tolist()
+        if any_new:
+            final = torch.where(newly, total, final)
+        return final, done, iters, all_done
+
+    def _finish_flooding(self, total, final, done, iters, synd, it,
+                         max_iterations):
+        """The flooding loops' tail: frames that converge on the last
+        update count ``min(it, max_iterations)``; failed frames report
+        ``max_iterations`` and their last totals."""
         # the totals cover every lane: the test of every check
         conv = self._consistent(self.gather_totals(total), synd)
         newly = conv & ~done
@@ -587,7 +642,110 @@ class QCDecoder:
         done = done | conv
         iters = torch.where(done, iters, max_iterations)
         final = torch.where(done, final, total)
-        return done, iters, final.reshape(self.vnum, B)
+        return done, iters, final.reshape(self.vnum, total.shape[-1])
+
+    def _sr_check_phase(self, total, c2v, synd_chk, gen):
+        """The check phase of the stochastically rounded loop: the plain
+        check update (``bp_check_phase_qc_ref``: f32 subtraction of the
+        bf16-stored operands, the rule's magnitudes in f32) with its f32
+        messages rounded to bf16 by :func:`stochastic_round_bf16`.  One
+        draw of random bits an iteration, every lane's, of which this
+        decoder's lanes are kept.
+
+        The JAX source writes ``t - c2v`` in the totals' dtype and widens
+        after, but XLA fuses the bf16 subtraction with the widening and
+        drops its rounding, so the compiled JAX update subtracts in f32
+        too: on the same bits the two decodes are bit-equal
+        (tests/test_torch_sr.py), and a bf16-rounded ``v2c`` is not."""
+        nb_c, dc, z, B = self.nb_c, self.dc, self.z, total.shape[-1]
+        rbits = torch.randint(0, 1 << 16, (nb_c, dc, z, B), generator=gen,
+                              device=self.device, dtype=torch.int32)
+        new, viol = bp_check_phase_qc_ref(
+            self._check_inputs(total), c2v.float(), synd_chk,
+            rule=self.rule, ms_alpha=self.minsum_alpha,
+            ms_beta=self.minsum_beta)
+        return stochastic_round_bf16(new, self._check_lanes(rbits)), viol
+
+    def _decode_compressed(self, prior_vb, synd_cb, max_iterations: int):
+        """Compressed-state normalized/offset min-sum flooding loop (the JAX
+        package's ``_build_compressed``).
+
+        Min-sum's check->variable messages are selections: every slot of a
+        check sees ``m1`` (the scaled minimum) except the unique argmin
+        slot, which sees ``m2`` (the scaled second minimum).  So the loop
+        keeps three per-check tensors ``[nb_c, z, B]`` in place of the
+        dense messages: ``m1`` and ``m2`` in the message dtype and an int32
+        ``meta`` (bits 0-4 the argmin slot, 31 for a tie or none; bit
+        ``5 + d`` the sign of slot d's message).  Each iteration rebuilds
+        the old messages from them, forms ``v2c = t - c2v`` in f32, takes
+        the convergence test on the pre-update totals, the new minima and
+        signs, and folds the new messages per variable as the dense path
+        does.  Plain PyTorch, as the JAX loop is plain XLA; one host read
+        an iteration.  Message values, schedule and (success, iters,
+        final) are bit-identical to the dense min-sum decode through
+        kernel 1.  The totals ride the message dtype (``totals_dtype`` is
+        not read, as in the JAX loop).
+        """
+        z, B = self.z, prior_vb.shape[1]
+        nb_c, dc, dev = self.nb_c, self.dc, self.device
+        maxiter = int(max_iterations)
+        f32 = torch.float32
+        prior = prior_vb.to(dev, self.dtype).reshape(self.nb_v, z, B)
+        synd = synd_cb.to(dev, torch.int32).reshape(nb_c, z, B)
+        slot = torch.arange(dc, dtype=torch.int32, device=dev)[:, None, None]
+        shift = slot + 5
+        big = torch.tensor(BIG, dtype=f32, device=dev)
+        alpha, beta = self.minsum_alpha, self.minsum_beta
+
+        m1 = torch.zeros((nb_c, z, B), dtype=self.dtype, device=dev)
+        m2 = torch.zeros_like(m1)
+        meta = torch.full((nb_c, z, B), 31, dtype=torch.int32, device=dev)
+        total = prior
+        final = prior
+        done = torch.zeros(B, dtype=torch.bool, device=dev)
+        iters = torch.zeros(B, dtype=torch.int32, device=dev)
+        it = 0
+        all_done = False
+        while it < maxiter and not all_done:
+            t = self.gather_totals(total).to(f32)       # [nb_c, dc, z, B]
+            # the old messages, rebuilt from (m1, m2, meta)
+            idx = (meta & 31)[:, None]
+            sgn_old = (meta[:, None] >> shift) & 1
+            c2v_old = torch.where(idx == slot, m2.to(f32)[:, None],
+                                  m1.to(f32)[:, None]) \
+                * (1 - 2 * sgn_old).to(f32)
+            v2c = t - c2v_old
+            # convergence on the pre-update totals (padded slots hold the
+            # positive sentinel)
+            par_t = torch.sum((t < 0).to(torch.int32), dim=1) & 1
+            conv = torch.all((par_t == synd).reshape(-1, B), dim=0)
+            # the minimum, its multiplicity and the second minimum
+            absm = torch.abs(v2c)
+            min1 = torch.amin(absm, dim=1)
+            is_min = absm == min1[:, None]
+            cnt = torch.sum(is_min, dim=1, dtype=torch.int32)
+            min2 = torch.amin(torch.where(is_min, big, absm), dim=1)
+            idx_new = torch.sum(is_min * slot, dim=1, dtype=torch.int32)
+            idx_new = torch.where(cnt == 1, idx_new, 31)
+            negs = (v2c < 0).to(torch.int32)
+            par = torch.sum(negs, dim=1, dtype=torch.int32) & 1
+            m1 = minsum_mag(min1, alpha, beta).to(self.dtype)
+            m2 = minsum_mag(min2, alpha, beta).to(self.dtype)
+            sgn = par[:, None] ^ negs ^ synd[:, None]      # 1 = negative
+            meta = idx_new | torch.sum(sgn << shift, dim=1,
+                                       dtype=torch.int32)
+            c2v_new = (torch.where(idx_new[:, None] == slot,
+                                   m2.to(f32)[:, None], m1.to(f32)[:, None])
+                       * (1 - 2 * sgn).to(f32)).to(self.dtype)
+
+            final, done, iters, all_done = self._record_converged(
+                conv, it, total, final, done, iters)
+            total = (prior.to(f32) + self.scatter_partials(c2v_new).to(f32)
+                     ).to(self.dtype)
+            it += 1
+            self.iterations_run += 1
+        return self._finish_flooding(total, final, done, iters, synd, it,
+                                     maxiter)
 
     # The steps of _decode_dense that a mesh of ranks overrides
     # (parallel/graph_shard.ShardedQCDecoder): on one device they cover
@@ -596,6 +754,10 @@ class QCDecoder:
     def _check_synd(self, synd):
         """synd [nb_c, z, B] -> the lanes of it updated here."""
         return synd
+
+    def _check_lanes(self, x):
+        """x [nb_c, dc, z, B] of every lane -> the lanes updated here."""
+        return x
 
     def _check_inputs(self, total):
         """total [nb_v, z, B] -> the check phase's t [nb_c, dc, lanes, B]

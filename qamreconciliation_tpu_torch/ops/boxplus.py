@@ -30,6 +30,7 @@ __all__ = [
     "check_node_minsum_sm",
     "check_node_tanhfb_sm",
     "var_node_update",
+    "stochastic_round_bf16",
 ]
 
 # Normalized min-sum scale (13/16); exactly representable in bf16/f32.
@@ -238,3 +239,29 @@ def check_node_tanhfb_sm(v2c_d, synd, c_mask_T):
                                     device=v2c_d.device))
     mag = tanhfb_extrinsic_mag(absm, 0)
     return _sm_finish(v2c_d, synd, mask, mag, out_dtype)
+
+
+def stochastic_round_bf16(x_f32, rbits):
+    """Stochastically round float32 values to bfloat16.
+
+    bfloat16 is the top 16 bits of the float32 pattern, so adding a uniform
+    random 16-bit integer to the pattern and truncating the low half rounds
+    x to one of its two bf16 neighbours with probability proportional to
+    proximity: unbiased in expectation (within an exponent window the
+    value is affine in the pattern; a carry across a window boundary lands
+    on the right neighbour).  Bit-equal to the JAX package's
+    ``stochastic_round_bf16`` for the same bits.
+
+    Args:
+      x_f32: float32 tensor (finite: the pattern sum then stays inside
+        int32, whose two's-complement arithmetic is the JAX version's
+        uint32 arithmetic).
+      rbits: int32 or int64 random bits, same shape; only the low 16 bits
+        are read.
+
+    Returns the stochastically rounded values as bfloat16.
+    """
+    b = x_f32.to(torch.float32).contiguous().view(torch.int32)
+    low = (rbits & 0xFFFF).to(torch.int32)
+    y = (b + low) & -0x10000               # & 0xFFFF0000 as int32
+    return y.view(torch.float32).to(torch.bfloat16)

@@ -11,8 +11,9 @@ Five wrappers, each replacing a Pallas TPU kernel of
   layered sweeps per call (the resident layered decoder);
 * ``bp_check_phase_generic`` (``csrc/bp_check_phase_generic.cu``): the
   fused check phase of the generic decoder, slot-major and masked;
-* ``check_node_update_fused``: the check-major phi check update of the
-  JAX package's ``check_node_update_pallas``, a mode of the same kernel.
+* ``check_node_update_fused`` (a second kernel in the same source): the
+  check-major phi check update of the JAX package's
+  ``check_node_update_pallas``, in float32 or bfloat16.
 
 A tensor on the CPU goes to the plain PyTorch version (``*_ref``), which
 uses the kernel's operation and summation order; a CUDA tensor goes to the
@@ -42,6 +43,7 @@ from .boxplus import (
 __all__ = [
     "RULES", "MAX_DC", "GENERIC_BLOCK_C", "QCTables", "layered_levels",
     "TilePlan", "check_tile_plan", "tile_smem",
+    "CheckMajorPlan", "check_major_plan", "check_major_smem",
     "ResidentPlan", "resident_plan", "resident_smem",
     "bp_check_phase_qc", "bp_check_phase_qc_ref",
     "bp_decode_rounds_qc", "bp_decode_rounds_qc_ref",
@@ -97,6 +99,7 @@ def _check_messages(v2c, synd, dim: int, rule: str, tiny: float,
 # Launch plan of the staged-tile check phase (kernels 1 and 4,
 # csrc/bp_check_tile.cuh)
 
+H100_SMS = 132              # SMs of the H100 SXM: the plans' default card
 SMEM_BLOCK_MAX = 232448     # 227 KB: the most shared memory a block may use
 SMEM_SM = 233472            # 228 KB per SM; each resident block takes 1 KB more
 TILE_PAIRS = 1024           # (check, frame) pairs a tile holds at most
@@ -141,7 +144,7 @@ def tile_smem(dc: int, checks: int, frames: int, stages: int, t_size: int,
 @functools.lru_cache(maxsize=256)
 def check_tile_plan(groups: int, dc: int, rows: int, B: int, t_size: int,
                     m_size: int, rule: str, *, masked: bool,
-                    aligned: bool = True, sms: int = 132) -> TilePlan:
+                    aligned: bool = True, sms: int = H100_SMS) -> TilePlan:
     """The launch plan of one staged-tile check phase: ``groups`` groups of
     ``rows`` checks with ``dc`` slots over ``B`` frames (kernel 1: nb_c
     block rows of z; kernel 4: one group of C checks, ``masked``), element
@@ -211,6 +214,102 @@ def _plan_for(groups, dc, rows, B, t, m, rule, masked, *tensors):
     return check_tile_plan(groups, dc, rows, B, t.element_size(),
                            m.element_size(), rule, masked=masked,
                            aligned=aligned, sms=sms)
+
+
+# --------------------------------------------------------------------- #
+# Launch plan of kernel 5's check-major staged tiles
+# (csrc/bp_check_phase_generic.cu, check_node_update_launch)
+
+CM_THREADS_MAX = 256        # threads a block at most (kCmThreadsMax)
+CM_THREADS_SM = 1024        # threads an SM at most (kCmThreadsPerSm: the
+                            # register budget of the launch bounds)
+CM_ILP = 2                  # (check, frame) pairs a thread runs (kCmIlp)
+CM_THREADS_WANTED = 512     # threads an SM a plan settles for
+
+
+@dataclass(frozen=True)
+class CheckMajorPlan:
+    """Launch shape of kernel 5 (one call)."""
+
+    checks: int         # checks per tile: a power of two up to 64
+    frames: int         # frames per tile
+    stages: int         # tiles in the shared-memory ring (1: per-thread)
+    path: str           # "staged" (TMA bulk copies) or "thread" (plain loads)
+    threads: int        # threads a block
+    smem: int           # dynamic shared memory per block, bytes
+    blocks_per_sm: int  # persistent blocks resident on one SM
+    tiles: int          # tiles of the call
+    grid: int           # persistent blocks launched
+
+
+def check_major_smem(dc: int, checks: int, frames: int, stages: int,
+                     v_size: int) -> int:
+    """Dynamic shared memory of a kernel 5 plan, bytes: ``stages`` stages
+    of [slab, syndrome, mask] tiles and one mbarrier a stage
+    (``cm_layout`` in the source)."""
+    stage = (_up16(checks * dc * frames * v_size) + _up16(checks * frames * 4)
+             + _up16(checks * dc * 4))
+    return stages * stage + 16 * stages
+
+
+@functools.lru_cache(maxsize=256)
+def check_major_plan(C: int, dc: int, B: int, v_size: int, *,
+                     aligned: bool = True,
+                     sms: int = H100_SMS) -> CheckMajorPlan:
+    """The launch plan of one check-major update (kernel 5) of ``C``
+    checks with ``dc`` slots over ``B`` frames, element size ``v_size``
+    bytes, on a card with ``sms`` SMs.
+
+    A tile is ``checks`` consecutive checks (a power of two up to 64) by
+    ``frames`` frames (all B up to ``TILE_FRAMES_MAX``), and a block runs
+    one thread for every ``CM_ILP`` pairs of it (32 to ``CM_THREADS_MAX``
+    threads).  The staged path (TMA bulk copies) needs 16-byte units: B
+    times the element size a multiple of 16 and ``aligned`` pointers; else
+    the per-thread path, with one stage.  From the largest tile of at most
+    ``CM_ILP * CM_THREADS_MAX`` pairs down, the first whose ring of the
+    least stages fits blocks of ``CM_THREADS_WANTED`` threads an SM or
+    more, else the tile with the most threads an SM (blocks an SM capped
+    at ``CM_THREADS_SM`` threads); a staged ring then takes as many stages,
+    up to 4, as those blocks still fit.  The grid is persistent: that many
+    blocks an SM."""
+    if not (1 <= dc <= MAX_DC) or min(C, B) < 1:
+        raise ValueError(f"no check-major plan for C={C} dc={dc} B={B}")
+    staged = aligned and (B * v_size) % 16 == 0
+    least = 2 if staged else 1
+    frames = min(B, TILE_FRAMES_MAX)
+
+    def smem(checks, stages):
+        return check_major_smem(dc, checks, frames, stages, v_size)
+
+    def fits(checks, stages, blocks):
+        return blocks * (smem(checks, stages) + 1024) <= SMEM_SM
+
+    top = 1
+    while top < 64 and 2 * top * frames <= CM_ILP * CM_THREADS_MAX:
+        top *= 2
+    # one check of MAX_DC slots by TILE_FRAMES_MAX frames fits a block, so
+    # some tile always fits
+    best = None
+    for k in range(top.bit_length()):
+        checks = top >> k
+        threads = min(CM_THREADS_MAX,
+                      32 * -(-checks * frames // (32 * CM_ILP)))
+        blocks = CM_THREADS_SM // threads
+        while blocks and not fits(checks, least, blocks):
+            blocks -= 1
+        if blocks and (best is None or blocks * threads > best[1] * best[2]):
+            best = (checks, blocks, threads)
+        if blocks * threads >= CM_THREADS_WANTED:
+            break
+    checks, blocks, threads = best
+    stages = least
+    while staged and stages < 4 and fits(checks, stages + 1, blocks):
+        stages += 1
+    tiles = -(-C // checks) * -(-B // frames)
+    return CheckMajorPlan(checks, frames, stages,
+                          "staged" if staged else "thread", threads,
+                          smem(checks, stages), blocks, tiles,
+                          min(tiles, blocks * sms))
 
 
 # --------------------------------------------------------------------- #
@@ -589,7 +688,7 @@ def resident_smem(threads: int, nb_v: int, z: int, dc_max: int,
 def resident_plan(B: int, nb_v: int, nb_c: int, E: int, z: int,
                   dc_max: int, t_size: int, rule: str, *,
                   layered: bool, defer_slots: int = 0,
-                  sms: int = 132) -> ResidentPlan:
+                  sms: int = H100_SMS) -> ResidentPlan:
     """The launch plan of one call of kernel 2 (``layered=False``) or
     kernel 3 over ``B`` frames of a QC code (``nb_v``/``nb_c`` block
     columns/rows of circulant size ``z``, ``E`` base edges, rows up to
@@ -948,7 +1047,7 @@ bp_layered_sweeps_qc.plan = None
 
 # --------------------------------------------------------------------- #
 # Kernel 4: the fused check phase of the generic decoder (slot-major, masked)
-# and kernel 5, its check-major phi update mode
+# and kernel 5, the check-major phi update (the same source)
 
 # checks per violation block of kernel 4 (csrc kChecksPerBlock)
 GENERIC_BLOCK_C = 64
@@ -958,14 +1057,18 @@ def _masked_messages(v2c, synd, mask, dim: int, rule: str, tiny: float,
                      ms_alpha: float, ms_beta: float):
     """New check->variable messages over padded rows: ``v2c`` with slots
     along ``dim``, ``mask`` broadcast like it (> 0 marks a real slot), in
-    ``v2c``'s dtype.  phi multiplies by the mask before the left-fold sum;
-    min-sum and tanh-F/B select the +1e30 sentinel for padded slots; the
-    sign parity runs over the real slots; the result is ``sign * pref *
-    mag * mask``."""
+    ``v2c``'s dtype.  phi multiplies by the mask before the left-fold sum
+    (in at least float32, rounded once); min-sum and tanh-F/B select the
+    +1e30 sentinel for padded slots; the sign parity runs over the real
+    slots; the result is ``sign * pref * mag * mask``."""
     absv = torch.abs(v2c)
     if rule == "sumproduct":
         phim = phi_llr(absv, tiny) * mask
-        mag = phi_llr(_fold_sum(phim, dim) - phim, tiny)
+        # the sum runs in at least float32 and rounds once, as jnp.sum
+        # does for bf16
+        acc = torch.promote_types(phim.dtype, torch.float32)
+        total = _fold_sum(phim.to(acc), dim).to(phim.dtype)
+        mag = phi_llr(total - phim, tiny)
     else:
         absm = torch.where(mask > 0, absv, torch.tensor(
             BIG, dtype=v2c.dtype, device=v2c.device))
@@ -1137,45 +1240,52 @@ def check_node_update_fused(v2c_c, synd, c_mask, tiny: float = 1e-30):
     Returns ``c2v [C, dc, B]``: per check, ``phi(sum of phi(|v|) * mask -
     phi(|v_d|) * mask)`` with the sign parity over the real slots and the
     ``(1 - 2*synd)`` prefactor, times the mask.  As in the JAX kernel the
-    arithmetic runs in the input dtype, with no upcast, and there is no
-    convergence output.
+    arithmetic runs in the input dtype, with no upcast (in bf16 every
+    operation rounds to bf16), and there is no convergence output.
 
     CPU tensors run :func:`check_node_update_fused_ref`.  CUDA tensors run
-    kernel 4's check-major mode, which takes contiguous float32 messages,
-    int32 synd and dc <= ``MAX_DC``; anything else raises.
+    kernel 5 (its plan from :func:`check_major_plan`, kept in ``.plan``),
+    which takes contiguous float32 or bfloat16 messages, int32 synd and
+    dc <= ``MAX_DC``; anything else raises.
     """
     if v2c_c.device.type == "cpu":
         return check_node_update_fused_ref(v2c_c, synd, c_mask, tiny)
     _check_major_args(v2c_c, synd, c_mask)
     _require_cuda("check_node_update_fused", v2c_c)
-    if v2c_c.dtype != torch.float32:
-        raise TypeError(
-            "check_node_update_fused computes in its input dtype, as the JAX "
-            "kernel does, and its kernel takes float32 only (got "
-            f"{v2c_c.dtype}); run other dtypes on the CPU"
-        )
+    code = _dtype_codes("check_node_update_fused", v2c_c.dtype,
+                        v2c_c.dtype)[0]
     if synd.dtype != torch.int32:
         raise TypeError(f"synd must be int32, got {synd.dtype}")
     _require_contiguous(v2c_c=v2c_c, synd=synd)
     C, dc, B = v2c_c.shape
     if dc > MAX_DC:
         raise ValueError(f"check degree {dc} exceeds the kernel's {MAX_DC}")
-    mask = c_mask.to(torch.float32).contiguous()
+    # the mask as the plain version holds it: in the messages' dtype
+    mask = c_mask.to(v2c_c.dtype).to(torch.float32).contiguous()
     out = torch.empty_like(v2c_c)
-    lib = _library("bp_check_phase_generic", "pppp" + "iii" + "fp",
-                   "check_node_update_launch")
+    aligned = all(y.data_ptr() % 16 == 0 for y in (v2c_c, synd, out))
+    sms = torch.cuda.get_device_properties(
+        v2c_c.device).multi_processor_count
+    plan = check_major_plan(C, dc, B, v2c_c.element_size(), aligned=aligned,
+                            sms=sms)
+    lib = _library("bp_check_phase_generic", "pppp" + "iiii" + "f"
+                   + "i" * 8 + "p", "check_node_update_launch")
     with torch.cuda.device(v2c_c.device):
         stream = torch.cuda.current_stream(v2c_c.device).cuda_stream
         err = lib.check_node_update_launch(
             v2c_c.data_ptr(), synd.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), dc, C, B, float(tiny), stream,
+            out.data_ptr(), code, dc, C, B, float(tiny), plan.checks,
+            plan.frames, plan.stages, int(plan.path == "staged"),
+            plan.threads, plan.grid, plan.blocks_per_sm, plan.smem, stream,
         )
     _raise_on(err, "check_node_update_fused")
     check_node_update_fused.launches += 1
+    check_node_update_fused.plan = plan
     return out
 
 
 check_node_update_fused.launches = 0
+check_node_update_fused.plan = None
 
 
 # --------------------------------------------------------------------- #

@@ -212,6 +212,9 @@ class ShardedQCDecoder(QCDecoder):
     def _check_synd(self, synd):
         return synd[:, self._lanes[0]:self._lanes[1]].contiguous()
 
+    def _check_lanes(self, x):
+        return x[:, :, self._lanes[0]:self._lanes[1]]
+
     def _check_inputs(self, total):
         """total [nb_v, z, B] -> this rank's t [nb_c, dc, z / D, B],
         padded slots holding the +1e30 sentinel."""

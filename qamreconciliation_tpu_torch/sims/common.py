@@ -238,7 +238,10 @@ def add_qc_arg(parser: argparse.ArgumentParser):
     )
     parser.add_argument(
         "--sr-messages", action="store_true",
-        help="Stochastically rounded bf16 messages (not ported yet)",
+        help="QC dense flooding + bfloat16 only: stochastically round the "
+        "bf16 check->variable message stores (ops/boxplus."
+        "stochastic_round_bf16) instead of round-to-nearest; runs the "
+        "plain check update, as the JAX package runs its XLA one",
     )
     parser.add_argument(
         "--lift-qc", action="store_true",

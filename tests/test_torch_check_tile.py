@@ -1,6 +1,7 @@
-"""The launch plan of the staged-tile check phase (kernels 1 and 4,
-``csrc/bp_check_tile.cuh``): a pure function of the call's shape, held here
-on the CPU.  Plain torch, no JAX."""
+"""The launch plans of the staged-tile check phase (kernels 1 and 4,
+``csrc/bp_check_tile.cuh``) and of kernel 5's check-major tiles
+(``check_major_plan``): pure functions of the call's shape, held here on
+the CPU.  Plain torch, no JAX."""
 
 import itertools
 
@@ -8,8 +9,9 @@ import pytest
 import torch
 
 from qamreconciliation_tpu_torch.ops.kernels import (
-    GENERIC_BLOCK_C, MAX_DC, SMEM_BLOCK_MAX, SMEM_SM, check_tile_plan,
-    tile_smem,
+    CM_ILP, CM_THREADS_MAX, CM_THREADS_SM, GENERIC_BLOCK_C, MAX_DC,
+    SMEM_BLOCK_MAX, SMEM_SM, check_major_plan, check_major_smem,
+    check_tile_plan, tile_smem,
 )
 
 torch.set_num_threads(1)
@@ -144,3 +146,79 @@ def test_tile_smem_matches_the_layout_by_hand():
     stage = 2 * 14336 + 2048 + 112
     assert tile_smem(7, 4, 128, 3, 4, 4, True, 1) == \
         3 * stage + 14336 + 512 + 48
+
+
+# ---------------------------------------------------------------- kernel 5
+
+# (label, C, dc, B): the main-path shapes of kernel 5 (the DVB-S2 rate-1/2
+# and rate-3/4 H, a dc = 32 case) and ragged ones
+CM_MAIN = [("rate 1/2", 32400, 7, 128), ("rate 3/4", 16200, 14, 128),
+           ("dc 32", 8100, 32, 128)]
+CM_SHAPES = CM_MAIN + [
+    ("C=150 B=40", 150, 6, 40), ("C=150 B=6", 150, 7, 6),
+    ("C=70 B=100", 70, 7, 100), ("C=70 B=512", 70, 7, 512),
+    ("C=70 B=1000", 70, 32, 1000), ("dc=1", 70, 1, 64), ("B=1", 9, 32, 1),
+]
+CM_SIZES = {"f32": 4, "bf16": 2}
+
+
+@pytest.mark.parametrize("size", list(CM_SIZES))
+@pytest.mark.parametrize("shape", CM_SHAPES, ids=[s[0] for s in CM_SHAPES])
+def test_check_major_plan_covers_and_fits(shape, size):
+    """Kernel 5's tiles partition the checks by the frames; the ring fits
+    the blocks an SM in shared memory and their threads in the register
+    budget; a block has a thread for every CM_ILP pairs of its tile."""
+    _, C, dc, B = shape
+    v = CM_SIZES[size]
+    plan = check_major_plan(C, dc, B, v)
+    assert 1 <= plan.checks <= 64 and plan.checks & (plan.checks - 1) == 0
+    assert 1 <= plan.frames <= min(B, 256)
+    assert plan.tiles == -(-C // plan.checks) * -(-B // plan.frames)
+    assert 1 <= plan.grid == min(plan.tiles, plan.blocks_per_sm * 132)
+    assert plan.smem == check_major_smem(dc, plan.checks, plan.frames,
+                                         plan.stages, v)
+    assert plan.smem <= SMEM_BLOCK_MAX
+    assert plan.blocks_per_sm * (plan.smem + 1024) <= SMEM_SM
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= CM_THREADS_MAX
+    assert plan.blocks_per_sm * plan.threads <= CM_THREADS_SM
+    assert plan.threads * CM_ILP >= min(plan.checks * plan.frames,
+                                        CM_ILP * CM_THREADS_MAX)
+    if plan.path == "staged":
+        assert (B * v) % 16 == 0 and (plan.frames * v) % 16 == 0
+        assert 2 <= plan.stages <= 4
+    else:
+        assert (B * v) % 16 and plan.stages == 1
+
+
+@pytest.mark.parametrize("size", list(CM_SIZES))
+def test_check_major_plan_of_the_main_path(size):
+    """At [32400, 7, 128] a tile is 4 checks by all 128 frames (512 pairs,
+    one for every thread lane of a 256-thread block twice), and 1024
+    threads an SM fit: four blocks an SM of 2-4 stages, a persistent grid
+    of 528 blocks."""
+    plan = check_major_plan(32400, 7, 128, CM_SIZES[size])
+    assert (plan.checks, plan.frames, plan.threads) == (4, 128, 256)
+    assert plan.path == "staged" and plan.stages >= 3
+    assert plan.blocks_per_sm == 4 and plan.grid == 528
+    # unaligned pointers take the per-thread path
+    assert check_major_plan(32400, 7, 128, CM_SIZES[size],
+                            aligned=False).path == "thread"
+    # every main-path case keeps 384 threads an SM or more
+    for _, C, dc, B in CM_MAIN:
+        p = check_major_plan(C, dc, B, CM_SIZES[size])
+        assert p.blocks_per_sm * p.threads >= 384
+
+
+def test_check_major_plan_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError):
+        check_major_plan(100, MAX_DC + 1, 128, 4)
+    with pytest.raises(ValueError):
+        check_major_plan(0, 7, 128, 4)
+
+
+def test_check_major_smem_matches_the_layout_by_hand():
+    # f32, 4 checks x 128 frames x 7 slots, 3 stages: per stage the slab
+    # 4*7*128*4 bytes, the syndrome 4*128*4, the mask 4*7*4 (rounded to 16);
+    # one mbarrier a stage
+    assert check_major_smem(7, 4, 128, 3, 4) == \
+        3 * (14336 + 2048 + 112) + 48

@@ -14,8 +14,8 @@ bit for bit on all four state tensors (totals, messages, done, iters) for
 every rule and dtype pair, B off every block size, z off the warp, rows
 wider than 8, K = 1, steps past maxiter, every frame done, and the frame's
 totals in shared and in device memory.  The generic check phase (kernel 4)
-and its check-major mode (kernel 5) are held bit for bit, as the card runs
-them.
+and the check-major update (kernel 5, float32 and bfloat16) are held bit
+for bit, as the card runs them.
 """
 
 import dataclasses
@@ -653,13 +653,26 @@ def test_generic_tiles_bit_equal(rule, kw, dtype, shape):
     assert torch.equal(got, want)
 
 
+# (C, dc, B) of kernel 5: ragged C and B, the per-thread path (B = 6, and
+# 100 in bf16), frames beyond one tile (B = 512: a tile a row), dc = 32
+CHECK_MAJOR_SHAPES = [(150, 6, 40), (150, 14, 40), (150, 7, 6),
+                      (70, 7, 100), (70, 7, 512), (70, 32, 64)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dc", [6, 14])
-def test_check_major_kernel_matches_plain(dc):
-    """Kernel 5 (kernel 4's check-major mode) bit for bit."""
+@pytest.mark.parametrize("shape", CHECK_MAJOR_SHAPES,
+                         ids=["x".join(map(str, s))
+                              for s in CHECK_MAJOR_SHAPES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_check_major_kernel_matches_plain(dtype, shape):
+    """Kernel 5 bit for bit in float32 and bfloat16 (every bf16 operation
+    rounded as the plain version rounds it), on a random non-prefix mask
+    with an empty check and a degree-1 one, and the plan's load path as
+    check_major_plan gives it."""
     need_cuda()
-    t, _, synd, mask = generic_inputs(19, dc, 150, 40)
-    v = torch.from_numpy(t).transpose(0, 1).contiguous().cuda()
+    C, dc, B = shape
+    t, _, synd, mask = generic_inputs(19, dc, C, B)
+    v = torch.from_numpy(t).transpose(0, 1).contiguous().cuda().to(dtype)
     args = (v, torch.from_numpy(synd).cuda(),
             torch.from_numpy(mask).T.contiguous().cuda())
     n0 = check_node_update_fused.launches
@@ -667,6 +680,10 @@ def test_check_major_kernel_matches_plain(dc):
     assert check_node_update_fused.launches == n0 + 1
     want = check_node_update_fused_ref(*args)
     torch.cuda.synchronize()
+    assert got.dtype == dtype
+    plan = check_node_update_fused.plan
+    assert plan.path == ("staged" if (B * v.element_size()) % 16 == 0
+                         else "thread")
     assert torch.equal(got, want)
 
 
@@ -688,8 +705,13 @@ def test_generic_kernels_reject_what_they_do_not_take():
         bp_check_phase_generic(wide, wide, synd, torch.ones(33, 70,
                                                             device="cuda"))
     v = t.transpose(0, 1).contiguous()
-    with pytest.raises(TypeError, match="float32"):
-        check_node_update_fused(v.bfloat16(), synd, mask.T)
+    with pytest.raises(TypeError, match="float64"):
+        check_node_update_fused(v.double(), synd, mask.T)
+    with pytest.raises(TypeError, match="synd"):
+        check_node_update_fused(v, synd.long(), mask.T)
+    with pytest.raises(ValueError, match="degree"):
+        check_node_update_fused(torch.zeros(70, 33, 8, device="cuda"), synd,
+                                torch.ones(70, 33, device="cuda"))
 
 
 @pytest.mark.cuda

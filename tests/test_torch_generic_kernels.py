@@ -9,8 +9,9 @@ degree-1 check and an empty one.  The per-frame violation counts are equal;
 min-sum is bit-exact; the sum-product forms agree within atol 1e-5 + rtol
 1e-3 in f32: the two libms differ by an ulp in phi, and ``phi(s - phi_d)``
 magnifies that when one slot dominates the sum s (measured up to 6e-4
-relative); bf16 storage within one bf16 ulp.  The CUDA kernels against
-these plain versions are in test_torch_cuda.py.
+relative); bf16 storage within one bf16 ulp (the check-major update
+computes in bf16, as the JAX kernel does).  The CUDA kernels against these
+plain versions are in test_torch_cuda.py.
 """
 
 import jax.numpy as jnp
@@ -108,26 +109,36 @@ def test_generic_check_phase_matches_jax_kernel(rule, kw, dtype, dc):
     assert_close(got, want, rule, dtype)
 
 
-def test_check_major_update_matches_jax_kernel():
-    rng = np.random.default_rng(0)
-    c, dc, b = 300, 6, 16
+@pytest.mark.parametrize("dc", [6, 14, 32])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_check_major_update_matches_jax_kernel(dtype, dc):
+    """Kernel 5's plain version against check_node_update_pallas in
+    interpret mode, both in the input dtype.  bf16 holds within one bf16
+    ulp (measured bit-equal: every operation rounds to bf16 in the same
+    order, and the phi sum accumulates in float32 as jnp.sum does for
+    bf16); f32 within atol 1e-5 + rtol 1e-3 (the libms)."""
+    rng = np.random.default_rng(dc)
+    c, b = 300, 16
     v = rng.normal(0, 3, (c, dc, b)).astype(np.float32)
     synd = rng.integers(0, 2, (c, b)).astype(np.int32)
     mask = random_mask(rng, dc, c).T.copy()
     want = np.asarray(jax_check_major(
-        jnp.asarray(v), jnp.asarray(synd), jnp.asarray(mask), block_c=128,
-        interpret=True))
+        jnp.asarray(v, _J[dtype]), jnp.asarray(synd), jnp.asarray(mask),
+        block_c=128, interpret=True).astype(jnp.float32))
     n0 = check_node_update_fused.launches
-    got = check_node_update_fused(torch.from_numpy(v), torch.from_numpy(synd),
+    tv = torch.from_numpy(v).to(_T[dtype])
+    got = check_node_update_fused(tv, torch.from_numpy(synd),
                                   torch.from_numpy(mask))
     assert check_node_update_fused.launches == n0
-    assert got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-3, atol=1e-5)
-    # the slot-major kernel 4 with c2v = 0 computes the same update
-    slot_major, _ = bp_check_phase_generic_ref(
-        torch.from_numpy(v).transpose(0, 1), torch.zeros(dc, c, b),
-        torch.from_numpy(synd), torch.from_numpy(mask).T)
-    assert torch.equal(slot_major.transpose(0, 1), got)
+    assert got.dtype == _T[dtype]
+    assert (got[torch.from_numpy(mask) == 0] == 0).all()
+    assert_close(got.float().numpy(), want, "sumproduct", dtype)
+    if dtype == "float32":
+        # the slot-major kernel 4 with c2v = 0 computes the same update
+        slot_major, _ = bp_check_phase_generic_ref(
+            tv.transpose(0, 1), torch.zeros(dc, c, b),
+            torch.from_numpy(synd), torch.from_numpy(mask).T)
+        assert torch.equal(slot_major.transpose(0, 1), got)
 
 
 def test_check_major_update_extreme_llrs_finite():

@@ -8,12 +8,11 @@
 * ``run_point("hard" | "direct")`` BER/FER agree with the JAX engine within
   4 Monte-Carlo standard errors; direct beats hard at equal SNR; the
   reference-API wrappers return the run point's tuple.
-* Every path still to port names a ROADMAP item by its title.
+* The compressed-state min-sum decoder (``compressed=True``) runs both
+  modes with counters equal to JAX's on injected samples.
 """
 
 import math
-import os
-import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -40,7 +39,6 @@ from qamreconciliation_tpu_torch.utils.edgefile import make_regular_ldpc
 
 torch.set_num_threads(1)
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QC = make_qc_ldpc(24, 32, 3, 6, seed=3)            # N = 768, z = 32
 REGULAR = make_regular_ldpc(768, 3, 6, seed=9)
 # an operating point of each mode where some frames decode and some fail
@@ -58,6 +56,11 @@ DECODERS = {
     "generic": (lambda: JDecoder(*REGULAR, dtype=jnp.float32),
                 lambda: Decoder(*REGULAR, torch.float32, device="cpu"),
                 REGULAR),
+    "qc-compressed": (lambda: JQC(QC[0], 32, dtype=jnp.float32,
+                                  check_rule="minsum", compressed=True),
+                      lambda: QCDecoder(QC[0], 32, torch.float32,
+                                        device="cpu", check_rule="minsum",
+                                        compressed=True), QC[1:]),
     "layered-minsum": (lambda: JQC(QC[0], 32, dtype=jnp.float32,
                                    schedule="layered", layered_chunk=3,
                                    check_rule="minsum"),
@@ -236,30 +239,3 @@ def test_unknown_mode_raises():
         teng.run_point("bogus", 4.0, 5, 16, 1)
 
 
-def test_not_ported_names_a_roadmap_item_by_title():
-    """Each path still to port names, by its title, an item of ROADMAP.md's
-    list of modules still to port (so a renumbering cannot make it stale)."""
-    with open(os.path.join(REPO, "ROADMAP.md")) as f:
-        roadmap = f.read()
-    queue = roadmap[roadmap.index("### 1. Modules still to port"):
-                    roadmap.index("### 2.")]
-    titles = set(re.findall(r"^\d+\. \*\*(.+?)\.?\*\*", queue, re.M))
-    pa = PAMAlphabet(2, 2.0)
-    mat = Matrix(*QC[1:])
-
-    def qc_dec():
-        return QCDecoder(QC[0], 32, device="cpu")
-
-    paths = [
-        lambda: QCDecoder(QC[0], 32, device="cpu", compressed=True),
-        lambda: QCDecoder(QC[0], 32, device="cpu", sr_messages=True),
-    ]
-    # the modes of the rest of NoiseMapper and the sweep plumbing run
-    NoiseMapper(pa, 0.5, device="cpu", fy_mode="poly")
-    ReconciliationEngine(qc_dec(), mat, pa, llr_mode="interp",
-                         fy_mode="poly", rounds_per_dispatch=2)
-    for path in paths:
-        with pytest.raises(NotImplementedError, match="ROADMAP") as e:
-            path()
-        item = re.search(r"item '(.+)'", str(e.value)).group(1)
-        assert item in titles, (item, titles)

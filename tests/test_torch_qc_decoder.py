@@ -167,14 +167,28 @@ def test_decode_zero_iterations_and_iters_semantics():
         assert_sumproduct_close(got, want)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(compressed=True), "item 'Tail'"),
-    (dict(sr_messages=True), "item 'Tail'"),
-])
-def test_unported_paths_raise(kw, item):
-    (base, _, _), z = code("z16")
-    with pytest.raises(NotImplementedError, match=item):
-        tqc.QCDecoder(base, z, device="cpu", **kw)
+@pytest.mark.parametrize("path", ["compressed", "sr_messages"])
+def test_compressed_and_sr_paths_run_and_match_jax(path):
+    """The two paths the JAX decoder has beside the dense, resident and
+    layered loops run in the port (tests/test_torch_qc_compressed.py and
+    test_torch_sr.py hold them in depth): the compressed min-sum decode is
+    bit-identical to the JAX compressed decode (success, iters, finals);
+    the stochastically rounded bf16 decode converges on the frames the JAX
+    SR decode converges on (their random bits differ)."""
+    (base, _, _), z = code("z32")
+    if path == "compressed":
+        want, got = _decode_pair(
+            base, z, 12, 21,
+            dict(dtype=jnp.bfloat16, check_rule="minsum", compressed=True),
+            dict(dtype=torch.bfloat16, check_rule="minsum",
+                 compressed=True))
+        np.testing.assert_array_equal(got, want)
+    else:
+        _decode_pair(base, z, 12, 23,
+                     dict(dtype=jnp.bfloat16, use_pallas=False,
+                          sr_messages=True),
+                     dict(dtype=torch.bfloat16, sr_messages=True),
+                     noise=1.0, mixed=False)
 
 
 @pytest.mark.parametrize("kw", [
