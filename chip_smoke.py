@@ -89,7 +89,12 @@ Phases (each must pass, or the script exits non-zero):
      launched no time) and its knee watch held to the JAX package's CPU
      figure; 8 headline frames of the numpy softening oracle through
      DecoderNp on the host and the dense decoder on the card, success and
-     hard decisions equal.
+     hard decisions equal;
+ 18. the bench (phase_bench): ``python3 -m qamreconciliation_tpu_torch.bench``
+     in a subprocess at its defaults, its baseline budget cut to 5 s: one
+     JSON line holding every row, the card's name and power limit, each
+     decode row equal to its plain version and within its bound; the line
+     is printed (after "[bench] ") with the bench's progress.
 Kernel and plain times are CUDA-event medians, taken in turns (kernels 1, 4
 and 5 over runs of 10 calls, whose host overhead the card's work hides;
 kernels 2 and 3 run K steps a call and report ms per step).  Each
@@ -110,7 +115,6 @@ also writes each kernel library's ptxas report (registers, spills) and its
 SASS (cuobjdump -sass) into DIR.
 """
 
-import concurrent.futures
 import csv
 import importlib
 import json
@@ -127,6 +131,10 @@ import numpy as np
 import torch
 
 from qamreconciliation_tpu_torch.sims.time_check_phase import events_ms
+from qamreconciliation_tpu_torch.utils import perf
+from qamreconciliation_tpu_torch.utils.perf import (
+    HBM_BYTES_PER_S, tensor_bytes as moved,
+)
 
 SHAPE = (90, 6, 360, 128)              # [nb_c, dc, z, B] of the headline code
 CODE = dict(nb_v=180, z=360, dv=3, dc=6, seed=12345)
@@ -144,15 +152,6 @@ KNEE_FER = {("flooding", "float32"): 0.4170, ("layered", "float32"): 0.1328,
 KNEE_FER_CPU = {("flooding", "bfloat16"): 0.5283203125,
                 ("layered", "bfloat16"): 0.216796875}
 ALTERNATING = np.array([0, 1, 0, 1], np.uint8)
-# H100 SXM data-sheet rates: HBM3 bytes/s, and f32 instructions/s outside
-# the tensor cores (67 TFLOP/s counts an FMA as two operations; none of the
-# rules' operations is an FMA, so each takes an instruction of its own)
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12 / 2
-# f32 operations per check slot of the plain versions' rules, each
-# elementwise operation counted once, a transcendental too: at least one
-# instruction each, so the operation time is a lower bound
-OPS_PER_SLOT = {"sumproduct": 30, "tanhfb": 20, "minsum": 12}
 CSRC = "qamreconciliation_tpu_torch/csrc"
 PALLAS = "qamreconciliation_tpu/ops/pallas_kernels.py"
 # wrapper in ops/kernels.py -> (its source in csrc/, the TPU kernel it
@@ -216,21 +215,13 @@ def record(kernels, name, **kw):
     )).update(kw)
 
 
-def moved(*tensors):
-    """Bytes of ``tensors``, each counted once."""
-    return sum(x.numel() * x.element_size() for x in tensors)
-
-
 def finish_record(rec):
     """bound_ms, bound_by and bound_share from the entry's bytes, ops and
-    ms: the bound is the larger of the bytes over the memory rate and the
-    operations over the f32 rate.  A multi-step kernel's bytes are those of
+    ms (``utils/perf.bound``).  A multi-step kernel's bytes are those of
     its call of ``steps`` steps and its ops and ms those of one step, so its
     bound is per step."""
-    t_bytes = 1e3 * rec["bytes"] / HBM_BYTES_PER_S / rec.get("steps", 1)
-    t_ops = 1e3 * rec["ops"] / F32_OPS_PER_S
-    rec["bound_ms"] = max(t_bytes, t_ops)
-    rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    rec["bound_ms"], rec["bound_by"] = perf.bound(
+        rec["bytes"], rec["ops"], rec.get("steps", 1))
     rec["bound_share"] = rec["bound_ms"] / rec["ms"]
 
 
@@ -295,10 +286,7 @@ def build_all(sass_dir=None):
 
     sources = sorted({source for source, _ in KERNELS.values()})
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        libs = list(pool.map(cuda_build.build, sources))
-    for source in sources:
-        cuda_build.load_library(source)
+    libs = cuda_build.build_all(sources)
     log(f"[build] {', '.join(lib.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for source, lib in zip(sources, libs):
@@ -418,8 +406,10 @@ def phase_kernel(kernels):
             f"{plain_ms:.4f} ms  {nbytes / ms / 1e6:.1f} GB/s  "
             f"[{plan_text(plan)}]")
         if rec is None:              # the headline case: f32 phi
+            work = perf.check_phase_qc_work(*SHAPE, td, md, rule)
+            assert work[0] == nbytes, (work, nbytes)
             rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bytes=nbytes, ops=OPS_PER_SLOT[rule] * t.numel())
+                       bytes=work[0], ops=work[1])
     record(kernels, "bp_check_phase_qc", **rec)
 
 
@@ -504,11 +494,12 @@ def phase_rounds(kernels):
                            synd8)
             log(f"[kernel2] per-iteration stream {stream / 1e6:.1f} MB -> "
                 f"{1e3 * stream / HBM_BYTES_PER_S:.4f} ms at 3.35 TB/s")
+            nbytes, ops = perf.decode_rounds_work(
+                tables.nb_v, tables.nb_c, tables.E, z, B, td, md, rule)
+            assert nbytes == moved(*state, state[0], state[1], state[4],
+                                   state[5])
             record(kernels, "bp_decode_rounds_qc", max_abs_err=err, ms=ms,
-                   plain_ms=plain_ms, steps=K,
-                   bytes=moved(*state, state[0], state[1], state[4],
-                               state[5]),
-                   ops=OPS_PER_SLOT[rule] * state[1].numel())
+                   plain_ms=plain_ms, steps=K, bytes=nbytes, ops=ops)
 
 
 def phase_sweeps(kernels):
@@ -589,11 +580,13 @@ def phase_sweeps(kernels):
                                synd8)
                 log(f"[kernel3] per-sweep stream {stream / 1e6:.1f} MB -> "
                     f"{1e3 * stream / HBM_BYTES_PER_S:.4f} ms at 3.35 TB/s")
+                nbytes, ops = perf.layered_sweeps_work(
+                    tables.nb_v, tables.nb_c, tables.E, z, B, md, rule)
+                assert nbytes == moved(*state, state[0], state[1], state[3],
+                                       state[4])
                 record(kernels, "bp_layered_sweeps_qc", max_abs_err=err,
-                       ms=ms, plain_ms=plain_ms, steps=K,
-                       bytes=moved(*state, state[0], state[1], state[3],
-                                   state[4]),
-                       ops=OPS_PER_SLOT[rule] * state[1].numel())
+                       ms=ms, plain_ms=plain_ms, steps=K, bytes=nbytes,
+                       ops=ops)
 
 
 def phase_decoder():
@@ -975,9 +968,11 @@ def phase_generic_kernels(kernels):
                 f"{nbytes / ms / 1e6:.1f} GB/s  [{plan_text(plan)}]")
             if (rate, rule, kw, dt, which) == ("1/2", "sumproduct", {},
                                                torch.float32, "code"):
+                work = perf.check_phase_generic_work(*t.shape, dt, rule)
+                assert work[0] == nbytes, (work, nbytes)
                 record(kernels, "bp_check_phase_generic", max_abs_err=err,
-                       ms=ms, plain_ms=plain_ms, bytes=nbytes,
-                       ops=OPS_PER_SLOT[rule] * t.numel())
+                       ms=ms, plain_ms=plain_ms, bytes=work[0],
+                       ops=work[1])
     phase_check_major(kernels)
 
 
@@ -1030,10 +1025,11 @@ def phase_check_major(kernels):
                 f"  {nbytes / 1e6:.1f} MB, memory bound {bound:.4f} ms "
                 f"({100 * bound / ms:.1f}%)  [{plan_text(plan)}]")
             if which == "1/2" and dt == torch.float32:
+                work = perf.check_node_update_work(*got.shape, dt)
+                assert work[0] == nbytes, (work, nbytes)
                 record(kernels, "check_node_update_fused", max_abs_err=float(
                     (got - want).abs().max()), ms=ms, plain_ms=plain_ms,
-                    bytes=nbytes,
-                    ops=OPS_PER_SLOT["sumproduct"] * got.numel())
+                    bytes=work[0], ops=work[1])
 
 
 def phase_generic_decoder():
@@ -1083,9 +1079,9 @@ def log_rounds(label, dec, mat, snr, mode="softening"):
         round_breakdown,
     )
 
-    pre, dcd, its = round_breakdown(dec, mat, snr, mode=mode)
+    pre, dcd, read, its = round_breakdown(dec, mat, snr, mode=mode)
     log(f"[{label}] {snr} dB round: preamble {pre:.2f} ms, decode+count "
-        f"{dcd:.2f} ms, iterations {its} "
+        f"{dcd:.2f} ms, host read {read:.3f} ms, iterations {its} "
         f"({dcd / max(statistics.median(its), 1):.3f} ms per iteration)")
 
 
@@ -2804,6 +2800,47 @@ def phase_tail():
     assert all(same_s) and all(same_hd)
 
 
+# the bench's rows as its JSON names them (the decode probe and the
+# headline at its top level), and those that decode through a kernel
+BENCH_ROWS = ("irregular_qc", "rate34_qc", "headline_round", "waterfall",
+              "minsum", "sumproduct_tanhfb_dense", "layered", "streaming",
+              "mc_mi", "generic", "baseline")
+BENCH_DECODE_ROWS = ("irregular_qc", "rate34_qc", "headline_round",
+                     "waterfall", "minsum", "minsum.waterfall",
+                     "sumproduct_tanhfb_dense",
+                     "sumproduct_tanhfb_dense.waterfall", "layered",
+                     "streaming", "generic")
+
+
+def phase_bench():
+    """The bench in a subprocess at its defaults (the baseline's budget cut
+    to 5 s): one JSON line on its stdout, every row, the card's name and
+    power limit, each decode row equal to its plain version (the bench
+    fails otherwise) and at most its bound."""
+    env = dict(os.environ, BENCH_BASELINE_S="5")
+    out = subprocess.run(
+        [sys.executable, "-m", "qamreconciliation_tpu_torch.bench"],
+        capture_output=True, text=True, timeout=900, env=env)
+    for line in out.stderr.splitlines():
+        log(f"[bench] {line}")
+    assert out.returncode == 0, f"bench exited {out.returncode}"
+    lines = [ln for ln in out.stdout.splitlines() if ln.strip()]
+    assert len(lines) == 1, f"bench printed {len(lines)} lines"
+    log(f"[bench] {lines[0]}")
+    j = json.loads(lines[0])
+    for key in ("metric", "value", "unit", "vs_baseline",
+                "decode_ms_per_iter", *BENCH_ROWS):
+        assert j.get(key) is not None, f"bench: no {key}"
+    dev = j["device"]
+    assert dev["platform"] == "gpu" and dev["name"] and dev["power_limit"]
+    for path in ("",) + BENCH_DECODE_ROWS:
+        r = j
+        for key in filter(None, path.split(".")):
+            r = r[key]
+        assert r["plain_equal"] is True, path
+        assert 0 < r["roofline_fraction"] <= 1.0, (path, r)
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     sass_dir = argv[argv.index("--sass") + 1] if "--sass" in argv else None
@@ -2838,7 +2875,8 @@ def main(argv=None):
                         (phase_sweep_surface, (kernels,)),
                         (phase_streaming, (kernels,)),
                         (phase_multidevice, (kernels,)),
-                        (phase_tail, ())):
+                        (phase_tail, ()),
+                        (phase_bench, ())):
         t0 = time.perf_counter()
         phase(*args)
         log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")

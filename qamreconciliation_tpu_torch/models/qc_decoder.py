@@ -445,9 +445,12 @@ class QCDecoder:
             [cbs for _, cbs in layered_plan(self._rows)] if use_groups
             else self.tables.levels
         )
-        # the fused check phase; a test may put the plain version
-        # (ops/kernels.bp_check_phase_qc_ref) here to run it on the card
+        # the kernels of the dense, resident and resident layered loops; a
+        # test may put their plain versions (ops/kernels.*_ref) here to run
+        # them on the card
         self.check_phase = bp_check_phase_qc
+        self.rounds_step = bp_decode_rounds_qc
+        self.sweeps_step = bp_layered_sweeps_qc
         # BP iterations (or layered sweeps) run on the device by this decoder
         self.iterations_run = 0
 
@@ -801,7 +804,7 @@ class QCDecoder:
         iters = torch.zeros(B, dtype=torch.int32, device=dev)
         it = 0
         while it < maxiter:
-            bp_decode_rounds_qc(
+            self.rounds_step(
                 self.tables, it, maxiter, total, c2v, prior, synd8, done,
                 iters, rule=self.resident_rule, k_rounds=K,
                 ms_alpha=self.minsum_alpha, ms_beta=self.minsum_beta,
@@ -878,7 +881,7 @@ class QCDecoder:
         iters = torch.zeros(B, dtype=torch.int32, device=dev)
         it = 0
         while it < maxiter and not bool(done.all()):
-            bp_layered_sweeps_qc(
+            self.sweeps_step(
                 self.tables, it, maxiter, total, c2v, synd8, done, iters,
                 rule=self.rule, k_sweeps=K, ms_alpha=self.minsum_alpha,
                 ms_beta=self.minsum_beta,

@@ -10,6 +10,7 @@ ptxas's report of it (registers, shared memory and spills per kernel).
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -19,8 +20,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build", "load_library",
-           "ptxas_report", "cuda_tool"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build", "build_all",
+           "load_library", "ptxas_report", "cuda_tool", "sources"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR / "_build"
@@ -90,6 +91,22 @@ def build(name: str) -> Path:
         if os.path.exists(tmp):
             os.remove(tmp)
     return lib
+
+
+def sources() -> list[str]:
+    """The names of the sources under ``csrc/`` (one library each)."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
+def build_all(names=None) -> list[Path]:
+    """Build ``names`` (default every source), one nvcc per source, all
+    started together, and load each library; return their paths."""
+    names = sources() if names is None else list(names)
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        libs = list(pool.map(build, names))
+    for name in names:
+        load_library(name)
+    return libs
 
 
 def _report_path(lib: Path) -> Path:

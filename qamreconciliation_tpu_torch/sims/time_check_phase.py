@@ -13,8 +13,8 @@ code's check-major shape [32400, 7, 128] (CUDA events over runs of 10
 calls, the median of 10 runs), then the softening rounds of the two main paths that run them: the
 dense QC decoder on the headline code and the generic decoder on the exact
 rate-1/2 H, f32 phi, 128 frames at 3.5 and 4.0 dB (host clock over 4
-rounds after a warm-up; preamble, then decode + count, and the ms per BP
-iteration).  The resident part times kernel 2 (``bp_decode_rounds_qc``,
+rounds after a warm-up; preamble, then decode + count, then the counters'
+host read, and the ms per BP iteration).  The resident part times kernel 2 (``bp_decode_rounds_qc``,
 bf16 tanh-F/B, one 50-iteration call) and kernel 3
 (``bp_layered_sweeps_qc``, bf16 min-sum, one 4-sweep call) per step on the
 headline code and the z = 360 QC-IRA code (numpy-seeded LLRs, B = 128
@@ -297,9 +297,15 @@ def resident_round_times(inputs):
     return out
 
 
-def round_breakdown(dec, mat, snr, rounds=4, mode="softening"):
-    """Host-clock ms per ``mode`` round of 128 frames on ``dec``, after a
-    warm-up round: (preamble, decode + count, BP iterations per round)."""
+def round_breakdown(dec, mat, snr, rounds=4, mode="softening", *,
+                    batch=128, dtype="float32", nmconfig=ALTERNATING,
+                    maxiter=50, seed=11, bps=2, llr_mode="poly"):
+    """Host-clock ms per ``mode`` round of ``batch`` frames (2^bps-PAM,
+    sign configuration ``nmconfig``, samples and LLRs in ``dtype``, the
+    softening LLRs by ``llr_mode``) on ``dec``,
+    on its device, after a warm-up round: (preamble, decode + count, host
+    read of the counters, BP iterations per round), each part ending in a
+    synchronisation of the device."""
     import torch
 
     from qamreconciliation_tpu_torch.models.alphabet import PAMAlphabet
@@ -307,26 +313,37 @@ def round_breakdown(dec, mat, snr, rounds=4, mode="softening"):
         ReconciliationEngine, round_generator,
     )
 
-    eng = ReconciliationEngine(dec, mat, PAMAlphabet(2, 2.0), batch=128,
-                               dtype=torch.float32)
-    nm = eng.mode_noisemapper(mode, snr, ALTERNATING)
+    dev = dec.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    eng = ReconciliationEngine(dec, mat, PAMAlphabet(bps, 2.0), batch=batch,
+                               dtype=dtype, llr_mode=llr_mode)
+    nm = eng.mode_noisemapper(mode, snr, nmconfig)
     sigma = math.sqrt(eng.noise_var(snr))
-    pre, dcd, its = [], [], []
+    pre, dcd, read, its = [], [], [], []
     for r in range(rounds + 1):
-        torch.cuda.synchronize()
+        sync()
         t0 = time.perf_counter()
-        x, y = eng._sample_sb(round_generator(11, r, "cuda"), sigma)
+        x, y = eng._sample_sb(round_generator(seed, r, dev), sigma)
         lappr, word = eng.round_inputs(mode, nm, x, y, sigma, 1.0)
-        torch.cuda.synchronize()
+        sync()
         t1 = time.perf_counter()
         it0 = dec.iterations_run
-        eng._decode_and_count_nb(lappr, word, 50).tolist()
+        counters = eng._decode_and_count_nb(lappr, word, maxiter)
+        sync()
         t2 = time.perf_counter()
+        counters.tolist()
+        t3 = time.perf_counter()
         if r:
             pre.append(1e3 * (t1 - t0))
             dcd.append(1e3 * (t2 - t1))
+            read.append(1e3 * (t3 - t2))
             its.append(dec.iterations_run - it0)
-    return statistics.median(pre), statistics.median(dcd), its
+    return (statistics.median(pre), statistics.median(dcd),
+            statistics.median(read), its)
 
 
 def round_times():
@@ -345,11 +362,12 @@ def round_times():
     out = {}
     for label, (dec, mat) in paths.items():
         for snr in (3.5, 4.0):
-            pre, dcd, its = round_breakdown(dec, mat, snr)
+            pre, dcd, read, its = round_breakdown(dec, mat, snr)
             out[f"{label} {snr} dB"] = dict(
-                preamble_ms=pre, decode_ms=dcd, iterations=its,
+                preamble_ms=pre, decode_ms=dcd, read_ms=read,
+                iterations=its,
                 ms_per_iteration=dcd / max(statistics.median(its), 1),
-                frames_per_s=128e3 / (pre + dcd))
+                frames_per_s=128e3 / (pre + dcd + read))
     return out
 
 

@@ -1,0 +1,114 @@
+"""The H100's data-sheet rates and the work of each kernel's call.
+
+The counterpart of the JAX package's ``utils/perf.py`` for the card the
+port runs on.  It holds no model of the chip's layout: a bound here is the
+least time the card could take for a call's work, the larger of
+
+* the bytes the call must move (each input read once, each output written
+  once) over the memory rate, and
+* the f32 operations of the plain version over the f32 rate,
+
+with the rates of NVIDIA's H100 SXM data sheet at its full 700 W (a card
+set to a lower power limit runs slower than these rates under load).  The
+operations of a check slot count each elementwise operation once, a
+transcendental too: at least one instruction each, so the operation time
+is a lower bound.  ``chip_smoke.py`` and ``qamreconciliation_tpu_torch.
+bench`` both take their bounds from here.
+
+The ``*_work`` functions give ``(bytes, ops)`` of one call at the shapes
+the decoders pass: kernels 1 and 4 per call, kernels 2 and 3 the bytes of
+one call (the state in and out once) and the operations of one step.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.kernels import GENERIC_BLOCK_C
+
+__all__ = ["HBM_BYTES_PER_S", "F32_OPS_PER_S", "OPS_PER_SLOT", "tensor_bytes",
+           "bound", "check_phase_qc_work", "decode_rounds_work",
+           "layered_sweeps_work", "check_phase_generic_work",
+           "check_node_update_work"]
+
+# H100 SXM data-sheet rates: HBM3 bytes/s, and f32 instructions/s outside
+# the tensor cores (67 TFLOP/s counts an FMA as two operations; none of the
+# rules' operations is an FMA, so each takes an instruction of its own)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12 / 2
+# f32 operations per check slot of the plain versions' rules
+OPS_PER_SLOT = {"sumproduct": 30, "tanhfb": 20, "minsum": 12}
+
+_I32 = 4        # syndromes of kernels 1, 4 and 5, violation counts, flags
+_I8 = 1         # syndromes of kernels 2 and 3
+
+
+def tensor_bytes(*tensors) -> int:
+    """Bytes of ``tensors``, each counted once."""
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def bound(nbytes: float, ops: float, steps: int = 1):
+    """``(bound_ms, bound_by)``: the larger of ``nbytes / steps`` over the
+    memory rate and ``ops`` over the f32 rate, and which of the two it is
+    ("bytes" or "operations").  A multi-step call passes its bytes and its
+    steps with the operations of one step, for a bound per step."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S / steps
+    t_ops = 1e3 * ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _size(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def check_phase_qc_work(nb_c, dc, z, B, t_dtype, m_dtype, rule):
+    """Kernel 1 (``bp_check_phase_qc``): t [nb_c, dc, z, B] and c2v in,
+    int32 syndrome [nb_c, z, B] in, c2v out, violations [nb_c, B] out."""
+    slots = nb_c * dc * z * B
+    nbytes = (slots * (_size(t_dtype) + 2 * _size(m_dtype))
+              + nb_c * z * B * _I32 + nb_c * B * _I32)
+    return nbytes, OPS_PER_SLOT[rule] * slots
+
+
+def decode_rounds_work(nb_v, nb_c, E, z, B, total_dtype, m_dtype, rule):
+    """Kernel 2 (``bp_decode_rounds_qc``): a call's state in (totals
+    [nb_v, z, B], c2v [E, z, B], prior in c2v's dtype, int8 syndrome
+    [nb_c, z, B], done and iters [B]) and out (totals, c2v, done, iters);
+    the operations of one step over every slot."""
+    t, m = _size(total_dtype), _size(m_dtype)
+    nbytes = (2 * nb_v * z * B * t + 2 * E * z * B * m + nb_v * z * B * m
+              + nb_c * z * B * _I8 + 4 * B * _I32)
+    return nbytes, OPS_PER_SLOT[rule] * E * z * B
+
+
+def layered_sweeps_work(nb_v, nb_c, E, z, B, m_dtype, rule):
+    """Kernel 3 (``bp_layered_sweeps_qc``): a call's state in (f32 totals
+    [nb_v, z, B], c2v [E, z, B], int8 syndrome [nb_c, z, B], done and
+    iters [B]) and out (totals, c2v, done, iters); the operations of one
+    sweep over every slot."""
+    m = _size(m_dtype)
+    nbytes = (2 * nb_v * z * B * 4 + 2 * E * z * B * m
+              + nb_c * z * B * _I8 + 4 * B * _I32)
+    return nbytes, OPS_PER_SLOT[rule] * E * z * B
+
+
+def check_phase_generic_work(dc, C, B, m_dtype, rule):
+    """Kernel 4 (``bp_check_phase_generic``): t and c2v [dc, C, B] in, int32
+    syndrome [C, B] and f32 mask [dc, C] in, c2v out, violations per block
+    of ``GENERIC_BLOCK_C`` checks [ceil(C / GENERIC_BLOCK_C), B] out."""
+    slots = dc * C * B
+    blocks = -(-C // GENERIC_BLOCK_C)
+    nbytes = (3 * slots * _size(m_dtype) + C * B * _I32 + dc * C * 4
+              + blocks * B * _I32)
+    return nbytes, OPS_PER_SLOT[rule] * slots
+
+
+def check_node_update_work(C, dc, B, dtype):
+    """Kernel 5 (``check_node_update_fused``): v2c [C, dc, B] in, int32
+    syndrome [C, B] and f32 mask [C, dc] in, the phi update [C, dc, B]
+    out."""
+    slots = C * dc * B
+    nbytes = 2 * slots * _size(dtype) + C * B * _I32 + C * dc * 4
+    return nbytes, OPS_PER_SLOT["sumproduct"] * slots
