@@ -75,11 +75,16 @@ Phases (each must pass, or the script exits non-zero):
      4096-configuration batched call at bps 4, the compare-signs CLI;
  16. multi-device reconciliation (phase_multidevice): two ranks on the card
      (gloo), kernels 4 and 1 at one rank's shapes [7, 16200, 128] and [90,
-     6, 180, 128] bit for bit; frame-shard rounds of kernels 1-4 whose
+     6, 180, 128] bit for bit; gloo's send/recv on CUDA tensors probed in
+     two ranks of their own; the collectives' ms beside Mesh.exchange's for
+     the headline code's roll windows, with the elements a rank receives an
+     iteration beside an all-gather's; frame-shard rounds of kernels 1-4 whose
      world-2 counters equal the sum of the ranks' single rounds, frames/s
      at world 2 beside world 1; ShardedDecoder (DVB-S2 1/2) against the
      single-device decoder (success, iters and finals as the tests bind
-     them), ShardedQCDecoder torch.equal to it; the --devices 2 and --graph-shard CLIs (one CSV,
+     them), ShardedQCDecoder torch.equal to it, with its ms an iteration
+     and each rank's peak memory over the decode below world 1's; the
+     --devices 2 and --graph-shard CLIs (one CSV,
      rank 0's) and the knee watch at --devices 2; the frame-sharded
      stream_fused equal to the single-device one; dryrun_multichip(2);
  17. the Tail (phase_tail): compressed-state min-sum against the dense
@@ -2320,6 +2325,118 @@ def stream_view(res):
             np.packbits(np.asarray(res.decoded_words, np.uint8), axis=1))
 
 
+def _p2p_probe_rank():
+    """One of two ranks probing what gloo's point-to-point does with CUDA
+    tensors: rank 0 sends a CUDA tensor to rank 1, which receives into
+    one.  Returns the first line of what either raises, or whether the
+    bytes arrived."""
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    x = torch.arange(1 << 16, dtype=torch.float32, device="cuda")
+    try:
+        if rank == 0:
+            dist.send(x, 1)
+            return "sent"
+        y = torch.zeros_like(x)
+        dist.recv(y, 0)
+        return "exact" if torch.equal(y, x) else "WRONG values"
+    except RuntimeError as e:
+        return f"raises: {str(e).splitlines()[0][:200]}"
+
+
+def p2p_probe():
+    """gloo's send/recv on CUDA tensors, in two ranks of their own (a
+    failed send can close the pair, so not in phase 16's group)."""
+    from qamreconciliation_tpu_torch.parallel.mesh import run_ranks
+
+    try:
+        got = run_ranks(_p2p_probe_rank, 2, device="cuda", timeout=120)
+    except (RuntimeError, TimeoutError) as e:
+        got = [f"the probe's ranks failed: {e} (a negative code is the "
+               f"signal that ended the rank: -6 an abort)"]
+    log(f"[multi] gloo send/recv on CUDA tensors (two ranks on one card): "
+        f"{' | '.join(f'rank {r}: {g}' for r, g in enumerate(got))}; "
+        f"Mesh.exchange stages a CUDA rank's gloo transfers through pinned "
+        f"host buffers, decided from the backend")
+    return got
+
+
+def exchange_timings(mesh, say):
+    """Mesh.exchange of the headline code's roll windows at this world
+    size, f32 and bf16 (B = 128): ms of the check side, the variable side
+    and both (median of 3 after a warm-up, ranks aligned by a barrier),
+    and the elements this rank receives an iteration beside an all-gather
+    of every rank's messages."""
+    from qamreconciliation_tpu_torch.models.qc_decoder import make_qc_ldpc
+    from qamreconciliation_tpu_torch.parallel.halo import roll_plan
+
+    base, _, _ = make_qc_ldpc(CODE["nb_v"], CODE["z"], CODE["dv"],
+                              CODE["dc"], seed=CODE["seed"])
+    rows = [[] for _ in range(SHAPE[0])]
+    for c, v, sh in base:
+        rows[c].append((v, sh))
+    plan = roll_plan(rows, CODE["z"], mesh.world, mesh.rank,
+                     device=mesh.device)
+    zl, B = CODE["z"] // mesh.world, SHAPE[3]
+    rt, rm = (n * B for n in plan.received())
+    gathered = plan.all_gather_rows() * B
+    out = {"received": (rt, rm), "all_gather": gathered}
+    for dt in (torch.float32, torch.bfloat16):
+        total = torch.ones((CODE["nb_v"], zl, B), dtype=dt,
+                           device=mesh.device)
+        c2v = torch.ones((SHAPE[0], SHAPE[1], zl, B), dtype=dt,
+                         device=mesh.device)
+
+        def check_side():
+            return mesh.exchange(plan.pack_totals(total), {
+                q: (n, B) for q, n in plan.totals_recv.items()}, dt)
+
+        def variable_side():
+            return mesh.exchange(plan.pack_messages(c2v), {
+                q: (n, B) for q, n in plan.messages_recv.items()}, dt)
+
+        ms = {}
+        for label, fn in (("check", check_side), ("variable", variable_side),
+                          ("iteration", lambda: (check_side(),
+                                                 variable_side()))):
+            times = []
+            for _ in range(4):
+                mesh.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            ms[label] = statistics.median(times[1:])
+        out[str(dt)[6:]] = ms
+        say(f"[multi] Mesh.exchange, headline roll windows {str(dt)[6:]} "
+            f"at world {mesh.world} (backend {mesh.backend}, staged through "
+            f"host: {mesh.stage_host}): check side {ms['check']:.2f} ms, "
+            f"variable side {ms['variable']:.2f} ms, both "
+            f"{ms['iteration']:.2f} ms an iteration (median of 3); rank "
+            f"{mesh.rank} receives "
+            f"{rt / 1e6:.2f} M + {rm / 1e6:.2f} M = {(rt + rm) / 1e6:.2f} M "
+            f"elements an iteration, against {gathered / 1e6:.2f} M for an "
+            f"all-gather of every rank's messages")
+        del total, c2v
+    return out
+
+
+def decode_peak(dec, lappr, synd, maxiter=50):
+    """(decode, seconds, peak bytes over the decode above what was
+    allocated before it, that peak in all) of one decode_batched."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = dec.decode_batched(lappr, synd, maxiter)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    return out, secs, peak - before, peak
+
+
 def _multidevice_rank(work, fps1, knee1):
     """One of phase 16's two ranks (see phase_multidevice).  Returns its
     failed checks, its launches by item, and what the parent compares."""
@@ -2401,6 +2518,7 @@ def _multidevice_rank(work, fps1, knee1):
         out.setdefault("collective_ms", {})[label] = statistics.median(
             times[1:])
         del buf
+    out["exchange"] = exchange_timings(mesh, say)
 
     # 2. frame-shard rounds at the headline
     pa = PAMAlphabet(2, 2.0)
@@ -2473,24 +2591,39 @@ def _multidevice_rank(work, fps1, knee1):
                                   CODE["dc"], seed=CODE["seed"])
     z = CODE["z"]
     lappr, synd, _ = softening_llrs(base, z, ((4.0, 128),), seed=seed)
+    mib = 2.0 ** 20
     for dt, kw in ((torch.float32, {}),
                    (torch.bfloat16, dict(check_rule="minsum"))):
         name = f"{str(dt)[6:]} {'min-sum' if kw else 'phi'}"
-        want = QCDecoder(base, z, dt, device="cuda", **kw).decode_batched(
-            lappr, synd, 50)
+        one = QCDecoder(base, z, dt, device="cuda", **kw)
+        want, secs1, over1, peak1 = decode_peak(one, lappr, synd)
         sdec = ShardedQCDecoder(base, z, gs, dtype=dt, **kw)
-        t0 = time.perf_counter()
-        got = counted(f"ShardedQCDecoder headline {name}",
-                      lambda: sdec.decode_batched(lappr, synd, 50))
-        secs = time.perf_counter() - t0
+        got, secs, over2, peak2 = counted(
+            f"ShardedQCDecoder headline {name}",
+            lambda: decode_peak(sdec, lappr, synd))
         check(all(map(torch.equal, got, want)),
               f"ShardedQCDecoder {name}: not torch.equal to the dense "
               f"decoder")
-        say(f"[multi] ShardedQCDecoder headline {name}, 128 frames at 4.0 "
-            f"dB: torch.equal to the single-device dense decoder "
+        check(over2 < over1, f"ShardedQCDecoder {name}: peak memory over "
+              f"the decode {over2 / mib:.1f} MiB at world {world}, not below "
+              f"world 1's {over1 / mib:.1f} MiB")
+        its = max(sdec.iterations_run, 1)
+        out.setdefault("sharded_qc", {})[name] = dict(
+            ms_per_iteration=1e3 * secs / its,
+            ms_per_iteration_world1=1e3 * secs1 / max(one.iterations_run, 1),
+            iterations=sdec.iterations_run, peak_over_decode=over2,
+            peak_over_decode_world1=over1, peak=peak2, peak_world1=peak1)
+        log(f"[multi] rank {rank} ShardedQCDecoder headline {name}, 128 "
+            f"frames at 4.0 dB: torch.equal to the single-device dense "
+            f"decoder: {all(map(torch.equal, got, want))} "
             f"({int(got[0].sum())}/128 decoded); {sdec.iterations_run} "
-            f"iterations, {1e3 * secs / max(sdec.iterations_run, 1):.2f} "
-            f"ms each")
+            f"iterations, {1e3 * secs / its:.2f} ms each (world 1, this "
+            f"rank: {1e3 * secs1 / max(one.iterations_run, 1):.2f}); "
+            f"torch.cuda.max_memory_allocated over the decode "
+            f"{over2 / mib:.1f} MiB above the {(peak2 - over2) / mib:.1f} MiB "
+            f"allocated before it (world 1: {over1 / mib:.1f} MiB above "
+            f"{(peak1 - over1) / mib:.1f})")
+        del one, sdec, want, got
 
     # 4. the CLIs, as ranks of this group
     qc_csv = os.path.join(work, "qc.csv")
@@ -2558,7 +2691,10 @@ def phase_multidevice(kernels):
     to 0 just before each item and read just after:
 
     1. kernels 4 and 1 at one rank's shapes against their plain versions
-       (multi_kernels, in this process before the ranks start);
+       (multi_kernels, in this process before the ranks start), and gloo's
+       send/recv on CUDA tensors (p2p_probe, two ranks of its own); in the
+       ranks, the collectives' ms and Mesh.exchange's for the headline
+       roll windows (exchange_timings);
     2. frame-shard rounds at the headline (4-PAM softening, B = 128 a rank,
        3.5 dB, 50 iterations) on the dense f32 phi (kernel 1), resident
        bf16 (kernel 2), resident layered bf16 min-sum (kernel 3) and the
@@ -2570,7 +2706,9 @@ def phase_multidevice(kernels):
        iters equal, finals as the tests bind them (bf16 within one ulp,
        f32 every hard decision, its magnitudes reported); ShardedQCDecoder
        on the headline (f32 phi, bf16 min-sum) torch.equal to the dense
-       QCDecoder;
+       QCDecoder, its ms an iteration and each rank's peak memory over the
+       decode (torch.cuda.max_memory_allocated), which must lie below the
+       single-device decode's;
     4. the CLIs as ranks: sim_reconciliation --qc --devices 2 (dense,
        --resident), --graph-shard, sim_bsc --devices 2, one CSV each from
        rank 0; the knee watch at --devices 2 within 4 standard errors of
@@ -2595,6 +2733,7 @@ def phase_multidevice(kernels):
     from qamreconciliation_tpu_torch.sims.streaming import StreamReconciler
 
     multi_kernels(kernels)
+    p2p_probe()
     pa = PAMAlphabet(2, 2.0)
     fps1 = {}
     for label, (make, (vid, cid), dtype, _) in multi_paths().items():

@@ -42,7 +42,8 @@ from ..ops.kernels import (
 )
 
 __all__ = ["QCDecoder", "make_qc_ldpc", "make_qc_ira", "color_disjoint_rows",
-           "layered_plan", "save_qc_csv", "load_qc_csv", "detect_qc"]
+           "layered_plan", "save_qc_csv", "load_qc_csv", "detect_qc",
+           "fold_incoming"]
 
 
 def make_qc_ldpc(nb_v: int, z: int, dv: int = 3, dc: int = 6, seed: int = 0):
@@ -126,6 +127,31 @@ def make_qc_ira(nb_info: int, nb_acc: int, z: int, dv: int = 3,
     base_edges.sort()
     vid, cid = _expand(base_edges, z)
     return base_edges, vid, cid
+
+
+def fold_incoming(flat, groups, nb_v: int, sum_dtype):
+    """Each variable lane's messages, left-folded in (cb, slot) order.
+
+    ``flat`` [rows, B] holds the messages; ``groups`` lists ``(vbs, idx,
+    deg)``: variable blocks of degree ``deg`` and the rows of their
+    messages, ``[len(vbs), deg, lanes]`` flattened, in (cb, slot) order.
+    Returns ``[nb_v, lanes, B]`` in ``sum_dtype``, zero for blocks without
+    messages.  No atomics, so the sum is deterministic."""
+    B = flat.shape[-1]
+    acc = None
+    for vbs, idx, deg in groups:
+        g = flat.index_select(0, idx).view(len(vbs), deg, -1, B)
+        g = g.to(sum_dtype)
+        s = g[:, 0]
+        for i in range(1, deg):
+            s = s + g[:, i]
+        if len(groups) == 1 and len(vbs) == nb_v:
+            return s
+        if acc is None:
+            acc = torch.zeros((nb_v, s.shape[1], B), dtype=sum_dtype,
+                              device=flat.device)
+        acc.index_copy_(0, vbs, s)
+    return acc
 
 
 def color_disjoint_rows(rows):
@@ -492,24 +518,18 @@ class QCDecoder:
              deg)
             for deg, vbs in sorted(by_deg.items())
         ]
-        self._full_cover = (
-            len(self._scatter_groups) == 1
-            and len(self._scatter_groups[0][0]) == self.nb_v
-        )
 
-    def _gather(self, total, pad_value, idx=None):
-        """[nb_v, z, B] -> [nb_c, dc, z, B] by the circulant index (or the
-        lanes of ``idx``, a part of it: [nb_c, dc, lanes, B]), padded slots
-        filled with ``pad_value``."""
+    def _gather(self, total, pad_value):
+        """[nb_v, z, B] -> [nb_c, dc, z, B] by the circulant index, padded
+        slots filled with ``pad_value``."""
         B = total.shape[-1]
         flat = torch.cat([
             total.reshape(self.vnum, B),
             torch.full((1, B), pad_value, dtype=total.dtype,
                        device=total.device),
         ])
-        idx = self._gather_idx if idx is None else idx
-        return flat.index_select(0, idx).view(
-            self.nb_c, self.dc, idx.numel() // (self.nb_c * self.dc), B)
+        return flat.index_select(0, self._gather_idx).view(
+            self.nb_c, self.dc, self.z, B)
 
     def gather_totals(self, total):
         """total [nb_v, z, B] -> t [nb_c, dc, z, B]; padded slots of short
@@ -520,22 +540,8 @@ class QCDecoder:
         """c2v [nb_c, dc, z, B] -> per-variable sums [nb_v, z, B] in
         ``sum_dtype``: a left fold over each variable's messages in
         (cb, slot) order.  No atomics, so the sum is deterministic."""
-        B = c2v.shape[-1]
-        flat = c2v.reshape(-1, B)
-        acc = None
-        for vbs, idx, deg in self._scatter_groups:
-            g = flat.index_select(0, idx).view(len(vbs), deg, self.z, B)
-            g = g.to(self.sum_dtype)
-            s = g[:, 0]
-            for i in range(1, deg):
-                s = s + g[:, i]
-            if self._full_cover:
-                return s
-            if acc is None:
-                acc = torch.zeros((self.nb_v, self.z, B),
-                                  dtype=self.sum_dtype, device=c2v.device)
-            acc.index_copy_(0, vbs, s)
-        return acc
+        return fold_incoming(c2v.reshape(-1, c2v.shape[-1]),
+                             self._scatter_groups, self.nb_v, self.sum_dtype)
 
     def syndrome_from_bits(self, bits):
         """Syndrome via the circulant index: [V, B] int (0/1) -> [C, B]
@@ -580,11 +586,11 @@ class QCDecoder:
         rounded plain check update in place of the kernel)."""
         z, B = self.z, prior_vb.shape[1]
         max_iterations = int(max_iterations)
-        prior = prior_vb.to(self.device, self.dtype).to(self.acc_dtype) \
-            .reshape(self.nb_v, z, B)
-        synd = synd_cb.to(self.device, torch.int32).reshape(
-            self.nb_c, z, B).contiguous()
-        synd_chk = self._check_synd(synd)
+        prior = self._own_lanes(
+            prior_vb.to(self.device, self.dtype).to(self.acc_dtype)
+            .reshape(self.nb_v, z, B))
+        synd_chk = self._check_synd(synd_cb.to(self.device, torch.int32)
+                                    .reshape(self.nb_c, z, B).contiguous())
 
         c2v = torch.zeros((self.nb_c, self.dc, synd_chk.shape[1], B),
                           dtype=self.dtype, device=self.device)
@@ -615,7 +621,7 @@ class QCDecoder:
             ).to(self.acc_dtype)
             it += 1
             self.iterations_run += 1
-        return self._finish_flooding(total, final, done, iters, synd, it,
+        return self._finish_flooding(total, final, done, iters, synd_chk, it,
                                      max_iterations)
 
     def _record_converged(self, conv, it, total, final, done, iters):
@@ -636,15 +642,15 @@ class QCDecoder:
                          max_iterations):
         """The flooding loops' tail: frames that converge on the last
         update count ``min(it, max_iterations)``; failed frames report
-        ``max_iterations`` and their last totals."""
-        # the totals cover every lane: the test of every check
-        conv = self._consistent(self.gather_totals(total), synd)
+        ``max_iterations`` and their last totals.  ``synd`` holds the
+        syndrome lanes of the checks updated here."""
+        conv = self._totals_consistent(total, synd)
         newly = conv & ~done
         iters = torch.where(newly, min(it, max_iterations), iters)
         final = torch.where(newly, total, final)
         done = done | conv
         iters = torch.where(done, iters, max_iterations)
-        final = torch.where(done, final, total)
+        final = self._all_lanes(torch.where(done, final, total))
         return done, iters, final.reshape(self.vnum, total.shape[-1])
 
     def _sr_check_phase(self, total, c2v, synd_chk, gen):
@@ -772,9 +778,24 @@ class QCDecoder:
         return viol
 
     def _var_sums(self, c2v):
-        """The messages of the lanes updated here -> every variable's sum
-        [nb_v, z, B] in ``sum_dtype``."""
+        """The messages of the lanes updated here -> the sums [nb_v, lanes,
+        B] in ``sum_dtype`` of the variable lanes held here."""
         return self.scatter_partials(c2v)
+
+    def _own_lanes(self, x):
+        """x [nb_v, z, B] of every lane -> the variable lanes held here."""
+        return x
+
+    def _all_lanes(self, x):
+        """x [nb_v, lanes, B] of the variable lanes held here -> [nb_v, z,
+        B] of every lane."""
+        return x
+
+    def _totals_consistent(self, total, synd):
+        """[B] bool: the hard decision of the totals held here satisfies
+        the syndrome (``synd``: the lanes of the checks updated here) at
+        every check."""
+        return self._consistent(self.gather_totals(total), synd)
 
     def _consistent_flat(self, total, synd):
         """[B] bool: the hard decision of total [nb_v, z, B] satisfies the

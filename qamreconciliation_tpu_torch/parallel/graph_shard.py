@@ -14,13 +14,14 @@ every frame stays whole on every rank.
   variable's additions, so results agree with the single-device decoder
   to float rounding, not bit for bit, as in the JAX package.
 * :class:`ShardedQCDecoder` (quasi-cyclic codes): the circulant lane axis z
-  is split, each rank running the dense flooding check phase
-  (``ops.kernels.bp_check_phase_qc``, kernel 1) on its ``z / D`` lanes of
-  every check block.  The variable pass must fold every variable's
-  messages in the single-device ``(cb, slot)`` order, so each rank
-  all-gathers the other ranks' messages and runs the single-device fold:
-  the decode is bit-equal to the single-device ``QCDecoder``'s, as the JAX
-  package's is.
+  is split, each rank holding ``z / D`` lanes of every block's totals and
+  messages and running the dense flooding check phase
+  (``ops.kernels.bp_check_phase_qc``, kernel 1) on them.  Each circulant
+  roll reads lanes of other ranks, and only those move, point to point
+  (``parallel/halo.py``): the check phase's windows of the totals, and the
+  variable pass's windows of the messages, which each variable lane folds
+  in the single-device ``(cb, slot)`` order: the decode is bit-equal to
+  the single-device ``QCDecoder``'s, as the JAX package's is.
 
 Every rank issues the same collectives in the same order, and the
 decoders' one host read an iteration ("all done?") reads counts already
@@ -36,7 +37,7 @@ import torch
 from ..config import DEFAULT_DTYPE
 from ..models.decoder import Decoder
 from ..models.qc_decoder import QCDecoder
-from ..ops.boxplus import BIG
+from .halo import roll_plan
 
 __all__ = ["ShardedDecoder", "ShardedQCDecoder"]
 
@@ -152,14 +153,21 @@ class ShardedDecoder(Decoder):
 class ShardedQCDecoder(QCDecoder):
     """Quasi-cyclic graph sharding: the circulant lane axis z over the mesh.
 
-    The decode loop is the single-device ``QCDecoder``'s dense one.  Each
-    rank holds the totals of every lane (replicated) and runs the check
-    phase on its ``z / D`` lanes of every check block (kernel 1 at
-    ``[nb_c, dc, z / D, B]`` on the card).  The violation
-    counts are summed over the ranks; the messages are all-gathered and
-    folded per variable in the single-device ``(cb, slot)`` order, so the
-    decode is bit-equal to the single-device dense ``QCDecoder``'s.  Every
-    frame stays whole; counters and finals come back replicated.
+    The decode loop is the single-device ``QCDecoder``'s dense one, on
+    sharded state: each rank holds ``z / D`` lanes, ``prior``, ``total``
+    and ``final`` as ``[nb_v, z / D, B]`` and the messages as ``[nb_c, dc,
+    z / D, B]``, and runs the check phase on its lanes of every check block
+    (kernel 1 at ``[nb_c, dc, z / D, B]`` on the card).  An iteration moves
+    the roll windows of :func:`~.halo.roll_plan` with two
+    ``Mesh.exchange`` calls (the totals before the check phase, the
+    messages before the variable pass) and sums the violation counts over
+    the ranks; each variable lane folds its messages in the single-device
+    ``(cb, slot)`` order, so the decode is bit-equal to the single-device
+    dense ``QCDecoder``'s.  Every frame stays whole; one all-gather at the
+    end of a decode makes the finals, like the counters, replicated.  With
+    ``sr_messages`` each rank still draws every lane's random bits and
+    keeps its own, so that it stays bit-equal to one device: that draw is
+    the one full-z tensor of the loop.
 
     Dense flooding only, as in the JAX package: ``resident=True``, the
     layered schedule, ``compressed=True`` and an explicit
@@ -199,12 +207,10 @@ class ShardedQCDecoder(QCDecoder):
         self.mesh = mesh
         self.axis = mesh.axis_name
         super().__init__(base_edges, z, device=mesh.device, **kw)
-        self.z_local = zl = self.z // D
-        lanes = torch.arange(mesh.rank * zl, (mesh.rank + 1) * zl,
-                             device=self.device)
-        self._lanes = (mesh.rank * zl, (mesh.rank + 1) * zl)
-        self._gather_idx_local = self._gather_idx.view(
-            self.nb_c, self.dc, self.z).index_select(2, lanes).reshape(-1)
+        self.z_local = self.z // D
+        self.plan = roll_plan(self._rows, self.z, D, mesh.rank,
+                              device=self.device)
+        self._lanes = self.plan.lanes
 
     # ------------------------------------------------------------------ #
     # The steps of QCDecoder._decode_dense, on this rank's lanes
@@ -215,17 +221,45 @@ class ShardedQCDecoder(QCDecoder):
     def _check_lanes(self, x):
         return x[:, :, self._lanes[0]:self._lanes[1]]
 
+    def _own_lanes(self, x):
+        return x[:, self._lanes[0]:self._lanes[1]].contiguous()
+
+    def _all_lanes(self, x):
+        """This rank's [nb_v, z / D, B] -> every rank's [nb_v, z, B]: the
+        decode's one all-gather, after its last iteration."""
+        g = self.mesh.all_gather(x)                # [D, nb_v, zl, B]
+        return g.permute(1, 0, 2, 3).reshape(self.nb_v, self.z, x.shape[-1])
+
     def _check_inputs(self, total):
-        """total [nb_v, z, B] -> this rank's t [nb_c, dc, z / D, B],
-        padded slots holding the +1e30 sentinel."""
-        return self._gather(total, BIG, self._gather_idx_local)
+        """This rank's totals [nb_v, z / D, B] and the check-side windows
+        of its peers' -> its t [nb_c, dc, z / D, B], padded slots holding
+        the +1e30 sentinel."""
+        B = total.shape[-1]
+        recvs = self.mesh.exchange(
+            self.plan.pack_totals(total),
+            {q: (n, B) for q, n in self.plan.totals_recv.items()},
+            total.dtype)
+        return self.plan.check_inputs(total, recvs)
 
     def _frame_violations(self, viol):
         return self.mesh.all_reduce_sum(viol)
 
     def _var_sums(self, c2v):
-        """Every rank's messages [nb_c, dc, z / D, B], all-gathered in lane
-        order and folded as on one device."""
-        g = self.mesh.all_gather(c2v)              # [D, nb_c, dc, zl, B]
-        return self.scatter_partials(g.permute(1, 2, 0, 3, 4).reshape(
-            self.nb_c, self.dc, self.z, c2v.shape[-1]))
+        """This rank's messages [nb_c, dc, z / D, B] and the variable-side
+        windows of its peers' -> the sums [nb_v, z / D, B] of its variable
+        lanes, each folded in the single-device (cb, slot) order."""
+        B = c2v.shape[-1]
+        recvs = self.mesh.exchange(
+            self.plan.pack_messages(c2v),
+            {q: (n, B) for q, n in self.plan.messages_recv.items()},
+            c2v.dtype)
+        return self.plan.var_sums(c2v, recvs, self.sum_dtype)
+
+    def _totals_consistent(self, total, synd):
+        """The consistency test of every check, from this rank's windowed
+        t: its checks' violations, summed over the ranks."""
+        t = self._check_inputs(total)
+        parity = torch.sum((t < 0).to(torch.int32), dim=1) & 1
+        viol = torch.sum((parity != synd).to(torch.int32), dim=(0, 1),
+                         dtype=torch.int32)
+        return self._frame_violations(viol) == 0

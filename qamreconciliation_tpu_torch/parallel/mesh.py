@@ -108,10 +108,15 @@ class Mesh:
     """A 1-D mesh of ranks: the process group (None for a single rank),
     this rank, the world size, this rank's device and the axis name.
 
-    The two collectives of the slice run along the axis on tensors on
-    ``device``, every rank issuing the same calls in the same order:
-    :meth:`all_reduce_sum` and :meth:`all_gather`.  A failed collective
-    raises.
+    The collectives run along the axis on tensors on ``device``, every
+    rank issuing the same calls in the same order: :meth:`all_reduce_sum`,
+    :meth:`all_gather` and the point-to-point :meth:`exchange`.  A failed
+    collective raises.  ``stage_host`` is decided here, from the backend,
+    once: gloo's point-to-point refuses CUDA tensors (its send writes from
+    the device pointer: "writev ... Bad address", raised or aborting the
+    process, in ``chip_smoke.py`` phase 16's probe on the H100), so under
+    gloo a CUDA rank's exchange goes through pinned host buffers, and
+    NCCL's takes the CUDA tensors directly.
     """
 
     def __init__(self, group, rank: int, world: int, device,
@@ -122,6 +127,7 @@ class Mesh:
         self.device = torch.device(device)
         self.axis_name = axis_name
         self.backend = backend
+        self.stage_host = backend == "gloo" and self.device.type == "cuda"
 
     def __repr__(self):
         return (f"Mesh({self.axis_name!r}: rank {self.rank}/{self.world}, "
@@ -148,6 +154,47 @@ class Mesh:
                           device=x.device)
         dist.all_gather(list(buf.unbind(0)), raw, group=self.group)
         return buf.view(x.dtype).view(self.world, *x.shape)
+
+    def exchange(self, sends: dict, recv_shapes: dict, dtype) -> dict:
+        """Point to point: ``sends[q]`` to peer q, and from each peer q in
+        ``recv_shapes`` one tensor of that shape; returns {q: received}.
+
+        Every rank posts its operations in the same order (peers
+        ascending, for each its send, then its receive) with
+        ``dist.batch_isend_irecv`` and waits for all of them.  Raw bytes
+        move, whatever ``dtype``, so bf16, signed zeros and NaNs arrive bit
+        for bit; with ``stage_host`` through pinned host buffers.  What a
+        rank receives must be what its peer sends it, in size and dtype;
+        a failed transfer raises."""
+        if self.rank in sends or self.rank in recv_shapes:
+            raise ValueError(f"rank {self.rank} cannot exchange with itself")
+        out = {q: torch.empty(shape, dtype=dtype, device=self.device)
+               for q, shape in recv_shapes.items()}
+        ops, landed = [], []
+        for q in sorted(set(sends) | set(out)):
+            if q in sends:
+                if sends[q].dtype != dtype:
+                    raise ValueError(f"a {sends[q].dtype} send among "
+                                     f"{dtype} exchanges")
+                raw = sends[q].contiguous().reshape(-1).view(torch.uint8)
+                if self.stage_host:
+                    raw = torch.empty(raw.numel(), dtype=torch.uint8,
+                                      pin_memory=True).copy_(raw)
+                ops.append(dist.P2POp(dist.isend, raw, q, self.group))
+            if q in out:
+                raw = out[q].reshape(-1).view(torch.uint8)
+                if self.stage_host:
+                    host = torch.empty(raw.numel(), dtype=torch.uint8,
+                                       pin_memory=True)
+                    landed.append((raw, host))
+                    raw = host
+                ops.append(dist.P2POp(dist.irecv, raw, q, self.group))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        for dst, host in landed:
+            dst.copy_(host)
+        return out
 
     def barrier(self) -> None:
         if self.world > 1:

@@ -31,7 +31,13 @@ counters.  Prints one JSON line.
 unpacked with ``git archive``, say), whose wrappers and decoders have the
 same interface; run one process per checkout, in turns, on one card.
 ``--parts resident`` times only the resident part (a checkout without the
-generic decoder has no other).
+generic decoder has no other).  ``--parts sharded`` times only the
+z-sharded QC decoder (``ShardedQCDecoder``) at world 2, two gloo ranks on
+the one card: on the headline code, f32 phi and bf16 min-sum, 128 frames
+of BI-AWGN LLRs (sigma 0.8, numpy-seeded), each rank's ms an iteration
+(host clock) and ``torch.cuda.max_memory_allocated`` over the decode,
+beside the single-device dense decoder's on the same rank and inputs, and
+whether the two decodes are torch.equal.
 """
 
 import argparse
@@ -371,10 +377,68 @@ def round_times():
     return out
 
 
+def _sharded_rank(world):
+    """One rank of ``--parts sharded``: {case: figures} (see the module
+    docstring)."""
+    import torch
+
+    from qamreconciliation_tpu_torch.models.qc_decoder import QCDecoder
+    from qamreconciliation_tpu_torch.parallel import (
+        ShardedQCDecoder, make_mesh,
+    )
+
+    mesh = make_mesh(world, "gs", device="cuda")
+    base, z, B = headline_qc(), 360, 128
+    rng = np.random.default_rng(5)
+    word = rng.integers(0, 2, (180 * z, B))
+    y = (1 - 2 * word) + 0.8 * rng.standard_normal(word.shape)
+    llr = torch.as_tensor(2 * y / 0.8 ** 2, dtype=torch.float32,
+                          device=mesh.device)
+    one = QCDecoder(base, z, device=mesh.device)
+    synd = one.syndrome_from_bits(torch.as_tensor(word, device=mesh.device))
+
+    def run(dec):
+        dec.decode_batched(llr, synd, 50)          # warm-up
+        dec.iterations_run = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = dec.decode_batched(llr, synd, 50)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        over = torch.cuda.max_memory_allocated() - before
+        return out, 1e3 * secs / max(dec.iterations_run, 1), \
+            dec.iterations_run, over
+
+    res = {}
+    for name, dt, kw in (("float32 phi", torch.float32, {}),
+                         ("bfloat16 min-sum", torch.bfloat16,
+                          dict(check_rule="minsum"))):
+        want, ms1, _, over1 = run(QCDecoder(base, z, dt, device=mesh.device,
+                                            **kw))
+        mesh.barrier()
+        got, ms, its, over = run(ShardedQCDecoder(base, z, mesh, dtype=dt,
+                                                  **kw))
+        res[name] = dict(equal=all(map(torch.equal, got, want)),
+                         iterations=its, ms_per_iteration=ms,
+                         ms_per_iteration_world1=ms1, peak_over_decode=over,
+                         peak_over_decode_world1=over1)
+    return res
+
+
+def sharded_times():
+    """``--parts sharded``: each rank's figures, in rank order."""
+    from qamreconciliation_tpu_torch.parallel.mesh import run_ranks
+
+    return run_ranks(_sharded_rank, 2, (2,), device="cuda", timeout=600)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--root", help="checkout of the port to import")
-    p.add_argument("--parts", choices=("all", "resident"), default="all",
+    p.add_argument("--parts", choices=("all", "resident", "sharded"),
+                   default="all",
                    help="what to time (default all)")
     p.add_argument("--inputs", help="file keeping the resident rounds' "
                    "softening inputs, made by the first run")
@@ -393,6 +457,10 @@ def main(argv=None):
         timeout=60).stdout.strip().splitlines()[0]
     result = dict(port=os.path.dirname(os.path.abspath(port.__file__)),
                   device=smi)
+    if args.parts == "sharded":
+        result.update(sharded=sharded_times())
+        print(json.dumps(result))
+        return result
     if args.parts == "all":
         result.update(kernels_ms=kernel_times(), rounds=round_times())
     result.update(resident_kernels_ms=resident_kernel_times(),

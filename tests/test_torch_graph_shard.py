@@ -1,12 +1,13 @@
 """Port parity: the graph-sharded decoders (``parallel/graph_shard.py``) at
 world size 2, against the JAX package's on 2 of the 8 virtual CPU devices
-and against the port's single-device decoders.
+and against the port's single-device decoders; and ``ShardedQCDecoder``
+at world size 4, against JAX's on 4 of them.
 
-The port's two ranks run once for the whole file (``ranks``): two
-processes started by ``parallel.mesh.run_ranks`` (spawn, gloo, a file
-store under a temporary directory), which import only the port and this
-module, whose JAX imports stay inside the tests.  The numpy-seeded inputs
-go to the ranks; their results come back here.
+The port's ranks run once a world size for the whole file (``ranks``,
+``ranks4``): processes started by ``parallel.mesh.run_ranks`` (spawn,
+gloo, a file store under a temporary directory), which import only the
+port and this module, whose JAX imports stay inside the tests.  The
+numpy-seeded inputs go to the ranks; their results come back here.
 
 Tiers:
 * ``ShardedDecoder`` splits the checks and sums per-rank partial sums of
@@ -16,11 +17,13 @@ Tiers:
   float64 (the JAX file's tolerance), in float32 in every hard decision
   and within ``F32_TOL`` on each converged frame of these inputs (see
   ``F32_TOL``), and within ``BF16_TOL`` in bfloat16.
-* ``ShardedQCDecoder`` splits the circulant lanes and folds the
-  all-gathered messages in the single-device order: bit-equal to the
-  port's single-device ``QCDecoder``, as the JAX package's is to its own.
-  Against JAX's it is equal for min-sum and within float32 rounding
-  (``F32_TOL``) for sum-product, whose phi runs on each library's libm.
+* ``ShardedQCDecoder`` splits the circulant lanes, each rank holding
+  ``z / D`` of them, exchanges only the roll windows it reads, point to
+  point, and folds each variable lane's messages in the single-device
+  order: bit-equal to the port's single-device ``QCDecoder``, as the JAX
+  package's is to its own.  Against JAX's it is equal for min-sum and
+  within float32 rounding (``F32_TOL``) for sum-product, whose phi runs on
+  each library's libm.
 """
 
 import csv
@@ -47,6 +50,7 @@ from qamreconciliation_tpu_torch.utils.edgefile import (
 torch.set_num_threads(1)
 
 WORLD = 2
+WORLD4 = 4
 # float32 finals: each total is a sum of at most dv_max + 1 float32 terms
 # rounded once, here in another order (the per-rank partial sums), and the
 # check nonlinearity carries such differences on from iteration to
@@ -228,6 +232,98 @@ def _ranks_body(generic, qc, cli_dir):
                              "--out", os.path.join(cli_dir, f"{name}.csv")])
         cli[name] = [(r.frames, r.ber, r.fer, r.iters) for r in res]
     out["cli"] = cli
+    out["state"] = _qc_loop_state(mesh)
+    return out
+
+
+def _qc_loop_state(mesh):
+    """One min-sum decode of the regular QC case through a ShardedQCDecoder
+    on ``mesh``, recording the shapes of its loop state (the prior it
+    keeps, the check phase's t, messages and syndrome, the totals and
+    finals at each iteration's bookkeeping, the finals returned) and the
+    collectives it issues."""
+    base, _, _, llr, synd = qc_inputs(QC["regular-minsum-float32"])
+    dec = ShardedQCDecoder(base, 16, mesh, check_rule="minsum")
+    seen = {"prior": set(), "check": set(), "state": set(), "calls": {}}
+
+    def counting(name, fn):
+        def call(*a, **k):
+            seen["calls"][name] = seen["calls"].get(name, 0) + 1
+            return fn(*a, **k)
+        return call
+
+    own, phase, record = dec._own_lanes, dec.check_phase, \
+        dec._record_converged
+
+    def own_lanes(x):
+        y = own(x)
+        seen["prior"].add(tuple(y.shape))
+        return y
+
+    def check_phase(t, c2v, synd, **kw):
+        seen["check"].add((tuple(t.shape), tuple(c2v.shape),
+                           tuple(synd.shape)))
+        return phase(t, c2v, synd, **kw)
+
+    def record_converged(conv, it, total, final, *rest):
+        seen["state"].add((tuple(total.shape), tuple(final.shape)))
+        return record(conv, it, total, final, *rest)
+
+    dec._own_lanes, dec.check_phase = own_lanes, check_phase
+    dec._record_converged = record_converged
+    for name in ("all_gather", "exchange", "all_reduce_sum"):
+        setattr(mesh, name, counting(name, getattr(mesh, name)))
+    try:
+        out = dec.decode_batch(llr, synd, 30)
+    finally:
+        for name in ("all_gather", "exchange", "all_reduce_sum"):
+            delattr(mesh, name)
+    seen["iterations"] = dec.iterations_run
+    seen["final"] = tuple(out[2].shape)
+    seen["plan"] = dict(dec.plan.totals_recv), dict(dec.plan.messages_recv)
+    return seen
+
+
+def _ranks4_body(qc):
+    """One of four ranks: every QC case through ShardedQCDecoder and the
+    single-device QCDecoder, the SR option, the loop state's shapes, and
+    Mesh.exchange on bf16 bytes."""
+    mesh = make_mesh(WORLD4, "gs", device="cpu")
+    out = {"rank": mesh.rank, "qc": {}}
+    for name, case in qc.items():
+        base, vid, cid, llr, synd = qc_inputs(case)
+        kw = dict(dtype=case["dtype"], **RULES[case["rule"]])
+        got = ShardedQCDecoder(base, 16, mesh, **kw).decode_batch(
+            llr, synd, 30)
+        want = QCDecoder(base, 16, device="cpu", **kw).decode_batch(
+            llr, synd, 30)
+        out["qc"][name] = (as_np(got), as_np(want))
+    base, _, _, llr, synd = qc_inputs(QC["regular-tanhfb-bfloat16"])
+    kw = dict(dtype="bfloat16", check_phi="tanhfb", sr_messages=True)
+    out["sr"] = (as_np(ShardedQCDecoder(base, 16, mesh, **kw).decode_batch(
+        llr, synd, 30)), as_np(QCDecoder(base, 16, device="cpu", **kw)
+                              .decode_batch(llr, synd, 30)))
+    out["state"] = _qc_loop_state(mesh)
+
+    # each rank sends each peer a bf16 row holding -0.0, NaN and its own
+    # and the peer's numbers; rank r sends nothing to r + 1 (mod 4), so
+    # the exchange's peers differ from rank to rank
+    r = mesh.rank
+
+    def row(src, dst):
+        x = torch.tensor([-0.0, float("nan"), src + 0.5, dst - 0.25, 1e-40],
+                         dtype=torch.float32).to(torch.bfloat16)
+        return x.repeat(src + dst + 1)
+
+    skip = lambda src: (src + 1) % WORLD4
+    sends = {q: row(r, q) for q in range(WORLD4)
+             if q != r and q != skip(r)}
+    shapes = {q: tuple(row(q, r).shape) for q in range(WORLD4)
+              if q != r and skip(q) != r}
+    got = mesh.exchange(sends, shapes, torch.bfloat16)
+    out["exchange"] = (sorted(got), all(
+        torch.equal(got[q].view(torch.int16), row(q, r).view(torch.int16))
+        for q in got))
     return out
 
 
@@ -244,11 +340,19 @@ def ranks(tmp_path_factory):
     return results, cli_dir
 
 
-def _jax_mesh():
+@pytest.fixture(scope="module")
+def ranks4():
+    results = run_ranks(_ranks4_body, WORLD4, (QC,), device="cpu",
+                        timeout=240)
+    assert [r["rank"] for r in results] == list(range(WORLD4))
+    return results
+
+
+def _jax_mesh(world=WORLD):
     import jax
     from jax.sharding import Mesh as JMesh
 
-    return JMesh(np.array(jax.devices()[:WORLD]), ("gs",))
+    return JMesh(np.array(jax.devices()[:world]), ("gs",))
 
 
 def _jax_generic(case):
@@ -356,11 +460,12 @@ def test_card_finals_rule_catches_a_wrong_exchange(ranks, name):
 
 @pytest.mark.parametrize("name", list(QC))
 def test_sharded_qc_bit_equal_single_device_and_matches_jax(ranks, name):
-    """z-sharded QC decoder (lanes split, messages all-gathered and folded
-    in the single-device order): bit-equal to the port's single-device
-    QCDecoder, regular and irregular (QC-IRA) codes; against JAX's
-    ShardedQCDecoder equal for min-sum, within F32_TOL for sum-product
-    (float32 cases; bf16 ones are held to the port's single device)."""
+    """z-sharded QC decoder (lanes split, roll windows exchanged and each
+    variable lane folded in the single-device order): bit-equal to the
+    port's single-device QCDecoder, regular and irregular (QC-IRA) codes;
+    against JAX's ShardedQCDecoder equal for min-sum, within F32_TOL for
+    sum-product (float32 cases; bf16 ones are held to the port's single
+    device)."""
     case = QC[name]
     got, single = ranks[0][0]["qc"][name]
     for a, b in zip(got, single):
@@ -368,21 +473,97 @@ def test_sharded_qc_bit_equal_single_device_and_matches_jax(ranks, name):
     assert int(got[0].sum()) > 0
     if case["dtype"] != "float32":
         return
-    import jax.numpy as jnp
-    from qamreconciliation_tpu.parallel.graph_shard import (
-        ShardedQCDecoder as JShardedQC,
-    )
-
-    base, _, _, llr, synd = qc_inputs(case)
-    dec = JShardedQC(base, 16, _jax_mesh(), dtype=jnp.float32,
-                     **RULES[case["rule"]])
-    js, ji, jf = (np.asarray(x) for x in dec.decode_batch(llr, synd, 30))
+    js, ji, jf = _jax_sharded_qc(case, WORLD)
     np.testing.assert_array_equal(got[0], js)
     np.testing.assert_array_equal(got[1], ji)
     if case["rule"] == "minsum":
         np.testing.assert_array_equal(got[2], jf)
     else:
         assert_finals_close(got[2], jf, "float32", js)
+
+
+def _jax_sharded_qc(case, world):
+    import jax.numpy as jnp
+    from qamreconciliation_tpu.parallel.graph_shard import (
+        ShardedQCDecoder as JShardedQC,
+    )
+
+    base, _, _, llr, synd = qc_inputs(case)
+    dec = JShardedQC(base, 16, _jax_mesh(world), dtype=jnp.float32,
+                     **RULES[case["rule"]])
+    return tuple(np.asarray(x) for x in dec.decode_batch(llr, synd, 30))
+
+
+@pytest.mark.parametrize("name", list(QC))
+def test_sharded_qc_world4_bit_equal_single_device_and_matches_jax(ranks4,
+                                                                   name):
+    """At world size 4 (z = 16: four lanes a rank, so most rolls read
+    other ranks' lanes): every rank returns the same decode, bit-equal to
+    the port's single-device QCDecoder; against JAX's ShardedQCDecoder on
+    4 devices equal for min-sum, within F32_TOL for sum-product (float32
+    cases; bf16 ones are held to the port's single device)."""
+    case = QC[name]
+    got, single = ranks4[0]["qc"][name]
+    for r in ranks4[1:]:
+        for a, b in zip(r["qc"][name][0], got):
+            np.testing.assert_array_equal(a, b)
+    for a, b in zip(got, single):
+        np.testing.assert_array_equal(a, b)
+    assert int(got[0].sum()) > 0
+    if case["dtype"] != "float32":
+        return
+    js, ji, jf = _jax_sharded_qc(case, WORLD4)
+    np.testing.assert_array_equal(got[0], js)
+    np.testing.assert_array_equal(got[1], ji)
+    if case["rule"] == "minsum":
+        np.testing.assert_array_equal(got[2], jf)
+    else:
+        assert_finals_close(got[2], jf, "float32", js)
+
+
+def test_sharded_qc_sr_messages_bit_equal_at_world4(ranks4):
+    """With stochastically rounded bf16 messages each rank draws every
+    lane's bits and keeps its own: bit-equal to the single device."""
+    for r in ranks4:
+        got, single = r["sr"]
+        for a, b in zip(got, single):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("world", [WORLD, WORLD4])
+def test_sharded_qc_loop_state_has_z_over_d_lanes(ranks, ranks4, world):
+    """Each rank's loop state holds z / D lanes: the prior it keeps and the
+    totals and finals [nb_v, z / D, B], the check phase's t and messages
+    [nb_c, dc, z / D, B] and syndrome [nb_c, z / D, B].  An iteration
+    issues two exchanges (the roll windows of the totals, then of the
+    messages) and one all-reduce of the violation counts; the decode's one
+    all-gather makes the finals [B, V] after the last iteration, and the
+    end test of every check costs one more exchange and all-reduce."""
+    results = ranks[0] if world == WORLD else ranks4
+    zl, B = 16 // world, 6
+    for r in results:
+        st = r["state"]
+        its = st["iterations"]
+        assert its > 0
+        assert st["prior"] == {(12, zl, B)}
+        assert st["check"] == {((6, 6, zl, B), (6, 6, zl, B), (6, zl, B))}
+        assert st["state"] == {((12, zl, B), (12, zl, B))}
+        assert st["final"] == (B, 12 * 16)
+        assert st["calls"] == {"exchange": 2 * its + 1,
+                               "all_reduce_sum": its + 1, "all_gather": 1}
+        assert st["plan"][0] and st["plan"][1]
+
+
+def test_mesh_exchange_moves_raw_bytes(ranks4):
+    """Mesh.exchange between four ranks whose peers differ (rank r sends
+    nothing to r + 1): each receives exactly the peers that send to it,
+    bf16 rows with -0.0, NaN and a subnormal bit for bit."""
+    for r in ranks4:
+        peers, exact = r["exchange"]
+        rank = r["rank"]
+        assert peers == sorted(q for q in range(WORLD4)
+                               if q != rank and (q + 1) % WORLD4 != rank)
+        assert exact
 
 
 @pytest.mark.parametrize("kind", ["generic", "qc"])
