@@ -99,7 +99,20 @@ Phases (each must pass, or the script exits non-zero):
      in a subprocess at its defaults, its baseline budget cut to 5 s: one
      JSON line holding every row, the card's name and power limit, each
      decode row equal to its plain version and within its bound; the line
-     is printed (after "[bench] ") with the bench's progress.
+     is printed (after "[bench] ") with the bench's progress;
+ 19. the experiment campaigns (phase_campaigns, qamreconciliation_tpu_torch/
+     scripts), in this process with the counts set to 0 just before each
+     and read just after, except the one run as a user runs it: the mode
+     comparison on the DVB-S2 rate-1/2 code through run_waterfall
+     (softening on the resident engine, kernel 2; hard and direct dense,
+     kernel 1) at 3.0, 3.25 and 3.5 dB, 256 frames a point, with the JAX
+     CLI's CSV header, hard FER >= 0.9 and softening and direct <= 0.05 at
+     3.5 dB, and direct no worse than softening by 4 standard errors at
+     every point; ``python -m qamreconciliation_tpu_torch.scripts.
+     run_r5_dvbs2 --steps equiv --simloops 256`` in a subprocess, exit 0
+     and the full-wrap QC FER within 4 standard errors of the exact H's;
+     one run_r5_sp_grid probe ("sp reg tree c50", 2 repetitions) with
+     kernel 2 launched.
 Kernel and plain times are CUDA-event medians, taken in turns (kernels 1, 4
 and 5 over runs of 10 calls, whose host overhead the card's work hides;
 kernels 2 and 3 run K steps a call and report ms per step).  Each
@@ -120,8 +133,10 @@ also writes each kernel library's ptxas report (registers, spills) and its
 SASS (cuobjdump -sass) into DIR.
 """
 
+import contextlib
 import csv
 import importlib
+import io
 import json
 import math
 import os
@@ -2980,6 +2995,97 @@ def phase_bench():
         assert 0 < r["roofline_fraction"] <= 1.0, (path, r)
 
 
+# ------------------------------------------------------------------------
+# The experiment campaigns (qamreconciliation_tpu_torch/scripts)
+
+# the mode comparison (run_r5_dvbs2's wf step and run_waterfall --dvbs2 1/2
+# with --hard and with --direct) at three points of 256 frames
+CAMPAIGN_MODES = {"softening": ["--resident", "--resident-rowgroup", "4"],
+                  "hard": ["--hard"], "direct": ["--direct"]}
+CAMPAIGN_FRAMES = 256
+CAMPAIGN_FLAGS = ["--snr", "3.0", "3.5", "--nsnr", "3", "--simloops",
+                  str(CAMPAIGN_FRAMES), "--batch", "128", "--maxiter", "50",
+                  "--ferr-count-min", "1000000000", "--dtype", "bfloat16",
+                  "--check-phi", "tanhfb"]
+
+
+def campaign(main, argv, label):
+    """A campaign's ``main(argv)`` in this process, every count set to 0
+    just before and read just after; its records are logged under
+    ``label`` and it must exit 0.  Returns (records, launches)."""
+    out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        status = main(argv)
+    launches = counts()
+    recs = []
+    for line in out.getvalue().splitlines():
+        log(f"[{label}] {line}")
+        if line.startswith("{"):
+            recs.append(json.loads(line))
+    log(f"[{label}] launches {launches}")
+    assert status == 0, f"{label} exited {status}"
+    return recs, launches
+
+
+def phase_campaigns():
+    """The campaigns of ``qamreconciliation_tpu_torch/scripts``: the mode
+    comparison, the QC-against-exact-H equivalence as a user runs it, and
+    one decode probe (see the module docstring, item 19)."""
+    from qamreconciliation_tpu_torch.scripts import (
+        run_r5_sp_grid, run_waterfall,
+    )
+
+    fers = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode, flags in CAMPAIGN_MODES.items():
+            out = os.path.join(tmp, f"wf_{mode}.csv")
+            _, launches = campaign(run_waterfall.main, [
+                out, "--dvbs2", "1/2", *flags, *CAMPAIGN_FLAGS,
+                "--device", "cuda"], f"campaign {mode}")
+            assert (launches["bp_check_phase_qc"]
+                    + launches["bp_decode_rounds_qc"]) > 0, mode
+            with open(out) as f:
+                rows = list(csv.reader(f))
+            assert rows[0] == ["", "EsN0dB", "ber", "fer", "iters"], rows[0]
+            assert [float(r[1]) for r in rows[1:]] == [3.0, 3.25, 3.5]
+            fers[mode] = [float(r[3]) for r in rows[1:]]
+        for i, snr in enumerate((3.0, 3.25, 3.5)):
+            log(f"[campaign modes] {snr} dB FER: " + ", ".join(
+                f"{m} {fers[m][i]:.4f}" for m in CAMPAIGN_MODES))
+            soft, direct = fers["softening"][i], fers["direct"][i]
+            bound = fer_bound((soft + direct) / 2, CAMPAIGN_FRAMES)
+            assert direct <= soft + bound, (snr, direct, soft, bound)
+        assert fers["hard"][2] >= 0.9, fers["hard"]
+        assert fers["softening"][2] <= 0.05, fers["softening"]
+        assert fers["direct"][2] <= 0.05, fers["direct"]
+
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "qamreconciliation_tpu_torch.scripts.run_r5_dvbs2", "--steps",
+             "equiv", "--simloops", str(CAMPAIGN_FRAMES), "--outdir", tmp],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=dict(os.environ, TMPDIR=tmp))
+        for line in proc.stdout.splitlines():
+            log(f"[campaign equiv] {line}")
+        assert proc.returncode == 0, (proc.returncode, proc.stderr[-3000:])
+        rec = [json.loads(line) for line in proc.stdout.splitlines()
+               if '"wrap_equivalence"' in line][0]
+        qc, exact = rec["qc_full"]["fer"], rec["exact_generic"]["fer"]
+        bound = fer_bound((qc + exact) / 2, CAMPAIGN_FRAMES)
+        log(f"[campaign equiv] {rec['snr_dB']} dB: qc_full FER {qc:.4f}, "
+            f"exact_generic FER {exact:.4f}, bound +-{bound:.4f}")
+        assert abs(qc - exact) <= bound, (qc, exact, bound)
+
+    recs, launches = campaign(run_r5_sp_grid.main, [
+        "--configs", "sp reg tree c50", "--reps", "2", "--device", "cuda"],
+        "campaign probe")
+    assert launches["bp_decode_rounds_qc"] > 0, launches
+    probe = [r for r in recs if r.get("config") == "sp reg tree c50"][0]
+    assert probe["ms_per_iter"] > 0 and probe["plan"] is not None, probe
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     sass_dir = argv[argv.index("--sass") + 1] if "--sass" in argv else None
@@ -3015,7 +3121,8 @@ def main(argv=None):
                         (phase_streaming, (kernels,)),
                         (phase_multidevice, (kernels,)),
                         (phase_tail, ()),
-                        (phase_bench, ())):
+                        (phase_bench, ()),
+                        (phase_campaigns, ())):
         t0 = time.perf_counter()
         phase(*args)
         log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")

@@ -1,0 +1,72 @@
+#!/usr/bin/env bash
+# Every campaign once at the JAX scripts' defaults (N = 64800, B = 128,
+# 1024 frames a point, maxiter 50) on one card, then the sweeps the five
+# plotters read.  Outputs go to OUT (default
+# qamreconciliation_tpu_torch/scripts/h100), named as in docs/img: each
+# campaign's records in OUT/<name>.jsonl, its progress in OUT/<name>.log,
+# and one line of wall seconds a campaign in OUT/wall_s.txt.  Run from the
+# repository root:
+#
+#     bash qamreconciliation_tpu_torch/scripts/run_h100.sh [OUT]
+#
+# A campaign that exits non-zero is reported and the script goes on; it
+# exits 1 at the end if any did.
+set -u
+OUT=${1:-qamreconciliation_tpu_torch/scripts/h100}
+mkdir -p "$OUT"
+: > "$OUT/wall_s.txt"
+nvidia-smi --query-gpu=name,power.limit --format=csv,noheader > "$OUT/card.txt"
+M=qamreconciliation_tpu_torch.scripts
+# the mode comparison's sweep flags (run_r5_dvbs2's wf step has them too)
+MODES="--simloops 1024 --batch 128 --maxiter 50 --ferr-count-min 1000000000 --dtype bfloat16 --check-phi tanhfb"
+# the plotters' sweeps: 1024 frames a point, early exit off
+WF="--simloops 1024 --batch 128 --maxiter 50 --ferr-count-min 1000000000"
+failed=0
+
+run() {  # run NAME MODULE ARGS...: records to OUT/NAME.jsonl
+    local name=$1 module=$2
+    shift 2
+    local t0=$SECONDS
+    python3 -m "$M.$module" "$@" > "$OUT/$name.jsonl" 2> "$OUT/$name.log"
+    local rc=$?
+    echo "$name $((SECONDS - t0)) rc=$rc" | tee -a "$OUT/wall_s.txt"
+    [ $rc -eq 0 ] || failed=1
+}
+
+run r5_dvbs2 run_r5_dvbs2 --outdir "$OUT"
+run wf_dvbs2_12_hard run_waterfall "$OUT/wf_dvbs2_12_hard.csv" --dvbs2 1/2 \
+    --hard --snr 3.0 5.5 --nsnr 6 $MODES
+run wf_dvbs2_12_direct run_waterfall "$OUT/wf_dvbs2_12_direct.csv" \
+    --dvbs2 1/2 --direct --snr 2.5 4.25 --nsnr 6 $MODES
+run r5_knee run_r5_knee
+run bps4_grid run_bps4_grid
+run oms_sweep run_oms_sweep --outdir "$OUT"
+run r5_sp_grid run_r5_sp_grid
+run r5_grid1 run_r5_stream_grid
+run r5_mi_grid run_r5_mi_grid
+
+# the plotters' inputs, on the QC(3,6) z = 1800 code (the QC-IRA code with
+# --irregular); the CLI's defaults (float32, phi sum-product) where the
+# name says nothing else
+G="--snr 3.0 4.25 --nsnr 6 $WF"
+run wf_sumproduct run_waterfall "$OUT/wf_sumproduct.csv" $G
+run wf_minsum run_waterfall "$OUT/wf_minsum.csv" $G --check-rule minsum
+run wf_layered_minsum run_waterfall "$OUT/wf_layered_minsum.csv" $G \
+    --check-rule minsum --schedule layered
+run wf_sumproduct_bf16 run_waterfall "$OUT/wf_sumproduct_bf16.csv" $G \
+    --dtype bfloat16
+run wf_tanhfb_resident run_waterfall "$OUT/wf_tanhfb_resident.csv" $G \
+    --dtype bfloat16 --check-phi tanhfb --resident
+run wf_tanhfb_resident_hybrid run_waterfall \
+    "$OUT/wf_tanhfb_resident_hybrid.csv" $G --dtype bfloat16 \
+    --check-phi tanhfb --resident --totals-dtype float32
+I="--irregular --snr 2.75 4.0 --nsnr 6 $WF --dtype bfloat16 --check-phi tanhfb"
+run wf_ira_resident run_waterfall "$OUT/wf_ira_resident.csv" $I --resident
+run wf_ira_dense run_waterfall "$OUT/wf_ira_dense.csv" $I
+B="--bps 4 --snr 11.0 13.5 --nsnr 6 $WF"
+run bps4_soft_alt run_waterfall "$OUT/bps4_soft_alt.csv" $B
+run bps4_soft_base run_waterfall "$OUT/bps4_soft_base.csv" $B \
+    --configuration-base
+run bps4_hard run_waterfall "$OUT/bps4_hard.csv" $B --hard
+run bps4_direct run_waterfall "$OUT/bps4_direct.csv" $B --direct
+exit $failed
