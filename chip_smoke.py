@@ -112,7 +112,25 @@ Phases (each must pass, or the script exits non-zero):
      run_r5_dvbs2 --steps equiv --simloops 256`` in a subprocess, exit 0
      and the full-wrap QC FER within 4 standard errors of the exact H's;
      one run_r5_sp_grid probe ("sp reg tree c50", 2 repetitions) with
-     kernel 2 launched.
+     kernel 2 launched;
+ 20. the attribution probes (phase_probes, qamreconciliation_tpu_torch/
+     scripts/probe_*.py): the ptxas registers and spills of every staged-
+     tile instance of kernels 1, 4 and 6, each 80 registers and no spill,
+     as the parent's kernels 1 and 4; kernel 6 (check_math_probe) against
+     its plain version bit for bit in its three maths, bf16 and f32, at
+     [18, 6, 1800, 128] and on two ragged shapes, each case with its ms,
+     plan, bytes, bound and share (kernel 1's phi time at the first shape
+     beside them); kernel 7 (elementwise_chain) bit for bit in both modes
+     and dtypes at [512, 1024] (4 x 16 steps, and an odd unaligned view),
+     timed at the probe's 8000 x 16 steps (its operations bound at the
+     packed bf16 rate for bf16), the bf16 mac case bit for bit there too;
+     then every
+     variant of the six probes at N = 64800, B = 128 (--iters, --reps and
+     --p cut): one of each in a subprocess, as a user runs it, all six side
+     by side, and the rest through their main() in this process, every
+     count set to 0 just before them and read just after (kernels 6, 7 and
+     1 launched); each probe's records are logged after "[probe]", the
+     first naming the card.
 Kernel and plain times are CUDA-event medians, taken in turns (kernels 1, 4
 and 5 over runs of 10 calls, whose host overhead the card's work hides;
 kernels 2 and 3 run K steps a call and report ms per step).  Each
@@ -120,8 +138,12 @@ kernel's record holds the bytes its main-path call must move (each input
 read once, each output written once; for kernels 2 and 3 once per call of
 K steps), its bound (the larger of those bytes at 3.35 TB/s and its f32
 operations at 33.5e12 a second, the H100 SXM's data-sheet 67 TFLOP/s with
-an FMA counted as two; per step for kernels 2 and 3) and its time's share
-of that bound.  The bound is the function's, not the build's: the
+an FMA counted as two; per step for kernels 2 and 3; kernel 7's bf16
+record at the packed bf16 rate, 66.9e12 a second: 133.8 TFLOP/s of
+non-tensor bf16, the Hopper white paper's figure) and its time's share
+of that bound.  Kernel 6's record is the probe's default, bf16 phi at
+[18, 6, 1800, 128]; kernel 7's bf16 mac at the probe's defaults.  The
+bound is the function's, not the build's: the
 operations are those of the plain version, a transcendental counted as
 one.  The last two lines are the
 kernels' JSON record and {"ok": true, "device": {...}}.  Needs CUDA; exits
@@ -175,14 +197,23 @@ ALTERNATING = np.array([0, 1, 0, 1], np.uint8)
 CSRC = "qamreconciliation_tpu_torch/csrc"
 PALLAS = "qamreconciliation_tpu/ops/pallas_kernels.py"
 # wrapper in ops/kernels.py -> (its source in csrc/, the TPU kernel it
-# replaces); kernel 5 is a second kernel in kernel 4's source
+# replaces); kernel 5 is a second kernel in kernel 4's source; kernels 6
+# and 7 replace the Pallas kernels of two of the JAX package's probes
 KERNELS = {
     "bp_check_phase_qc": ("bp_check_phase_qc", f"{PALLAS}:158"),
     "bp_decode_rounds_qc": ("bp_decode_rounds_qc", f"{PALLAS}:580"),
     "bp_layered_sweeps_qc": ("bp_layered_sweeps_qc", f"{PALLAS}:1185"),
     "bp_check_phase_generic": ("bp_check_phase_generic", f"{PALLAS}:224"),
     "check_node_update_fused": ("bp_check_phase_generic", f"{PALLAS}:340"),
+    "check_math_probe": ("check_math_probe",
+                         "scripts/probe_check_math.py:82"),
+    "elementwise_chain": ("elementwise_chain",
+                          "scripts/probe_bf16pack.py:76"),
 }
+# kernels 6 and 7 run only in their probes (phase 20); the rest are the
+# decode paths' kernels
+PROBE_KERNELS = ("check_math_probe", "elementwise_chain")
+DECODE_KERNELS = tuple(n for n in KERNELS if n not in PROBE_KERNELS)
 
 
 def log(msg):
@@ -237,11 +268,13 @@ def record(kernels, name, **kw):
 
 def finish_record(rec):
     """bound_ms, bound_by and bound_share from the entry's bytes, ops and
-    ms (``utils/perf.bound``).  A multi-step kernel's bytes are those of
-    its call of ``steps`` steps and its ops and ms those of one step, so its
-    bound is per step."""
+    ms (``utils/perf.bound``, at the entry's ``ops_per_s``, default the f32
+    rate).  A multi-step kernel's bytes are those of its call of ``steps``
+    steps and its ops and ms those of one step, so its bound is per
+    step."""
     rec["bound_ms"], rec["bound_by"] = perf.bound(
-        rec["bytes"], rec["ops"], rec.get("steps", 1))
+        rec["bytes"], rec["ops"], rec.get("steps", 1),
+        rec.get("ops_per_s", perf.F32_OPS_PER_S))
     rec["bound_share"] = rec["bound_ms"] / rec["ms"]
 
 
@@ -265,7 +298,8 @@ def resident_plan_text(plan):
 PTXAS = {}
 # sources whose kernel instances may not spill
 NO_SPILL = ("bp_decode_rounds_qc", "bp_layered_sweeps_qc",
-            "bp_check_phase_qc", "bp_check_phase_generic")
+            "bp_check_phase_qc", "bp_check_phase_generic",
+            "check_math_probe", "elementwise_chain")
 
 
 # mangled template argument of each message dtype
@@ -1266,7 +1300,7 @@ def phase_modes(kernels):
         ReconciliationEngine, round_generator,
     )
 
-    per_round = {name: {} for name in KERNELS}
+    per_round = {name: {} for name in DECODE_KERNELS}
 
     def note(label, res, launches):
         rounds = sum(r.frames for r in res) / 128
@@ -1474,7 +1508,7 @@ def phase_sweep_surface(kernels):
     )
     from qamreconciliation_tpu_torch.utils.edgefile import make_regular_ldpc
 
-    per_round = {name: {} for name in KERNELS}
+    per_round = {name: {} for name in DECODE_KERNELS}
 
     def note(label, res, launches):
         rounds = sum(r.frames for r in res) / 128
@@ -2065,8 +2099,8 @@ def phase_streaming(kernels):
     )
     from qamreconciliation_tpu_torch.sims.streaming import StreamReconciler
 
-    per_batch = {name: {} for name in KERNELS}
-    launches_of = {name: {} for name in KERNELS}
+    per_batch = {name: {} for name in DECODE_KERNELS}
+    launches_of = {name: {} for name in DECODE_KERNELS}
     base, vid, cid = make_qc_ldpc(CODE["nb_v"], CODE["z"], CODE["dv"],
                                   CODE["dc"], seed=CODE["seed"])
     stream_kernels(base, per_batch)
@@ -2183,7 +2217,7 @@ def phase_streaming(kernels):
     log(f"[mc-mi] compare-signs --montecarlo bps 2, 3 points x 10 configs: "
         f"{time.perf_counter() - t0:.2f} s; I(X,N;Xhat) at 8 dB "
         f"{min(rows[2][1:]):.4f} .. {max(rows[2][1:]):.4f}")
-    for name in KERNELS:
+    for name in DECODE_KERNELS:
         record(kernels, name, stream_ms_by_batch=per_batch[name],
                stream_launches=launches_of[name])
     log(f"[stream] symbols/s: {rates}; drivers {drivers}; breakdown ms "
@@ -2481,7 +2515,7 @@ def _multidevice_rank(work, fps1, knee1):
         f"{mesh.backend}, device {mesh.device} "
         f"({torch.cuda.get_device_name(mesh.device)})")
     say = log if rank == 0 else (lambda msg: None)
-    fails, launches = [], {name: {} for name in KERNELS}
+    fails, launches = [], {name: {} for name in DECODE_KERNELS}
     out = {"rank": rank, "fails": fails, "launches": launches, "fps": {}}
 
     def check(ok, what):
@@ -2819,7 +2853,7 @@ def phase_multidevice(kernels):
         log(f"[multi] {line}")
     if len(r0["dryrun"]) != 7:
         fails.append(f"dryrun_multichip(2) printed {len(r0['dryrun'])} lines")
-    for name in KERNELS:
+    for name in DECODE_KERNELS:
         by_item = {f"rank {r['rank']}: {item}": c for r in results
                    for item, c in r["launches"][name].items()}
         record(kernels, name, multidevice_launches=by_item)
@@ -3086,6 +3120,232 @@ def phase_campaigns():
     assert probe["ms_per_iter"] > 0 and probe["plan"] is not None, probe
 
 
+# ------------------------------------------------------------------------
+# The attribution probes (qamreconciliation_tpu_torch/scripts/probe_*.py)
+
+PROBE_SHAPE = (18, 6, 1800, 128)    # kernel 6 at N = 64800, B = 128
+# z off the tile; B = 40 on the staged path, B = 37 on the per-thread one
+PROBE_RAGGED = ((5, 6, 70, 40), (3, 6, 70, 37))
+CHAIN_SHAPE = (512, 1024)           # kernel 7 at the probe's defaults
+CHAIN_DEFAULTS = dict(iters=8000, chain=16)
+PM = "qamreconciliation_tpu_torch.scripts"
+# every variant of the six probes at N = 64800, B = 128, --iters, --reps
+# and --p cut; the first of each runs in a subprocess as a user runs it
+PROBE_RUNS = {
+    "probe_check_math": [["--math", m, "--iters", "10", "--reps", "1"]
+                         for m in ("copy", "phi", "minsum")],
+    "probe_qc_parts": [["--part", "rolls", "--iters", "10", "--reps", "1"],
+                       ["--part", "check", "--pallas", "1", "--iters", "10",
+                        "--reps", "1"],
+                       ["--part", "check", "--pallas", "0", "--iters", "10",
+                        "--reps", "1"]],
+    "probe_layered_parts": [["--part", p, "--grouped", g, "--iters", "5",
+                             "--reps", "1"]
+                            for g in ("1", "0")
+                            for p in ("sweep", "parity", "full")],
+    "probe_preamble": [["--reps", "3"], ["--bps", "4", "--reps", "3"],
+                       ["--fy-mode", "poly", "--dtype", "bfloat16",
+                        "--reps", "3"]],
+    "probe_mcmi_parts": [["--variant", v, "--p", "256", "--reps", "1"]
+                         for v in ("full", "poly", "nogather", "nonewton",
+                                   "noexp")],
+    "probe_bf16pack": [["--iters", "500", "--reps", "2"],
+                       ["--iters", "500", "--reps", "2"]],
+}
+
+
+def probe_records(text, label):
+    """The JSON records of a probe's stdout, each logged after
+    ``[probe]``; the first must be the device record of the card."""
+    recs = []
+    for line in text.splitlines():
+        log(f"[probe] {line}")
+        if line.startswith("{"):
+            recs.append(json.loads(line))
+    dev = recs[0]
+    assert dev["probe"] == label and dev["device"] \
+        == torch.cuda.get_device_name(0) and dev["power_limit"], dev
+    assert len(recs) > 1, label
+    return recs[1:]
+
+
+# registers and spill-store bytes of every staged-tile instance (kernels
+# 1, 4 and 6), as ptxas reported them for the parent's kernels 1 and 4,
+# and the instances each library holds
+TILE_PTXAS = (80, 0)
+TILE_INSTANCES = {"bp_check_phase_qc": 9, "bp_check_phase_generic": 6,
+                  "check_math_probe": 6}
+
+
+def tile_ptxas():
+    """Each check_tile_kernel instance's (registers, spill bytes) in the
+    libraries of kernels 1, 4 and 6, logged, and held to TILE_PTXAS:
+    kernel 6's two extra rules leave kernels 1 and 4 as they were."""
+    for source, instances in TILE_INSTANCES.items():
+        lines = PTXAS[source].splitlines()
+        found = 0
+        for i, line in enumerate(lines):
+            if not ("entry function" in line
+                    and "check_tile_kernel" in line):
+                continue
+            name = re.search(r"check_tile_kernelI(\w+?)EEEv", line).group(1)
+            rest = " ".join(lines[i + 1:i + 5])
+            regs = int(re.search(r"Used (\d+) registers", rest).group(1))
+            spill = int(re.search(r"(\d+) bytes spill stores",
+                                  rest).group(1))
+            log(f"[kernel6] ptxas {source} check_tile_kernel<{name}>: "
+                f"{regs} registers, {spill} bytes spill stores")
+            assert (regs, spill) == TILE_PTXAS, (source, name, regs, spill)
+            found += 1
+        assert found == instances, (source, found)
+
+
+def probe_kernel6(kernels):
+    """Kernel 6 against its plain version, bit for bit, in every math and
+    dtype at the probe's shape and on ragged shapes, each case with its
+    ms, plan, bytes, bound and share; kernel 1's phi time at the probe's
+    shape beside them."""
+    from qamreconciliation_tpu_torch.ops.kernels import (
+        bp_check_phase_qc, check_math_probe, check_math_probe_ref,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for shape in (PROBE_SHAPE, *PROBE_RAGGED):
+        nb_c, dc, z, B = shape
+        t = 3.0 * torch.randn(shape, generator=gen, device="cuda")
+        c2v = torch.randn(shape, generator=gen, device="cuda")
+        synd = torch.randint(0, 2, (nb_c, z, B), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        for dt in (torch.bfloat16, torch.float32):
+            args = (t.to(dt), c2v.to(dt), synd)
+            for math_ in ("phi", "copy", "minsum"):
+                got, gviol = check_math_probe(*args, math_)
+                plan = check_math_probe.plan
+                want, wviol = check_math_probe_ref(*args, math_)
+                torch.cuda.synchronize()
+                name = f"{math_} {str(dt)[6:]} {list(shape)}"
+                assert torch.equal(gviol, wviol), f"kernel 6 {name}: viol"
+                assert torch.equal(got, want), f"kernel 6 {name}: not equal"
+                ms, plain_ms = events_ms(
+                    lambda: check_math_probe(*args, math_),
+                    lambda: check_math_probe_ref(*args, math_),
+                    reps=10, run=10)
+                nbytes, ops = perf.check_math_probe_work(*shape, dt, math_)
+                assert nbytes == moved(*args, got, gviol), nbytes
+                bound_ms, by = perf.bound(nbytes, ops)
+                log(f"[kernel6] {name:32s} bit-equal kernel {ms:.4f} ms  "
+                    f"plain {plain_ms:.4f} ms  {nbytes / 1e6:.1f} MB, bound "
+                    f"{bound_ms:.4f} ms by {by} ({100 * bound_ms / ms:.1f}%)"
+                    f"  [{plan_text(plan)}]")
+                if shape == PROBE_SHAPE and math_ == "phi" \
+                        and dt == torch.bfloat16:
+                    err = float((got.float() - want.float()).abs().max())
+                    record(kernels, "check_math_probe", max_abs_err=err,
+                           ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops,
+                           shape=list(shape), dtype="bfloat16", math="phi")
+            if shape == PROBE_SHAPE:
+                k1_ms, = events_ms(lambda: bp_check_phase_qc(*args),
+                                   reps=10, run=10)
+                log(f"[kernel6] kernel 1 sumproduct {str(dt)[6:]} "
+                    f"{list(shape)}: {k1_ms:.4f} ms "
+                    f"[{plan_text(bp_check_phase_qc.plan)}]")
+
+
+def probe_kernel7(kernels):
+    """Kernel 7 against its plain version, bit for bit, both modes and
+    dtypes at [512, 1024] (4 iterations of the 16-step chain, and an odd
+    unaligned view that takes the one-element path), then its time at the
+    probe's defaults; the bf16 mac case also against its plain version at
+    the defaults, and timed there."""
+    from qamreconciliation_tpu_torch.ops.kernels import (
+        elementwise_chain, elementwise_chain_ref,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    base = torch.randn(CHAIN_SHAPE, generator=gen, device="cuda")
+    numel = base.numel()
+    for mode in ("mac", "exp"):
+        for dt in (torch.float32, torch.bfloat16):
+            x = base.to(dt)
+            for xx in (x, x.view(-1)[1:1000]):
+                got = elementwise_chain(xx, mode, 4, 16)
+                want = elementwise_chain_ref(xx, mode, 4, 16)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (mode, dt, xx.shape)
+            iters, chain = CHAIN_DEFAULTS["iters"], CHAIN_DEFAULTS["chain"]
+            ms, = events_ms(
+                lambda: elementwise_chain(x, mode, iters, chain),
+                reps=3, warmup=1)
+            nbytes, ops, rate = perf.elementwise_chain_work(
+                numel, dt, iters, chain, mode)
+            bound_ms, by = perf.bound(nbytes, ops, ops_per_s=rate)
+            text = (f"[kernel7] {mode} {str(dt)[6:]} {list(CHAIN_SHAPE)} "
+                    f"bit-equal (4 x 16 steps); at {iters} x {chain}: kernel "
+                    f"{ms:.4f} ms, bound {bound_ms:.4f} ms by {by} "
+                    f"({100 * bound_ms / ms:.1f}%)")
+            if mode == "mac" and dt == torch.bfloat16:
+                got = elementwise_chain(x, mode, iters, chain)
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                want = elementwise_chain_ref(x, mode, iters, chain)
+                stop.record()
+                stop.synchronize()
+                plain_ms = start.elapsed_time(stop)
+                assert torch.equal(got, want), "kernel 7 bf16 mac: defaults"
+                text += f", plain {plain_ms:.1f} ms, bit-equal there too"
+                err = float((got.float() - want.float()).abs().max())
+                record(kernels, "elementwise_chain", max_abs_err=err, ms=ms,
+                       plain_ms=plain_ms, bytes=nbytes, ops=ops,
+                       ops_per_s=rate, shape=list(CHAIN_SHAPE),
+                       dtype="bfloat16", mode="mac", **CHAIN_DEFAULTS)
+            log(text)
+
+
+def phase_probes(kernels):
+    """The attribution probes (see the module docstring, item 20)."""
+    tile_ptxas()
+    probe_kernel6(kernels)
+    probe_kernel7(kernels)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"{PM}.{name}", *runs[0]],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root)
+        for name, runs in PROBE_RUNS.items()}
+    t0 = time.perf_counter()
+    for name, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+        for line in err.splitlines()[-5:]:
+            log(f"[probe] {name}: {line}")
+        assert proc.returncode == 0, (name, proc.returncode, err[-3000:])
+        probe_records(out, name)
+    log(f"[probe] {len(procs)} probes as a user runs them, side by side: "
+        f"{time.perf_counter() - t0:.1f} s (their times are not alone on "
+        "the card)")
+
+    reset_counts()
+    for name, runs in PROBE_RUNS.items():
+        module = importlib.import_module(f"{PM}.{name}")
+        for argv in runs[1:]:
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                status = module.main(argv)
+            assert status == 0, (name, argv, status)
+            for rec in probe_records(out.getvalue(), name):
+                assert all(v is not None for k, v in rec.items()), rec
+    launches = counts()
+    log(f"[probe] launches {launches}")
+    for name in ("check_math_probe", "elementwise_chain",
+                 "bp_check_phase_qc"):
+        assert launches[name] > 0, (name, launches)
+    for name in PROBE_KERNELS:
+        record(kernels, name, launches=launches[name])
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     sass_dir = argv[argv.index("--sass") + 1] if "--sass" in argv else None
@@ -3122,7 +3382,8 @@ def main(argv=None):
                         (phase_multidevice, (kernels,)),
                         (phase_tail, ()),
                         (phase_bench, ()),
-                        (phase_campaigns, ())):
+                        (phase_campaigns, ()),
+                        (phase_probes, (kernels,))):
         t0 = time.perf_counter()
         phase(*args)
         log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")

@@ -24,7 +24,10 @@
 
 namespace bp {
 
-enum Rule { kPhi = 0, kTanhFB = 1, kMinSum = 2 };
+// kProbeCopy and kProbeMinSum are the attribution probe's slot maths
+// (check_math_probe.cu), which no decoder offers
+enum Rule { kPhi = 0, kTanhFB = 1, kMinSum = 2, kProbeCopy = 3,
+            kProbeMinSum = 4 };
 enum DType { kF32 = 0, kBF16 = 1 };
 
 constexpr int kMaxDc = 32;  // widest check row: its sign bits fill one word

@@ -39,6 +39,7 @@ __all__ = [
     "mutual_information_X_Y",
     "montecarlo_information",
     "montecarlo_information_batched",
+    "row_view",
 ]
 
 
@@ -287,6 +288,19 @@ class _RowSigns:
         return self.stacked[rows, i]
 
 
+def row_view(nms):
+    """A view of ``nms[0]`` whose sign tables read row r's mapper's signs
+    for indices of a leading row dimension r (``[R, ...]``), so that the
+    mapper's methods evaluate the R mappers at once on ``[R, ...]`` samples.
+    Every other table is ``nms[0]``'s: the mappers must share them (e.g.
+    ``with_sign_config`` clones)."""
+    view = copy.copy(nms[0])
+    signs = _RowSigns(torch.stack([nm._g_signs() for nm in nms]))
+    view._g_signs = lambda: signs
+    view._sign_cfg = _RowSigns(torch.stack([nm._sign_cfg for nm in nms]))
+    return view
+
+
 # a mapper's lazily built fits: functions of its tables, built on first use
 _FITS = ("_ginv_poly", "_fy_poly", "_fy_dom", "_llr_tab", "_llr_poly")
 
@@ -364,11 +378,7 @@ def montecarlo_information_batched(generator, pa, nms, p_Xhats, N, which,
                 first._ensure_ginv_poly()
             if first.fy_mode == "poly":
                 first._ensure_fy_poly()
-            view = copy.copy(first)
-            signs = _RowSigns(torch.stack([nms[k]._g_signs() for k in part]))
-            view._g_signs = lambda signs=signs: signs
-            view._sign_cfg = _RowSigns(torch.stack(
-                [nms[k]._sign_cfg for k in part]))
+            view = row_view([nms[k] for k in part])
             idx = torch.as_tensor(part, device=nm0.device)
             terms = _mc_terms(pa, view, p_rows[idx], x_ind[idx], noise[idx],
                               which, ginv_mode)

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the BP hot loop, with their plain versions.
 
-Five wrappers, each replacing a Pallas TPU kernel of
+Five wrappers of the decoders' kernels, each replacing a Pallas TPU kernel of
 ``qamreconciliation_tpu/ops/pallas_kernels.py``:
 
 * ``bp_check_phase_qc`` (``csrc/bp_check_phase_qc.cu``): the fused check
@@ -14,6 +14,14 @@ Five wrappers, each replacing a Pallas TPU kernel of
 * ``check_node_update_fused`` (a second kernel in the same source): the
   check-major phi check update of the JAX package's
   ``check_node_update_pallas``, in float32 or bfloat16.
+
+and two more replacing the Pallas kernels of the JAX package's attribution
+probes (``scripts/``):
+
+* ``check_math_probe`` (``csrc/check_math_probe.cu``): kernel 1's staged
+  tiles with ``probe_check_math.py``'s slot maths (phi, copy, its min-sum);
+* ``elementwise_chain`` (``csrc/elementwise_chain.cu``): the chain of
+  ``probe_bf16pack.py`` in float32 or packed bfloat16.
 
 A tensor on the CPU goes to the plain PyTorch version (``*_ref``), which
 uses the kernel's operation and summation order; a CUDA tensor goes to the
@@ -50,6 +58,8 @@ __all__ = [
     "bp_layered_sweeps_qc", "bp_layered_sweeps_qc_ref",
     "bp_check_phase_generic", "bp_check_phase_generic_ref",
     "check_node_update_fused", "check_node_update_fused_ref",
+    "PROBE_MATHS", "check_math_probe", "check_math_probe_ref",
+    "CHAIN_MODES", "elementwise_chain", "elementwise_chain_ref",
 ]
 
 # magnitude rules, in the kernels' numbering
@@ -88,6 +98,12 @@ def _check_messages(v2c, synd, dim: int, rule: str, tiny: float,
     else:
         phim = phi_llr(absm, tiny)
         mag = phi_llr(_fold_sum(phim, dim) - phim, tiny)
+    return _signed(v2c, synd, dim, mag)
+
+
+def _signed(v2c, synd, dim: int, mag):
+    """``mag`` times the XOR sign parity of ``v2c`` over ``dim`` and the
+    ``(1 - 2*synd)`` prefactor, in ``v2c``'s dtype."""
     neg = (v2c < 0).to(torch.int32)
     par = torch.sum(neg, dim=dim, keepdim=True) & 1
     sign = (1 - 2 * torch.bitwise_xor(par, neg)).to(v2c.dtype)
@@ -1289,6 +1305,176 @@ check_node_update_fused.plan = None
 
 
 # --------------------------------------------------------------------- #
+# Kernel 6: the check-math attribution probe (kernel 1's staged tiles with
+# the probe's slot maths)
+
+# the probe's slot maths -> (the kernel's rule number, the decoder rule
+# whose tile plan it shares: the same shared-memory scratch)
+PROBE_MATHS = {"phi": (0, "sumproduct"), "copy": (3, "minsum"),
+               "minsum": (4, "minsum")}
+PROBE_MINSUM_SCALE = 0.8125     # the probe's min-sum normalisation
+_PROBE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _probe_args(t, c2v, synd, math):
+    if math not in PROBE_MATHS:
+        raise ValueError(f"unknown probe math {math!r}; one of "
+                         f"{sorted(PROBE_MATHS)}")
+    _check_args(t, c2v, synd, "sumproduct")
+    if c2v.dtype != t.dtype:
+        raise TypeError(f"t and c2v must share a dtype, got {t.dtype} and "
+                        f"{c2v.dtype}")
+
+
+def check_math_probe_ref(t, c2v, synd, math: str):
+    """Plain PyTorch version of :func:`check_math_probe` (any device)."""
+    _probe_args(t, c2v, synd, math)
+    tf = t.float()
+    synd = synd.to(torch.int32)
+    parity = torch.sum((tf < 0).to(torch.int32), dim=1) & 1
+    viol = torch.sum((parity != synd).to(torch.int32), dim=1,
+                     dtype=torch.int32)                        # [nb_c, B]
+    v2c = tf - c2v.float()
+    if math == "copy":
+        out = v2c
+    elif math == "phi":
+        out = _check_messages(v2c, synd, 1, "sumproduct", 1e-30,
+                              MINSUM_ALPHA, 0.0)
+    else:
+        m = torch.abs(v2c)
+        min1 = torch.amin(m, dim=1, keepdim=True)
+        at_min = m <= min1
+        min2 = torch.amin(torch.where(at_min, m.new_tensor(BIG), m), dim=1,
+                          keepdim=True)
+        mag = PROBE_MINSUM_SCALE * torch.where(at_min, min2, min1)
+        out = _signed(v2c, synd, 1, mag)
+    return out.to(t.dtype), viol
+
+
+def check_math_probe(t, c2v, synd, math: str):
+    """The check-math attribution probe: kernel 1's memory pattern with one
+    of the probe's slot maths.
+
+    Args:
+      t, c2v: [nb_c, dc, z, B], both float32 or both bfloat16.
+      synd:   [nb_c, z, B] syndrome bits (0/1 int).
+      math:   "phi" (kernel 1's phi sum-product), "copy" (``t - c2v``) or
+              "minsum" (the probe's own normalized min-sum: a slot at the
+              minimum magnitude, ties included, gets the least magnitude
+              strictly above it, 1e30 if none, every other slot the
+              minimum; times 0.8125, the sign parity and ``1 - 2*synd``).
+
+    Everything computes in float32; returns ``(out [nb_c, dc, z, B] in t's
+    dtype, viol [nb_c, B] int32)``, the violated checks per (block row,
+    frame) of t's hard decisions.
+
+    CPU tensors run :func:`check_math_probe_ref`.  CUDA tensors run the
+    kernel (contiguous, int32 synd, dc <= ``MAX_DC``); anything else
+    raises.
+    """
+    if t.device.type == "cpu":
+        return check_math_probe_ref(t, c2v, synd, math)
+    _probe_args(t, c2v, synd, math)
+    _require_cuda("check_math_probe", t)
+    if t.dtype not in _PROBE_DTYPES:
+        raise TypeError(f"check_math_probe kernel takes float32 or bfloat16, "
+                        f"got {t.dtype}")
+    if synd.dtype != torch.int32:
+        raise TypeError(f"synd must be int32, got {synd.dtype}")
+    _require_contiguous(t=t, c2v=c2v, synd=synd)
+    nb_c, dc, z, B = t.shape
+    if dc > MAX_DC:
+        raise ValueError(f"check degree {dc} exceeds the kernel's {MAX_DC}")
+    rule, plan_rule = PROBE_MATHS[math]
+    out = torch.empty_like(c2v)
+    viol = torch.zeros((nb_c, B), dtype=torch.int32, device=t.device)
+    plan = _plan_for(nb_c, dc, z, B, t, c2v, plan_rule, False, t, c2v, synd,
+                     out)
+    lib = _library("check_math_probe", "ppppp" + "i" * 13 + "p")
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream(t.device).cuda_stream
+        err = lib.check_math_probe_launch(
+            t.data_ptr(), c2v.data_ptr(), synd.data_ptr(), out.data_ptr(),
+            viol.data_ptr(), _PROBE_DTYPES[t.dtype], nb_c, dc, z, B, rule,
+            *_tile_launch_args(plan), stream,
+        )
+    _raise_on(err, "check_math_probe")
+    check_math_probe.launches += 1
+    check_math_probe.plan = plan
+    return out, viol
+
+
+check_math_probe.launches = 0
+check_math_probe.plan = None
+
+
+# --------------------------------------------------------------------- #
+# Kernel 7: the packed-bf16 elementwise probe
+
+CHAIN_MODES = {"mac": 0, "exp": 1}
+# the chain's constants, exact in bfloat16: 1 - 2^-8 and 2^-6
+CHAIN_A, CHAIN_B = 0.99609375, 0.015625
+
+
+def _chain_args(x, mode, iters, chain):
+    if mode not in CHAIN_MODES:
+        raise ValueError(f"unknown chain mode {mode!r}; one of "
+                         f"{sorted(CHAIN_MODES)}")
+    if iters < 0 or chain < 0:
+        raise ValueError(f"iters and chain must be >= 0, got {iters}, "
+                         f"{chain}")
+    if x.dtype not in _PROBE_DTYPES:
+        raise TypeError(f"elementwise_chain takes float32 or bfloat16, got "
+                        f"{x.dtype}")
+
+
+def elementwise_chain_ref(x, mode: str, iters: int, chain: int):
+    """Plain PyTorch version of :func:`elementwise_chain` (any device): one
+    operation at a time, each rounding to x's dtype."""
+    _chain_args(x, mode, iters, chain)
+    a = torch.tensor(CHAIN_A, dtype=x.dtype, device=x.device)
+    b = torch.tensor(CHAIN_B, dtype=x.dtype, device=x.device)
+    out = x.clone()
+    for _ in range(iters * chain):
+        if mode == "mac":
+            out = out * a + b
+        else:
+            out = torch.exp(-torch.abs(out)) * a + out * b
+    return out
+
+
+def elementwise_chain(x, mode: str, iters: int, chain: int):
+    """``iters * chain`` elementwise steps on x (float32 or bfloat16): "mac"
+    is ``x * a + b``, "exp" is ``exp(-|x|) * a + x * b``, with ``a = 1 -
+    2^-8`` and ``b = 2^-6``; every operation rounds to x's dtype (no
+    fused multiply-add).  Returns a new tensor of x's shape and dtype.
+
+    CPU tensors run :func:`elementwise_chain_ref`.  CUDA tensors run the
+    kernel (contiguous); anything else raises.
+    """
+    if x.device.type == "cpu":
+        return elementwise_chain_ref(x, mode, iters, chain)
+    _chain_args(x, mode, iters, chain)
+    _require_cuda("elementwise_chain", x)
+    _require_contiguous(x=x)
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    lib = _library("elementwise_chain", "ppiliiip")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.elementwise_chain_launch(
+            x.data_ptr(), out.data_ptr(), _PROBE_DTYPES[x.dtype], x.numel(),
+            CHAIN_MODES[mode], int(iters), int(chain), stream)
+    _raise_on(err, "elementwise_chain")
+    elementwise_chain.launches += 1
+    return out
+
+
+elementwise_chain.launches = 0
+
+
+# --------------------------------------------------------------------- #
 # Wrapper checks and the libraries
 
 
@@ -1332,13 +1518,14 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
+           "l": ctypes.c_longlong}
 
 
 def _library(name: str, signature: str, entry: str | None = None):
     """The loaded library of ``csrc/<name>.cu`` with the argument types of
     its function ``entry`` (default ``<name>_launch``) set from
-    ``signature`` (p pointer, i int, f float)."""
+    ``signature`` (p pointer, i int, f float, l long long)."""
     from .cuda_build import load_library
 
     lib = load_library(name)

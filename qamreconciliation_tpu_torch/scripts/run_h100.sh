@@ -1,20 +1,24 @@
 #!/usr/bin/env bash
 # Every campaign once at the JAX scripts' defaults (N = 64800, B = 128,
 # 1024 frames a point, maxiter 50) on one card, then the sweeps the five
-# plotters read.  Outputs go to OUT (default
+# plotters read, then every variant of the attribution probes at the JAX
+# probes' defaults.  Outputs go to OUT (default
 # qamreconciliation_tpu_torch/scripts/h100), named as in docs/img: each
 # campaign's records in OUT/<name>.jsonl, its progress in OUT/<name>.log,
-# and one line of wall seconds a campaign in OUT/wall_s.txt.  Run from the
-# repository root:
+# and one line of wall seconds a campaign in OUT/wall_s.txt; each probe
+# variant's records in OUT/probes/<probe>_<variant>.jsonl (its progress in
+# .log beside it, its wall seconds in OUT/probes/wall_s.txt).  Run from
+# the repository root:
 #
-#     bash qamreconciliation_tpu_torch/scripts/run_h100.sh [OUT]
+#     bash qamreconciliation_tpu_torch/scripts/run_h100.sh [OUT [WHAT]]
 #
-# A campaign that exits non-zero is reported and the script goes on; it
-# exits 1 at the end if any did.
+# WHAT is "all" (default), "campaigns" or "probes".  A campaign or probe
+# that exits non-zero is reported and the script goes on; it exits 1 at the
+# end if any did.
 set -u
 OUT=${1:-qamreconciliation_tpu_torch/scripts/h100}
+WHAT=${2:-all}
 mkdir -p "$OUT"
-: > "$OUT/wall_s.txt"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader > "$OUT/card.txt"
 M=qamreconciliation_tpu_torch.scripts
 # the mode comparison's sweep flags (run_r5_dvbs2's wf step has them too)
@@ -23,15 +27,54 @@ MODES="--simloops 1024 --batch 128 --maxiter 50 --ferr-count-min 1000000000 --dt
 WF="--simloops 1024 --batch 128 --maxiter 50 --ferr-count-min 1000000000"
 failed=0
 
-run() {  # run NAME MODULE ARGS...: records to OUT/NAME.jsonl
+run() {  # run NAME MODULE ARGS...: records to $DIR/NAME.jsonl
     local name=$1 module=$2
     shift 2
     local t0=$SECONDS
-    python3 -m "$M.$module" "$@" > "$OUT/$name.jsonl" 2> "$OUT/$name.log"
+    python3 -m "$M.$module" "$@" > "$DIR/$name.jsonl" 2> "$DIR/$name.log"
     local rc=$?
-    echo "$name $((SECONDS - t0)) rc=$rc" | tee -a "$OUT/wall_s.txt"
+    echo "$name $((SECONDS - t0)) rc=$rc" | tee -a "$DIR/wall_s.txt"
     [ $rc -eq 0 ] || failed=1
 }
+
+probes() {  # every probe variant at the JAX defaults
+    DIR=$OUT/probes
+    mkdir -p "$DIR"
+    : > "$DIR/wall_s.txt"
+    for m in phi copy minsum; do
+        for d in bfloat16 float32; do
+            run "probe_check_math_${m}_$d" probe_check_math --math $m --dtype $d
+        done
+    done
+    for d in bfloat16 float32; do
+        run "probe_qc_parts_rolls_$d" probe_qc_parts --part rolls --dtype $d
+        run "probe_qc_parts_check_pallas1_$d" probe_qc_parts --part check \
+            --pallas 1 --dtype $d
+        run "probe_qc_parts_check_pallas0_$d" probe_qc_parts --part check \
+            --pallas 0 --dtype $d
+    done
+    for g in 1 0; do
+        for p in sweep parity full; do
+            run "probe_layered_parts_${p}_grouped$g" probe_layered_parts \
+                --part $p --grouped $g
+        done
+    done
+    run probe_preamble_bps2 probe_preamble
+    run probe_preamble_bps4 probe_preamble --bps 4
+    run probe_preamble_bps2_bf16_poly probe_preamble --dtype bfloat16 \
+        --fy-mode poly
+    for v in full poly nogather nonewton noexp; do
+        run "probe_mcmi_parts_$v" probe_mcmi_parts --variant $v
+    done
+    run probe_bf16pack_mac_exp probe_bf16pack
+}
+
+if [ "$WHAT" = probes ]; then
+    probes
+    exit $failed
+fi
+DIR=$OUT
+: > "$OUT/wall_s.txt"
 
 run r5_dvbs2 run_r5_dvbs2 --outdir "$OUT"
 run wf_dvbs2_12_hard run_waterfall "$OUT/wf_dvbs2_12_hard.csv" --dvbs2 1/2 \
@@ -69,4 +112,5 @@ run bps4_soft_base run_waterfall "$OUT/bps4_soft_base.csv" $B \
     --configuration-base
 run bps4_hard run_waterfall "$OUT/bps4_hard.csv" $B --hard
 run bps4_direct run_waterfall "$OUT/bps4_direct.csv" $B --direct
+[ "$WHAT" = campaigns ] || probes
 exit $failed

@@ -26,18 +26,29 @@ import torch
 
 from ..ops.kernels import GENERIC_BLOCK_C
 
-__all__ = ["HBM_BYTES_PER_S", "F32_OPS_PER_S", "OPS_PER_SLOT", "tensor_bytes",
-           "bound", "check_phase_qc_work", "decode_rounds_work",
-           "layered_sweeps_work", "check_phase_generic_work",
-           "check_node_update_work"]
+__all__ = ["HBM_BYTES_PER_S", "F32_OPS_PER_S", "BF16_OPS_PER_S",
+           "OPS_PER_SLOT", "tensor_bytes", "bound", "check_phase_qc_work",
+           "decode_rounds_work", "layered_sweeps_work",
+           "check_phase_generic_work", "check_node_update_work",
+           "check_math_probe_work", "elementwise_chain_work"]
 
 # H100 SXM data-sheet rates: HBM3 bytes/s, and f32 instructions/s outside
 # the tensor cores (67 TFLOP/s counts an FMA as two operations; none of the
 # rules' operations is an FMA, so each takes an instruction of its own)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12 / 2
+# packed bf16 element operations/s outside the tensor cores: 133.8 TFLOP/s
+# of non-tensor bf16 (the Hopper architecture white paper's H100 SXM5
+# figure, twice the f32 rate: two elements an instruction), an FMA counted
+# as two
+BF16_OPS_PER_S = 133.8e12 / 2
 # f32 operations per check slot of the plain versions' rules
 OPS_PER_SLOT = {"sumproduct": 30, "tanhfb": 20, "minsum": 12}
+# ... and of kernel 6's slot maths (copy: the subtraction and t's sign)
+PROBE_OPS_PER_SLOT = {"phi": 30, "copy": 2, "minsum": 12}
+# elementwise operations a step of kernel 7's chain: mac a multiply and an
+# add (two roundings, no FMA); exp -|x|, exp, two multiplies and an add
+CHAIN_OPS = {"mac": 2, "exp": 5}
 
 _I32 = 4        # syndromes of kernels 1, 4 and 5, violation counts, flags
 _I8 = 1         # syndromes of kernels 2 and 3
@@ -48,13 +59,15 @@ def tensor_bytes(*tensors) -> int:
     return sum(x.numel() * x.element_size() for x in tensors)
 
 
-def bound(nbytes: float, ops: float, steps: int = 1):
+def bound(nbytes: float, ops: float, steps: int = 1,
+          ops_per_s: float = F32_OPS_PER_S):
     """``(bound_ms, bound_by)``: the larger of ``nbytes / steps`` over the
-    memory rate and ``ops`` over the f32 rate, and which of the two it is
-    ("bytes" or "operations").  A multi-step call passes its bytes and its
-    steps with the operations of one step, for a bound per step."""
+    memory rate and ``ops`` over ``ops_per_s`` (default the f32 rate), and
+    which of the two it is ("bytes" or "operations").  A multi-step call
+    passes its bytes and its steps with the operations of one step, for a
+    bound per step."""
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S / steps
-    t_ops = 1e3 * ops / F32_OPS_PER_S
+    t_ops = 1e3 * ops / ops_per_s
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -112,3 +125,21 @@ def check_node_update_work(C, dc, B, dtype):
     slots = C * dc * B
     nbytes = 2 * slots * _size(dtype) + C * B * _I32 + C * dc * 4
     return nbytes, OPS_PER_SLOT["sumproduct"] * slots
+
+
+def check_math_probe_work(nb_c, dc, z, B, dtype, math):
+    """Kernel 6 (``check_math_probe``): t and c2v [nb_c, dc, z, B] in,
+    int32 syndrome [nb_c, z, B] in, out [nb_c, dc, z, B] and violations
+    [nb_c, B] out, all but the int32s in ``dtype``."""
+    slots = nb_c * dc * z * B
+    nbytes = 3 * slots * _size(dtype) + nb_c * z * B * _I32 + nb_c * B * _I32
+    return nbytes, PROBE_OPS_PER_SLOT[math] * slots
+
+
+def elementwise_chain_work(numel, dtype, iters, chain, mode):
+    """Kernel 7 (``elementwise_chain``): the array in and out once, and
+    ``iters * chain`` steps of ``mode`` on every element; returns ``(bytes,
+    ops, ops_per_s)``, the rate that of ``dtype`` (packed bf16 or f32)."""
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    return (2 * numel * _size(dtype), CHAIN_OPS[mode] * numel * iters * chain,
+            rate)

@@ -1,7 +1,8 @@
 """The launch plans of the staged-tile check phase (kernels 1 and 4,
-``csrc/bp_check_tile.cuh``) and of kernel 5's check-major tiles
-(``check_major_plan``): pure functions of the call's shape, held here on
-the CPU.  Plain torch, no JAX."""
+``csrc/bp_check_tile.cuh``, and kernel 6, the check-math probe on the same
+tiles) and of kernel 5's check-major tiles (``check_major_plan``): pure
+functions of the call's shape, held here on the CPU.  Plain torch, no
+JAX."""
 
 import itertools
 
@@ -10,8 +11,8 @@ import torch
 
 from qamreconciliation_tpu_torch.ops.kernels import (
     CM_ILP, CM_THREADS_MAX, CM_THREADS_SM, GENERIC_BLOCK_C, MAX_DC,
-    SMEM_BLOCK_MAX, SMEM_SM, check_major_plan, check_major_smem,
-    check_tile_plan, tile_smem,
+    PROBE_MATHS, RULES as KERNEL_RULES, SMEM_BLOCK_MAX, SMEM_SM,
+    check_major_plan, check_major_smem, check_tile_plan, tile_smem,
 )
 
 torch.set_num_threads(1)
@@ -222,3 +223,23 @@ def test_check_major_smem_matches_the_layout_by_hand():
     # one mbarrier a stage
     assert check_major_smem(7, 4, 128, 3, 4) == \
         3 * (14336 + 2048 + 112) + 48
+
+
+@pytest.mark.parametrize("size", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("math_", sorted(PROBE_MATHS))
+def test_check_math_probe_plan_is_kernel_1s(math_, size):
+    """Kernel 6 takes the plan of kernel 1's rule with its scratch (phi:
+    the phi rule's one f32 a slot; copy and the probe's min-sum: none), is
+    staged at the probe's shape [18, 6, 1800, 128], and its rule numbers
+    are none of the decoders' but phi's."""
+    rule, plan_rule = PROBE_MATHS[math_]
+    assert (rule == KERNEL_RULES["sumproduct"]) == (math_ == "phi")
+    assert rule not in (KERNEL_RULES["tanhfb"], KERNEL_RULES["minsum"])
+    plan = check_tile_plan(18, 6, 1800, 128, size, size, plan_rule,
+                           masked=False)
+    scratch = 1 if math_ == "phi" else 0
+    assert plan.smem == tile_smem(6, plan.checks, plan.frames, plan.stages,
+                                  size, size, False, scratch)
+    assert plan.path == "staged" and plan.frames == 128
+    assert plan.tiles == 18 * -(-1800 // plan.checks)
+    assert plan.blocks_per_sm * (plan.smem + 1024) <= SMEM_SM

@@ -881,3 +881,100 @@ def test_stream_fused_on_the_card_equals_the_plain_check_phase(dtype):
     assert bp_check_phase_generic.launches > n0
     _same_stream(gen, _stream_run(Decoder(vid, cid, **kw), mat,
                                   plain=bp_check_phase_generic_ref))
+
+
+# --------------------------------------------------------------------- #
+# The attribution probes' kernels: kernel 6 (check_math_probe, kernel 1's
+# staged tiles with the probe's slot maths) and kernel 7
+# (elementwise_chain, the packed-bf16 chain), bit for bit
+
+PROBE_MATHS = ["phi", "copy", "minsum"]
+PROBE_DTYPES = [torch.float32, torch.bfloat16]
+# z off the tile; B off the block (40: staged, 37 and 100 in bf16: the
+# per-thread path), and beyond one tile's frames (300)
+PROBE_TILE_SHAPES = [(3, 6, 70, 40), (3, 6, 70, 37), (2, 6, 21, 300),
+                     (18, 6, 64, 100)]
+
+
+def test_probe_kernels_on_cpu_tensors_run_their_plain_versions():
+    t, c2v, synd = (torch.from_numpy(a)
+                    for a in make_inputs(5, (3, 6, 10, 5), irregular=False))
+    n6, n7 = kernels.check_math_probe.launches, \
+        kernels.elementwise_chain.launches
+    for math_ in PROBE_MATHS:
+        got = kernels.check_math_probe(t, c2v, synd, math_)
+        want = kernels.check_math_probe_ref(t, c2v, synd, math_)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    x = t.reshape(-1)
+    assert torch.equal(kernels.elementwise_chain(x, "exp", 2, 3),
+                       kernels.elementwise_chain_ref(x, "exp", 2, 3))
+    assert kernels.check_math_probe.launches == n6
+    assert kernels.elementwise_chain.launches == n7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PROBE_TILE_SHAPES,
+                         ids=["x".join(map(str, s)) for s in PROBE_TILE_SHAPES])
+@pytest.mark.parametrize("dtype", PROBE_DTYPES)
+@pytest.mark.parametrize("math_", PROBE_MATHS)
+def test_check_math_probe_kernel_bit_equal(math_, dtype, shape):
+    """Kernel 6 on ragged shapes: out and the violation counts bit for bit,
+    with tied magnitudes in half the frames (integer-valued t, zero c2v);
+    the plan that of kernel 1's rule with the same scratch."""
+    need_cuda()
+    t, c2v, synd = make_inputs(31, shape, irregular=False)
+    half = shape[-1] // 2
+    t[..., :half] = np.round(t[..., :half])
+    c2v[..., :half] = 0.0
+    args = (torch.from_numpy(t).to("cuda", dtype),
+            torch.from_numpy(c2v).to("cuda", dtype),
+            torch.from_numpy(synd).cuda())
+    n0 = kernels.check_math_probe.launches
+    got, gviol = kernels.check_math_probe(*args, math_)
+    assert kernels.check_math_probe.launches == n0 + 1
+    want, wviol = kernels.check_math_probe_ref(*args, math_)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and gviol.dtype == torch.int32
+    assert torch.equal(gviol, wviol)
+    assert torch.equal(got, want)
+    nb_c, dc, z, B = shape
+    assert kernels.check_math_probe.plan == check_tile_plan(
+        nb_c, dc, z, B, args[0].element_size(), args[0].element_size(),
+        kernels.PROBE_MATHS[math_][1], masked=False,
+        sms=torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [512 * 1024, 1001])
+@pytest.mark.parametrize("dtype", PROBE_DTYPES)
+@pytest.mark.parametrize("mode", ["mac", "exp"])
+def test_elementwise_chain_kernel_bit_equal(mode, dtype, n):
+    """Kernel 7 bit for bit: whole 16-byte groups and a ragged tail, and an
+    unaligned view (every element on the one-element path)."""
+    need_cuda()
+    x = torch.from_numpy(np.random.default_rng(3).normal(0, 2, n)).to(
+        "cuda", dtype)
+    for xx in (x, x[1:]):
+        n0 = kernels.elementwise_chain.launches
+        got = kernels.elementwise_chain(xx, mode, 3, 16)
+        assert kernels.elementwise_chain.launches == n0 + 1
+        want = kernels.elementwise_chain_ref(xx, mode, 3, 16)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_probe_kernels_reject_what_they_do_not_take():
+    need_cuda()
+    t = torch.zeros(2, 6, 8, 4, device="cuda")
+    synd = torch.zeros(2, 8, 4, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        kernels.check_math_probe(t, t.bfloat16(), synd, "copy")
+    with pytest.raises(TypeError):
+        kernels.check_math_probe(t.double(), t.double(), synd, "copy")
+    with pytest.raises(ValueError):
+        kernels.check_math_probe(t, t, synd, "tanhfb")
+    with pytest.raises(TypeError):
+        kernels.elementwise_chain(t.double(), "mac", 1, 1)
+    with pytest.raises(ValueError):
+        kernels.elementwise_chain(t.transpose(0, 3), "mac", 1, 1)
