@@ -130,7 +130,26 @@ Phases (each must pass, or the script exits non-zero):
      by side, and the rest through their main() in this process, every
      count set to 0 just before them and read just after (kernels 6, 7 and
      1 launched); each probe's records are logged after "[probe]", the
-     first naming the card.
+     first naming the card;
+ 21. the last probes (phase_probes_tail): kernels 2 and 3 keep the
+     parent's ptxas registers with no spill (RESIDENT_PTXAS) after their
+     check pass moved into bp_resident.cuh; kernel 9
+     (resident_bookkeeping_probe) against its plain version bit for bit in
+     its four variants (nobook, violonly, nocapture, full) on a z = 64 code
+     with B = 40 and at the probe's [36, 1800, 128] from a state whose
+     frames converge at the first step, at later steps and never (iters,
+     done and the full capture fire), and from the probe's own inputs,
+     each variant timed there with its ptxas registers and spills, bytes,
+     bound and share; kernel 8 (smem_ceiling_probe) at every probe size:
+     up to the card's opt-in limit bit-equal to its plain version (4.0 on
+     ones), one KiB past it refused with cudaErrorInvalidValue; then
+     probe_vmem, probe_resident_vmem, probe_fb_form, probe_decode,
+     probe_round and probe_streaming, one of each in a subprocess as a user
+     runs it, all six side by side, the rest through main() in this
+     process with every count set to 0 just before them and read just after
+     (kernels 8, 9 and 1-4 launched: probe_decode's variants run the dense
+     QC, generic, resident and resident layered decoders), and
+     probe_fb_form's two labels torch.equal at each z.
 Kernel and plain times are CUDA-event medians, taken in turns (kernels 1, 4
 and 5 over runs of 10 calls, whose host overhead the card's work hides;
 kernels 2 and 3 run K steps a call and report ms per step).  Each
@@ -142,7 +161,9 @@ an FMA counted as two; per step for kernels 2 and 3; kernel 7's bf16
 record at the packed bf16 rate, 66.9e12 a second: 133.8 TFLOP/s of
 non-tensor bf16, the Hopper white paper's figure) and its time's share
 of that bound.  Kernel 6's record is the probe's default, bf16 phi at
-[18, 6, 1800, 128]; kernel 7's bf16 mac at the probe's defaults.  The
+[18, 6, 1800, 128]; kernel 7's bf16 mac at the probe's defaults; kernel
+8's at the opt-in limit; kernel 9's the full variant at the probe's
+defaults, per iteration of a K = 8 call.  The
 bound is the function's, not the build's: the
 operations are those of the plain version, a transcendental counted as
 one.  The last two lines are the
@@ -198,7 +219,7 @@ CSRC = "qamreconciliation_tpu_torch/csrc"
 PALLAS = "qamreconciliation_tpu/ops/pallas_kernels.py"
 # wrapper in ops/kernels.py -> (its source in csrc/, the TPU kernel it
 # replaces); kernel 5 is a second kernel in kernel 4's source; kernels 6
-# and 7 replace the Pallas kernels of two of the JAX package's probes
+# to 9 replace the Pallas kernels of four of the JAX package's probes
 KERNELS = {
     "bp_check_phase_qc": ("bp_check_phase_qc", f"{PALLAS}:158"),
     "bp_decode_rounds_qc": ("bp_decode_rounds_qc", f"{PALLAS}:580"),
@@ -209,10 +230,14 @@ KERNELS = {
                          "scripts/probe_check_math.py:82"),
     "elementwise_chain": ("elementwise_chain",
                           "scripts/probe_bf16pack.py:76"),
+    "smem_ceiling_probe": ("smem_ceiling_probe", "scripts/probe_vmem.py:32"),
+    "resident_bookkeeping_probe": ("resident_bookkeeping_probe",
+                                   "scripts/probe_resident_vmem.py:155"),
 }
-# kernels 6 and 7 run only in their probes (phase 20); the rest are the
+# kernels 6-9 run only in their probes (phases 20 and 21); the rest are the
 # decode paths' kernels
-PROBE_KERNELS = ("check_math_probe", "elementwise_chain")
+PROBE_KERNELS = ("check_math_probe", "elementwise_chain",
+                 "smem_ceiling_probe", "resident_bookkeeping_probe")
 DECODE_KERNELS = tuple(n for n in KERNELS if n not in PROBE_KERNELS)
 
 
@@ -299,7 +324,8 @@ PTXAS = {}
 # sources whose kernel instances may not spill
 NO_SPILL = ("bp_decode_rounds_qc", "bp_layered_sweeps_qc",
             "bp_check_phase_qc", "bp_check_phase_generic",
-            "check_math_probe", "elementwise_chain")
+            "check_math_probe", "elementwise_chain", "smem_ceiling_probe",
+            "resident_bookkeeping_probe")
 
 
 # mangled template argument of each message dtype
@@ -321,15 +347,11 @@ def ptxas_of(source, kernel, rule, *dtypes):
 def ptxas_entry(source, key):
     """'N registers, M bytes spill stores' of the kernel instance whose
     mangled name holds ``key``, from ptxas's report of ``source``."""
-    lines = PTXAS[source].splitlines()
-    for i, line in enumerate(lines):
-        if "entry function" in line and key in line:
-            rest = lines[i + 1:i + 5]
-            regs = next(x for x in rest if "registers" in x)
-            spill = next(x for x in rest if "spill stores" in x)
-            return (f"{regs.split('Used ')[1].split(',')[0]}, "
-                    f"{spill.split(',')[1].strip()}")
-    raise AssertionError(f"{key} not in the ptxas report of {source}")
+    from qamreconciliation_tpu_torch.ops.cuda_build import ptxas_usage
+
+    use = ptxas_usage(PTXAS[source], key)
+    return (f"{use['registers']} registers, {use['spill_stores']} bytes "
+            "spill stores")
 
 
 def build_all(sass_dir=None):
@@ -3342,7 +3364,339 @@ def phase_probes(kernels):
     for name in ("check_math_probe", "elementwise_chain",
                  "bp_check_phase_qc"):
         assert launches[name] > 0, (name, launches)
-    for name in PROBE_KERNELS:
+    for name in ("check_math_probe", "elementwise_chain"):
+        record(kernels, name, launches=launches[name])
+
+
+# ------------------------------------------------------------------------
+# The last probes: kernels 8 and 9, probe_fb_form, probe_decode,
+# probe_round and probe_streaming
+
+# registers of every instance of kernels 2 and 3 as ptxas reported them for
+# the parent's build (PR 14's smoke), by mangled template arguments; none
+# spills.  Moving kernel 2's check pass into bp_resident.cuh for kernel 9
+# leaves them as they were.
+RESIDENT_PTXAS = {
+    "rounds_kernelIf13__nv_bfloat16Li2ELb0E": 56,
+    "rounds_kernelIf13__nv_bfloat16Li2ELb1E": 56,
+    "rounds_kernelIf13__nv_bfloat16Li1ELb0E": 53,
+    "rounds_kernelIf13__nv_bfloat16Li1ELb1E": 56,
+    "rounds_kernelIf13__nv_bfloat16Li0ELb0E": 48,
+    "rounds_kernelIf13__nv_bfloat16Li0ELb1E": 45,
+    "rounds_kernelI13__nv_bfloat16S1_Li2ELb0E": 56,
+    "rounds_kernelI13__nv_bfloat16S1_Li2ELb1E": 56,
+    "rounds_kernelI13__nv_bfloat16S1_Li1ELb0E": 52,
+    "rounds_kernelI13__nv_bfloat16S1_Li1ELb1E": 56,
+    "rounds_kernelI13__nv_bfloat16S1_Li0ELb0E": 48,
+    "rounds_kernelI13__nv_bfloat16S1_Li0ELb1E": 45,
+    "rounds_kernelIffLi2ELb0E": 56, "rounds_kernelIffLi2ELb1E": 56,
+    "rounds_kernelIffLi1ELb0E": 50, "rounds_kernelIffLi1ELb1E": 54,
+    "rounds_kernelIffLi0ELb0E": 42, "rounds_kernelIffLi0ELb1E": 44,
+    "sweeps_kernelI13__nv_bfloat16Li2ELb0E": 64,
+    "sweeps_kernelI13__nv_bfloat16Li2ELb1E": 64,
+    "sweeps_kernelI13__nv_bfloat16Li1ELb0E": 55,
+    "sweeps_kernelI13__nv_bfloat16Li1ELb1E": 64,
+    "sweeps_kernelI13__nv_bfloat16Li0ELb0E": 54,
+    "sweeps_kernelI13__nv_bfloat16Li0ELb1E": 60,
+    "sweeps_kernelIfLi2ELb0E": 64, "sweeps_kernelIfLi2ELb1E": 64,
+    "sweeps_kernelIfLi1ELb0E": 55, "sweeps_kernelIfLi1ELb1E": 64,
+    "sweeps_kernelIfLi0ELb0E": 54, "sweeps_kernelIfLi0ELb1E": 60,
+}
+# kernel 9's (n, B, it0, K) from states where frames converge at
+# different steps: z = 64 with a ragged B, and the probe's shape
+BOOK_CASES = ((2304, 40, 3, 6), (64800, 128, 0, 8))
+BOOK_SEED = 9
+
+
+def resident_ptxas():
+    """Kernels 2 and 3 keep the parent's registers and spill nothing;
+    kernel 9's eight instances are logged (none spills: NO_SPILL)."""
+    from qamreconciliation_tpu_torch.ops.cuda_build import ptxas_usage
+
+    for key, regs in RESIDENT_PTXAS.items():
+        source = ("bp_decode_rounds_qc" if key.startswith("rounds")
+                  else "bp_layered_sweeps_qc")
+        use = ptxas_usage(PTXAS[source], key)
+        assert (use["registers"], use["spill_stores"]) == (regs, 0), \
+            (key, use, regs)
+    log(f"[kernel9] kernels 2 and 3: all {len(RESIDENT_PTXAS)} instances "
+        "keep the parent's registers, no spill")
+
+
+def book_case(tables, state, variant, it0, k):
+    """Kernel 9 and its plain version from the same ``state`` (cloned),
+    bit for bit on all six outputs; returns (kernel outputs, plain
+    outputs, device launches of the call)."""
+    from qamreconciliation_tpu_torch.ops.kernels import (
+        resident_bookkeeping_probe, resident_bookkeeping_probe_ref,
+    )
+
+    got = [x.clone() for x in state]
+    want = [x.clone() for x in state]
+    d0 = resident_bookkeeping_probe.device_launches
+    resident_bookkeeping_probe(tables, it0, 10 ** 6, *got, variant=variant,
+                               k_rounds=k)
+    launched = resident_bookkeeping_probe.device_launches - d0
+    resident_bookkeeping_probe_ref(tables, it0, 10 ** 6, *want,
+                                   variant=variant, k_rounds=k)
+    torch.cuda.synchronize()
+    names = ("total", "c2v", "prior", "synd", "final", "done", "iters",
+             "viol")
+    for name, g, w in zip(names, got, want):
+        assert torch.equal(g, w), f"kernel 9 {variant}: {name} differs"
+    return got, want, launched
+
+
+def probe_kernel9(kernels):
+    """Kernel 9 against its plain version, bit for bit, in its four
+    variants: on the z = 64 code with B = 40 from a state in which frames
+    converge at different iterations (``probe_resident_vmem.mixed_state``;
+    iters, done and the full capture fire), and at the probe's default
+    shape from that kind of state and from the probe's own inputs (random
+    syndrome), each variant timed there with its ptxas registers and
+    spills, bytes, bound and share."""
+    from qamreconciliation_tpu_torch.ops.cuda_build import ptxas_usage
+    from qamreconciliation_tpu_torch.ops.kernels import (
+        resident_bookkeeping_probe, resident_bookkeeping_probe_ref,
+    )
+    from qamreconciliation_tpu_torch.scripts import probe_resident_vmem as P
+
+    resident_ptxas()
+    for n, B, it0, k in BOOK_CASES:
+        tables = P.code_tables(n)
+        state = P.mixed_state(tables, B, BOOK_SEED, "cuda")
+        for variant in P.VARIANTS:
+            got, _, launched = book_case(tables, state, variant, it0, k)
+            done, iters, viol = got[5], got[6], got[7]
+            text = (f"[kernel9] {variant:9s} n={n} B={B} it0={it0} K={k}: "
+                    f"bit-equal; {launched} device launches")
+            if variant in ("nocapture", "full"):
+                later = int((iters > it0).sum())
+                # frames converge at the first step, at later steps and
+                # never
+                assert 0 < later and 0 < int(done.sum()) < B, \
+                    (variant, done.tolist(), iters.tolist())
+                text += (f"; done {int(done.sum())}/{B}, {later} converged "
+                         f"after it0")
+            if variant == "full":
+                moved_final = int((got[4] != state[4]).flatten(0, 1)
+                                  .any(0).sum())
+                assert moved_final >= later, (moved_final, later)
+                text += f"; final captured in {moved_final} frames"
+            if variant != "nobook":
+                assert bool((viol > 0).any()), viol.tolist()
+            log(text)
+
+    n, B, _, k = BOOK_CASES[-1]
+    tables = P.code_tables(n)
+    base = P.inputs(tables, B, "cuda")
+    for variant in P.VARIANTS:
+        got, want, _ = book_case(tables, base, variant, 0, k)
+        plan = resident_bookkeeping_probe.plan
+        scratch = [x.clone() for x in base]
+        ms, = events_ms(lambda: resident_bookkeeping_probe(
+            tables, 0, 10 ** 6, *scratch, variant=variant, k_rounds=k),
+            reps=10, warmup=2)
+        plain_ms, = events_ms(lambda: resident_bookkeeping_probe_ref(
+            tables, 0, 10 ** 6, *scratch, variant=variant, k_rounds=k),
+            reps=2, warmup=0)
+        ms, plain_ms = ms / k, plain_ms / k
+        captured = int((got[5] != base[5]).sum())
+        nbytes, ops = perf.resident_bookkeeping_work(
+            tables.nb_v, tables.nb_c, tables.E, tables.z, B, variant,
+            captured)
+        bound_ms, by = perf.bound(nbytes, ops, k)
+        use = ptxas_usage(PTXAS["resident_bookkeeping_probe"],
+                          P.instance_key(variant, plan.totals))
+        log(f"[kernel9] {variant:9s} [36,1800,128] random syndrome: "
+            f"bit-equal; per iteration kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms; {nbytes / 1e6:.1f} MB a call of {k}, "
+            f"bound {bound_ms:.4f} ms by {by} ({100 * bound_ms / ms:.1f}%); "
+            f"ptxas {use['registers']} registers, {use['spill_stores']} / "
+            f"{use['spill_loads']} bytes spill stores / loads; "
+            f"[{resident_plan_text(plan)}]")
+        if variant == "full":
+            err = float((got[0].float() - want[0].float()).abs().max())
+            record(kernels, "resident_bookkeeping_probe", max_abs_err=err,
+                   ms=ms, plain_ms=plain_ms, steps=k, bytes=nbytes, ops=ops,
+                   shape=[tables.nb_v, tables.z, B], dtype="bfloat16",
+                   variant=variant, registers=use["registers"])
+
+
+def probe_kernel8(kernels):
+    """Kernel 8 at every probe size: up to the opt-in limit equal to its
+    plain version (on ones, 4.0, and on normals), one KiB past it refused
+    with cudaErrorInvalidValue, after which the card still runs kernels;
+    its time at the limit beside its plain version's."""
+    from qamreconciliation_tpu_torch.ops.kernels import (
+        SharedMemoryRefused, smem_ceiling_probe, smem_ceiling_probe_ref,
+    )
+    from qamreconciliation_tpu_torch.scripts import probe_vmem
+
+    dev = torch.device("cuda")
+    optin = probe_vmem.optin_bytes(dev)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    ones = torch.ones((8, 128), device="cuda")
+    normal = torch.randn((8, 128), generator=gen, device="cuda")
+    for kib in probe_vmem.sizes_kib(optin):
+        nbytes = kib * 1024
+        if nbytes > optin:
+            try:
+                smem_ceiling_probe(ones, nbytes)
+            except SharedMemoryRefused as e:
+                assert e.name == "cudaErrorInvalidValue", e
+                log(f"[kernel8] {kib} KiB: refused ({e})")
+            else:
+                raise AssertionError(f"{kib} KiB was not refused")
+            continue
+        for x in (ones, normal):
+            got = smem_ceiling_probe(x, nbytes)
+            want = smem_ceiling_probe_ref(x, nbytes)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), kib
+            err = float((got - want).abs().max())
+        assert bool((smem_ceiling_probe(ones, nbytes) == 4.0).all()), kib
+        log(f"[kernel8] {kib} KiB: bit-equal, 4.0 on ones")
+    # no error of the refused request is left behind
+    assert torch.equal(ones + ones, 2 * ones)
+    nbytes = optin
+    ms, plain_ms = events_ms(lambda: smem_ceiling_probe(normal, nbytes),
+                             lambda: smem_ceiling_probe_ref(normal, nbytes),
+                             reps=10, run=20)
+    work, ops = perf.smem_ceiling_probe_work()
+    assert work == moved(normal, normal)
+    bound_ms, by = perf.bound(work, ops)
+    log(f"[kernel8] at the limit, {optin} bytes: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {by}")
+    record(kernels, "smem_ceiling_probe", max_abs_err=err, ms=ms,
+           plain_ms=plain_ms, bytes=work, ops=ops, smem_bytes=optin)
+
+
+# the six probes: the first run of each in a subprocess as a user runs it
+# (all side by side), the rest through main() in this process, counted;
+# --reps and --maxiter cut
+TAIL_RUNS = {
+    "probe_vmem": [[], []],
+    "probe_resident_vmem": [["--variant", "full"]] + [
+        ["--variant", v] for v in ("nobook", "violonly", "nocapture")],
+    "probe_fb_form": [[]],
+    "probe_decode": [["--reps", "1"],
+                     ["--qc", "0", "--reps", "1"],
+                     ["--resident", "1", "--reps", "1"],
+                     ["--schedule", "layered", "--resident", "1",
+                      "--check", "minsum", "--reps", "1"],
+                     ["--pallas", "0", "--maxiter", "5", "--reps", "1"],
+                     ["--ira", "1", "--nbv", "180", "--resident", "1",
+                      "--phi", "tanhfb", "--reps", "1"]],
+    "probe_round": [["--reps", "2"], ["--bps", "2", "--reps", "2"]],
+    "probe_streaming": [["--frames", "128"],
+                        ["--frames", "128", "--fused", "1"],
+                        ["--frames", "128", "--handoff", "1"]],
+}
+
+
+def probe_output(text, label):
+    """The output of a probe (each line logged after ``[probe]``) after its
+    device record, which must name the card; returns (JSON records, other
+    lines)."""
+    lines = text.splitlines()
+    for line in lines:
+        log(f"[probe] {line}")
+    dev = json.loads(lines[0])
+    assert dev["probe"] == label and dev["device"] \
+        == torch.cuda.get_device_name(0) and dev["power_limit"], dev
+    recs = [json.loads(x) for x in lines[1:] if x.startswith("{")]
+    rest = [x for x in lines[1:] if not x.startswith("{")]
+    assert recs or rest, label
+    return recs, rest
+
+
+def check_tail_output(name, recs, rest):
+    """What each probe's output must show."""
+    if name == "probe_vmem":
+        ok = [x for x in rest if "scratch: OK value=True" in x]
+        fail = [x for x in rest if "scratch: FAIL cudaErrorInvalidValue" in x]
+        assert len(ok) == len(probe_vmem_sizes()) - 1 and len(fail) == 1, rest
+    elif name == "probe_resident_vmem":
+        assert any("COMPILED+RAN" in x for x in rest) \
+            and any("ms/iter" in x for x in rest) \
+            and any(" 0 bytes spill stores, 0 bytes spill loads" in x
+                    for x in rest), rest
+    else:
+        assert recs and all("error" not in r for r in recs), recs
+
+
+def probe_vmem_sizes():
+    from qamreconciliation_tpu_torch.scripts import probe_vmem
+
+    return probe_vmem.sizes_kib(
+        probe_vmem.optin_bytes(torch.device("cuda")))
+
+
+def fb_form_equal():
+    """probe_fb_form's two labels at each z, on the same inputs: the
+    decodes' outputs torch.equal (one tanh-F/B kernel either way)."""
+    from qamreconciliation_tpu_torch.scripts import probe_fb_form as P
+
+    saved = (P.ITERS, P.REPS)
+    P.ITERS, P.REPS = 50, 1
+    try:
+        by_nbv = {}
+        for name, nbv, form in P.configs():
+            rec, out = P.run(name, nbv, form, torch.device("cuda"),
+                             np.random.default_rng(0))
+            by_nbv.setdefault(nbv, []).append((name, out, rec))
+        for nbv, ((n1, o1, r1), (n2, o2, r2)) in by_nbv.items():
+            assert all(torch.equal(a, b) for a, b in zip(o1, o2)), nbv
+            log(f"[probe] fb_form nbv={nbv}: {n1!r} and {n2!r} torch.equal "
+                f"({r1['ms_per_iter']} / {r2['ms_per_iter']} ms an "
+                "iteration at 50)")
+    finally:
+        P.ITERS, P.REPS = saved
+
+
+def phase_probes_tail(kernels):
+    """Kernels 8 and 9 and the last probes (see the module docstring, item
+    21)."""
+    probe_kernel9(kernels)
+    probe_kernel8(kernels)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"{PM}.{name}", *runs[0]],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root)
+        for name, runs in TAIL_RUNS.items()}
+    t0 = time.perf_counter()
+    for name, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+        for line in err.splitlines()[-5:]:
+            log(f"[probe] {name}: {line}")
+        assert proc.returncode == 0, (name, proc.returncode, err[-3000:])
+        check_tail_output(name, *probe_output(out, name))
+    log(f"[probe] {len(procs)} probes as a user runs them, side by side: "
+        f"{time.perf_counter() - t0:.1f} s (their times are not alone on "
+        "the card)")
+
+    reset_counts()
+    for name, runs in TAIL_RUNS.items():
+        module = importlib.import_module(f"{PM}.{name}")
+        for argv in runs[1:]:
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                status = module.main(argv)
+            assert status == 0, (name, argv, status)
+            check_tail_output(name, *probe_output(out.getvalue(), name))
+    fb_form_equal()
+    launches = counts()
+    log(f"[probe] launches {launches}")
+    for name in ("smem_ceiling_probe", "resident_bookkeeping_probe",
+                 "bp_check_phase_qc", "bp_decode_rounds_qc",
+                 "bp_layered_sweeps_qc", "bp_check_phase_generic"):
+        assert launches[name] > 0, (name, launches)
+    for name in ("smem_ceiling_probe", "resident_bookkeeping_probe"):
         record(kernels, name, launches=launches[name])
 
 
@@ -3383,7 +3737,8 @@ def main(argv=None):
                         (phase_tail, ()),
                         (phase_bench, ()),
                         (phase_campaigns, ()),
-                        (phase_probes, (kernels,))):
+                        (phase_probes, (kernels,)),
+                        (phase_probes_tail, (kernels,))):
         t0 = time.perf_counter()
         phase(*args)
         log(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")

@@ -50,44 +50,6 @@ namespace {
 
 using namespace bp;
 
-struct Cols {
-  const int* col_off;  // [nb_v + 1]
-  const int* col_e;    // [E] edges of each block, (row, slot) order
-  const int* col_s;    // [E] their shifts
-};
-
-// Pass 1 of row cb, lane j: returns 1 when the totals violate the check.
-template <int RULE, typename TT, typename TM>
-__device__ __forceinline__ int check_update(const TT* T, TM* C, int s, int cb,
-                                            int j, const Rows& rw, int z,
-                                            float* sc, int nthr, int qs,
-                                            float tiny, float alpha,
-                                            float beta, float tanh_sat) {
-  const int e0 = __ldg(rw.row_off + cb);
-  const int dc = __ldg(rw.row_off + cb + 1) - e0;
-  RuleChain<RULE> ch;
-  ch.init();
-  int tneg = 0;
-  uint32_t negbits = 0;
-  for (int d = 0; d < dc; ++d) {
-    int src = j - __ldg(rw.edge_s + e0 + d);
-    if (src < 0) src += z;
-    const float td = load_f(T + __ldg(rw.edge_v + e0 + d) * z + src);
-    const float v = __fsub_rn(td, load_f(C + (e0 + d) * z + j));
-    tneg ^= (td < 0.0f);
-    negbits |= (uint32_t)(v < 0.0f) << d;
-    ch.push(d, fabsf(v), sc + d * nthr, qs, tiny);
-  }
-  const int vpar = __popc(negbits) & 1;
-  const float pref = (float)(1 - 2 * s);
-  ch.emit_all(dc, sc, nthr, qs, tiny, alpha, beta, tanh_sat,
-              [&](int d, float mag) {
-                store_f(C + (e0 + d) * z + j,
-                        signed_message(negbits, vpar, pref, d, mag));
-              });
-  return tneg != s;
-}
-
 // TSH: the frame's totals in shared memory (the plan's choice); a template
 // argument, so that every access to them compiles to its own memory space
 // rather than to generic loads.

@@ -15,13 +15,15 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build", "build_all",
-           "load_library", "ptxas_report", "cuda_tool", "sources"]
+           "load_library", "ptxas_report", "ptxas_usage", "cuda_tool",
+           "sources"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR / "_build"
@@ -118,6 +120,23 @@ def ptxas_report(lib: Path) -> str:
     was built without one."""
     path = _report_path(lib)
     return path.read_text() if path.exists() else ""
+
+
+def ptxas_usage(report: str, key: str) -> dict:
+    """``{"registers", "spill_stores", "spill_loads"}`` (bytes for the
+    spills) of the kernel instance whose mangled name holds ``key`` in a
+    ptxas report; raises KeyError when no instance matches."""
+    lines = report.splitlines()
+    for i, line in enumerate(lines):
+        if "entry function" in line and key in line:
+            rest = " ".join(lines[i + 1:i + 5])
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", rest)
+            return {"registers": int(re.search(r"Used (\d+) registers",
+                                               rest).group(1)),
+                    "spill_stores": int(spill.group(1)),
+                    "spill_loads": int(spill.group(2))}
+    raise KeyError(f"no kernel instance {key!r} in the ptxas report")
 
 
 @functools.lru_cache(maxsize=None)

@@ -15,18 +15,23 @@ Five wrappers of the decoders' kernels, each replacing a Pallas TPU kernel of
   check-major phi check update of the JAX package's
   ``check_node_update_pallas``, in float32 or bfloat16.
 
-and two more replacing the Pallas kernels of the JAX package's attribution
-probes (``scripts/``):
+and four more replacing the Pallas kernels of the JAX package's probes
+(``scripts/``):
 
 * ``check_math_probe`` (``csrc/check_math_probe.cu``): kernel 1's staged
   tiles with ``probe_check_math.py``'s slot maths (phi, copy, its min-sum);
 * ``elementwise_chain`` (``csrc/elementwise_chain.cu``): the chain of
-  ``probe_bf16pack.py`` in float32 or packed bfloat16.
+  ``probe_bf16pack.py`` in float32 or packed bfloat16;
+* ``smem_ceiling_probe`` (``csrc/smem_ceiling_probe.cu``): the copy kernel
+  of ``probe_vmem.py`` with an N-byte shared-memory scratch;
+* ``resident_bookkeeping_probe`` (``csrc/resident_bookkeeping_probe.cu``):
+  ``probe_resident_vmem.py``'s K min-sum flooding iterations in four
+  bookkeeping variants.
 
 A tensor on the CPU goes to the plain PyTorch version (``*_ref``), which
 uses the kernel's operation and summation order; a CUDA tensor goes to the
 kernel, or the call raises.  Each wrapper counts its kernel launches in
-``.launches``; the two multi-step wrappers also count the BP iterations or
+``.launches``; the three multi-step wrappers also count the BP iterations or
 sweeps they ran on the device in ``.iterations``, and the device kernels
 their calls launched (the copies of the state in and out included) in
 ``.device_launches``.  The multi-step kernels
@@ -60,6 +65,9 @@ __all__ = [
     "check_node_update_fused", "check_node_update_fused_ref",
     "PROBE_MATHS", "check_math_probe", "check_math_probe_ref",
     "CHAIN_MODES", "elementwise_chain", "elementwise_chain_ref",
+    "SharedMemoryRefused", "smem_ceiling_probe", "smem_ceiling_probe_ref",
+    "BOOKKEEPING_VARIANTS", "resident_bookkeeping_probe",
+    "resident_bookkeeping_probe_ref",
 ]
 
 # magnitude rules, in the kernels' numbering
@@ -773,6 +781,28 @@ def _resident_plan_for(tables, B, t, rule, layered):
 # Kernel 2: K flooding iterations per call
 
 
+def _flooding_check_pass(tables, total, c2v, synd, rule, tiny, ms_alpha,
+                         ms_beta):
+    """Pass 1 of a flooding step of the plain versions, in place: every
+    row's new messages from rolled reads of ``total`` (in f32) and the old
+    ``c2v``, stored in c2v's dtype.  Returns [B] int32, the checks per
+    frame whose parity of ``total < 0`` differs from the int32 ``synd``."""
+    z, B, dev = tables.z, total.shape[-1], total.device
+    t_flat = total.view(-1, B)
+    viol = torch.zeros(B, dtype=torch.int32, device=dev)
+    for cbs, gidx, eidx, deg in tables.row_groups([range(tables.nb_c)], dev):
+        shape = (len(cbs), deg, z, B)
+        t = t_flat.index_select(0, gidx.reshape(-1)).view(shape).float()
+        s = synd.index_select(0, cbs)
+        parity = torch.sum((t < 0).to(torch.int32), dim=1) & 1
+        viol += torch.sum((parity != s).to(torch.int32), dim=(0, 1),
+                          dtype=torch.int32)
+        old = c2v.index_select(0, eidx).view(shape).float()
+        new = _check_messages(t - old, s, 1, rule, tiny, ms_alpha, ms_beta)
+        c2v.index_copy_(0, eidx, new.to(c2v.dtype).view(-1, z, B))
+    return viol
+
+
 def bp_decode_rounds_qc_ref(tables, it0: int, maxiter: int, total, c2v,
                             prior, synd, done, iters, *,
                             rule: str = "sumproduct", k_rounds: int = 8,
@@ -785,23 +815,12 @@ def bp_decode_rounds_qc_ref(tables, it0: int, maxiter: int, total, c2v,
         raise ValueError(f"unknown rule {rule!r}")
     _check_state(tables, total, c2v, synd, done, iters, prior)
     z, B, dev = tables.z, total.shape[-1], total.device
-    t_flat, c_flat = total.view(-1, B), c2v.view(-1, B)
+    c_flat = c2v.view(-1, B)
     synd = synd.to(torch.int32)
-    checks = tables.row_groups([range(tables.nb_c)], dev)
     for k in range(_n_steps(k_rounds, it0, maxiter)):
         # pass 1: check phase on rolled reads of the totals
-        viol = torch.zeros(B, dtype=torch.int32, device=dev)
-        for cbs, gidx, eidx, deg in checks:
-            shape = (len(cbs), deg, z, B)
-            t = t_flat.index_select(0, gidx.reshape(-1)).view(shape).float()
-            s = synd.index_select(0, cbs)
-            parity = torch.sum((t < 0).to(torch.int32), dim=1) & 1
-            viol += torch.sum((parity != s).to(torch.int32), dim=(0, 1),
-                              dtype=torch.int32)
-            old = c2v.index_select(0, eidx).view(shape).float()
-            new = _check_messages(t - old, s, 1, rule, tiny, ms_alpha,
-                                  ms_beta)
-            c2v.index_copy_(0, eidx, new.to(c2v.dtype).view(-1, z, B))
+        viol = _flooding_check_pass(tables, total, c2v, synd, rule, tiny,
+                                    ms_alpha, ms_beta)
         # bookkeeping: iters at the first convergence, done
         conv = viol == 0
         iters.copy_(torch.where(conv & (done == 0), it0 + k, iters))
@@ -1472,6 +1491,233 @@ def elementwise_chain(x, mode: str, iters: int, chain: int):
 
 
 elementwise_chain.launches = 0
+
+
+# --------------------------------------------------------------------- #
+# Kernel 8: the shared-memory ceiling probe
+
+SMEM_PROBE_ROWS, SMEM_PROBE_COLS = 8, 128   # x and out [8, 128] f32
+
+
+class SharedMemoryRefused(RuntimeError):
+    """The card refused a block of ``nbytes`` of dynamic shared memory
+    (``cudaFuncSetAttribute`` failed with CUDA error ``code``, ``name``)."""
+
+    def __init__(self, nbytes: int, code: int, name: str):
+        super().__init__(f"{name} ({code}): {nbytes} bytes of dynamic shared "
+                         "memory refused")
+        self.nbytes, self.code, self.name = nbytes, code, name
+
+
+def _smem_probe_args(x, nbytes):
+    want = (SMEM_PROBE_ROWS, SMEM_PROBE_COLS)
+    if tuple(x.shape) != want or x.dtype != torch.float32:
+        raise ValueError(f"x must be float32 {want}, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if nbytes % (4 * SMEM_PROBE_COLS) or \
+            nbytes < 2 * x.numel() * x.element_size():
+        raise ValueError(f"nbytes must be a multiple of 512 and at least "
+                         f"8192, got {nbytes}")
+
+
+def smem_ceiling_probe_ref(x, nbytes: int):
+    """Plain PyTorch version of :func:`smem_ceiling_probe` (any device):
+    ``2x + (x + 1)``, which needs no scratch."""
+    _smem_probe_args(x, nbytes)
+    return x * 2.0 + (x + 1.0)
+
+
+def smem_ceiling_probe(x, nbytes: int):
+    """The shared-memory ceiling probe: one block takes ``nbytes`` of
+    dynamic shared memory as a [nbytes / 512, 128] f32 scratch, writes
+    ``2x`` into its first 8 rows and ``x + 1`` into its last 8 and returns
+    their sum, ``2x + (x + 1)`` (x [8, 128] float32; ``nbytes`` a multiple
+    of 512, at least 8192).
+
+    CPU tensors run :func:`smem_ceiling_probe_ref`.  CUDA tensors run the
+    kernel (contiguous); a size the card refuses raises
+    :class:`SharedMemoryRefused`, any other failure RuntimeError.
+    """
+    nbytes = int(nbytes)
+    if x.device.type == "cpu":
+        return smem_ceiling_probe_ref(x, nbytes)
+    _smem_probe_args(x, nbytes)
+    _require_cuda("smem_ceiling_probe", x)
+    _require_contiguous(x=x)
+    out = torch.empty_like(x)
+    stage = ctypes.c_int(0)
+    lib = _library("smem_ceiling_probe", "pplpp")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.smem_ceiling_probe_launch(
+            x.data_ptr(), out.data_ptr(), nbytes, ctypes.addressof(stage),
+            stream)
+    if err and stage.value == 1:
+        name_fn = lib.smem_ceiling_probe_error_name
+        name_fn.argtypes, name_fn.restype = [ctypes.c_int], ctypes.c_char_p
+        raise SharedMemoryRefused(nbytes, err, name_fn(err).decode())
+    _raise_on(err, "smem_ceiling_probe")
+    smem_ceiling_probe.launches += 1
+    return out
+
+
+smem_ceiling_probe.launches = 0
+
+
+# --------------------------------------------------------------------- #
+# Kernel 9: the resident bookkeeping probe (kernel 2's min-sum check pass in
+# four bookkeeping variants)
+
+BOOKKEEPING_VARIANTS = {"nobook": 0, "violonly": 1, "nocapture": 2,
+                        "full": 3}
+
+
+def _bookkeeping_args(tables, total, c2v, prior, synd, final, done, iters,
+                      viol, variant):
+    if variant not in BOOKKEEPING_VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; one of "
+                         f"{list(BOOKKEEPING_VARIANTS)}")
+    _check_state(tables, total, c2v, synd, done, iters, prior)
+    for name, x in (("final", final), ("viol", viol)):
+        want = (total.shape if name == "final" else done.shape)
+        if tuple(x.shape) != tuple(want) or x.device != total.device:
+            raise ValueError(f"{name} must be {tuple(want)} on "
+                             f"{total.device}, got {tuple(x.shape)} on "
+                             f"{x.device}")
+    bad = [n for n, x in (("total", total), ("c2v", c2v), ("prior", prior),
+                          ("final", final)) if x.dtype != torch.bfloat16]
+    if bad:
+        raise TypeError(f"{', '.join(bad)} must be bfloat16")
+    if viol.dtype != torch.int32:
+        raise TypeError(f"viol must be int32, got {viol.dtype}")
+
+
+def resident_bookkeeping_probe_ref(tables, it0: int, maxiter: int, total,
+                                   c2v, prior, synd, final, done, iters,
+                                   viol, *, variant: str = "full",
+                                   k_rounds: int = 8,
+                                   ms_alpha: float = MINSUM_ALPHA):
+    """Plain PyTorch version of :func:`resident_bookkeeping_probe` (any
+    device)."""
+    _bookkeeping_args(tables, total, c2v, prior, synd, final, done, iters,
+                      viol, variant)
+    level = BOOKKEEPING_VARIANTS[variant]
+    dev = total.device
+    synd = synd.to(torch.int32)
+    z, B = tables.z, total.shape[-1]
+    c_flat = c2v.view(-1, B)
+    for k in range(_n_steps(k_rounds, it0, maxiter)):
+        count = _flooding_check_pass(tables, total, c2v, synd, "minsum",
+                                     1e-30, ms_alpha, 0.0)
+        if level >= 1:
+            viol.copy_(count)
+        if level >= 2:
+            conv = count == 0
+            newly = conv & (done == 0)
+            iters.copy_(torch.where(newly, it0 + k, iters))
+            done.copy_(done | conv.to(torch.int32))
+            if level >= 3:
+                final.copy_(torch.where(newly, total, final))
+        # variable pass in every frame: a bf16 left fold, each sum rounded
+        for vbs, cidx, deg in tables.var_groups(dev):
+            new = prior.index_select(0, vbs)
+            if deg:
+                g = c_flat.index_select(0, cidx.reshape(-1)).view(
+                    len(vbs), deg, z, B)
+                new = new + _fold_sum(g, 1).squeeze(1)
+            total.index_copy_(0, vbs, new)
+    return total, c2v, final, done, iters, viol
+
+
+def resident_bookkeeping_probe(tables, it0: int, maxiter: int, total, c2v,
+                               prior, synd, final, done, iters, viol, *,
+                               variant: str = "full", k_rounds: int = 8,
+                               ms_alpha: float = MINSUM_ALPHA):
+    """Advance ``n = max(min(k_rounds, maxiter - it0), 0)`` normalized
+    min-sum flooding iterations of a QC code in bfloat16, with the
+    bookkeeping of ``variant``, in place (the JAX package's
+    ``scripts/probe_resident_vmem.py`` kernel).
+
+    Args:
+      tables: :class:`QCTables` of the code.
+      it0, maxiter: host ints; iteration ``it0 + k`` runs for ``k < n``.
+      total, prior, final: [nb_v, z, B] bfloat16; c2v [E, z, B] bfloat16.
+      synd: [nb_c, z, B] syndrome bits (int8 for the kernel).
+      done, iters, viol: [B] int32.
+      variant: "nobook", "violonly", "nocapture" or "full" (cumulative).
+
+    Per iteration: kernel 2's min-sum check pass (``ms_alpha`` times the
+    all-but-one minimum, the sign parity and ``1 - 2*synd``, stored in
+    bf16); from "violonly" on, ``viol`` = the frame's checks whose parity
+    of ``total < 0`` differs from the syndrome; from "nocapture" on, a
+    frame with no violation converges (``iters = it`` the first time,
+    ``done = 1``); in "full", a frame converging now gets ``final =
+    total`` before the variable pass; then, in every frame (no freeze),
+    ``total = bf16(prior + acc)`` with ``acc`` the bf16 left fold of the
+    rolled incoming messages in (row, slot) order.  Returns ``(total, c2v,
+    final, done, iters, viol)``.
+
+    CPU tensors run :func:`resident_bookkeeping_probe_ref`.  CUDA tensors
+    run the kernel (contiguous, int8 synd, rows up to ``MAX_DC`` wide;
+    anything else raises) with kernel 2's min-sum launch plan
+    (:func:`resident_plan`, in ``.plan``): the copy of the state into
+    frame-major scratch (final too in "full"), the K steps and the copy
+    back, counted in ``.device_launches``.
+    """
+    if total.device.type == "cpu":
+        return resident_bookkeeping_probe_ref(
+            tables, it0, maxiter, total, c2v, prior, synd, final, done,
+            iters, viol, variant=variant, k_rounds=k_rounds,
+            ms_alpha=ms_alpha)
+    _bookkeeping_args(tables, total, c2v, prior, synd, final, done, iters,
+                      viol, variant)
+    _require_cuda("resident_bookkeeping_probe", total)
+    _require_int_state(synd, done, iters)
+    _require_contiguous(total=total, c2v=c2v, prior=prior, synd=synd,
+                        final=final, done=done, iters=iters, viol=viol)
+    _require_tables(tables)
+    n = _n_steps(k_rounds, it0, maxiter)
+    if n == 0:
+        return total, c2v, final, done, iters, viol
+    B, z, dev = total.shape[-1], tables.z, total.device
+    plan = _resident_plan_for(tables, B, total, "minsum", False)
+    tb = tables.on(dev)
+    full = variant == "full"
+    scratch = [torch.empty(B * rows * z, dtype=x.dtype, device=dev)
+               for rows, x in ((tables.nb_v, total), (tables.E, c2v),
+                               (tables.nb_v, prior), (tables.nb_c, synd))]
+    f_fm = (torch.empty(B * tables.nb_v * z, dtype=final.dtype, device=dev)
+            if full else None)
+    n_launched = ctypes.c_int(0)
+    lib = _library("resident_bookkeeping_probe", "p" * 19 + "i" * 9 + "f"
+                   + "i" * 7 + "pp")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.resident_bookkeeping_probe_launch(
+            total.data_ptr(), c2v.data_ptr(), prior.data_ptr(),
+            synd.data_ptr(), final.data_ptr(), done.data_ptr(),
+            iters.data_ptr(), viol.data_ptr(),
+            *(x.data_ptr() for x in scratch),
+            f_fm.data_ptr() if full else None,
+            *(tb[name].data_ptr() for name in (
+                "row_off", "edge_v", "edge_s", "col_off", "col_e", "col_s")),
+            tables.nb_c, tables.nb_v, tables.E, tables.dc_max, z, B,
+            BOOKKEEPING_VARIANTS[variant], int(it0), n, float(ms_alpha),
+            *_resident_launch_args(plan), ctypes.addressof(n_launched),
+            stream,
+        )
+    _raise_on(err, "resident_bookkeeping_probe")
+    resident_bookkeeping_probe.launches += 1
+    resident_bookkeeping_probe.iterations += n
+    resident_bookkeeping_probe.device_launches += n_launched.value
+    resident_bookkeeping_probe.plan = plan
+    return total, c2v, final, done, iters, viol
+
+
+resident_bookkeeping_probe.launches = 0
+resident_bookkeeping_probe.iterations = 0
+resident_bookkeeping_probe.device_launches = 0
+resident_bookkeeping_probe.plan = None
 
 
 # --------------------------------------------------------------------- #

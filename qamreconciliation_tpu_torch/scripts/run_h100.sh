@@ -12,9 +12,10 @@
 #
 #     bash qamreconciliation_tpu_torch/scripts/run_h100.sh [OUT [WHAT]]
 #
-# WHAT is "all" (default), "campaigns" or "probes".  A campaign or probe
-# that exits non-zero is reported and the script goes on; it exits 1 at the
-# end if any did.
+# WHAT is "all" (default), "campaigns", "probes" or "last_probes" (only
+# the six probes of kernels 8 and 9 and the decode, round, streaming and
+# F/B-form probes).  A campaign or probe that exits non-zero is reported
+# and the script goes on; it exits 1 at the end if any did.
 set -u
 OUT=${1:-qamreconciliation_tpu_torch/scripts/h100}
 WHAT=${2:-all}
@@ -35,6 +36,28 @@ run() {  # run NAME MODULE ARGS...: records to $DIR/NAME.jsonl
     local rc=$?
     echo "$name $((SECONDS - t0)) rc=$rc" | tee -a "$DIR/wall_s.txt"
     [ $rc -eq 0 ] || failed=1
+}
+
+last_probes() {  # kernels 8 and 9 and the driver probes, JAX defaults
+    run probe_vmem probe_vmem
+    for v in nobook violonly nocapture full; do
+        run "probe_resident_vmem_$v" probe_resident_vmem --variant $v
+    done
+    run probe_fb_form probe_fb_form
+    run probe_decode_dense probe_decode
+    run probe_decode_dense_pallas0 probe_decode --pallas 0
+    run probe_decode_generic probe_decode --qc 0
+    run probe_decode_resident probe_decode --resident 1
+    run probe_decode_resident_nbv180 probe_decode --resident 1 --nbv 180
+    run probe_decode_resident_ira probe_decode --resident 1 --ira 1 \
+        --nbv 180
+    run probe_decode_layered_resident probe_decode --schedule layered \
+        --resident 1 --check minsum
+    run probe_round_bps4 probe_round
+    run probe_round_bps2 probe_round --bps 2
+    run probe_streaming_defer probe_streaming
+    run probe_streaming_fused probe_streaming --fused 1
+    run probe_streaming_handoff probe_streaming --handoff 1
 }
 
 probes() {  # every probe variant at the JAX defaults
@@ -67,10 +90,18 @@ probes() {  # every probe variant at the JAX defaults
         run "probe_mcmi_parts_$v" probe_mcmi_parts --variant $v
     done
     run probe_bf16pack_mac_exp probe_bf16pack
+    last_probes
 }
 
 if [ "$WHAT" = probes ]; then
     probes
+    exit $failed
+fi
+if [ "$WHAT" = last_probes ]; then
+    DIR=$OUT/probes
+    mkdir -p "$DIR"
+    : > "$DIR/wall_s.txt"
+    last_probes
     exit $failed
 fi
 DIR=$OUT

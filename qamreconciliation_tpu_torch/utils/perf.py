@@ -24,13 +24,14 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.kernels import GENERIC_BLOCK_C
+from ..ops.kernels import BOOKKEEPING_VARIANTS, GENERIC_BLOCK_C
 
 __all__ = ["HBM_BYTES_PER_S", "F32_OPS_PER_S", "BF16_OPS_PER_S",
            "OPS_PER_SLOT", "tensor_bytes", "bound", "check_phase_qc_work",
            "decode_rounds_work", "layered_sweeps_work",
            "check_phase_generic_work", "check_node_update_work",
-           "check_math_probe_work", "elementwise_chain_work"]
+           "check_math_probe_work", "elementwise_chain_work",
+           "smem_ceiling_probe_work", "resident_bookkeeping_work"]
 
 # H100 SXM data-sheet rates: HBM3 bytes/s, and f32 instructions/s outside
 # the tensor cores (67 TFLOP/s counts an FMA as two operations; none of the
@@ -51,7 +52,8 @@ PROBE_OPS_PER_SLOT = {"phi": 30, "copy": 2, "minsum": 12}
 CHAIN_OPS = {"mac": 2, "exp": 5}
 
 _I32 = 4        # syndromes of kernels 1, 4 and 5, violation counts, flags
-_I8 = 1         # syndromes of kernels 2 and 3
+_I8 = 1         # syndromes of kernels 2, 3 and 9
+_BF16 = 2       # kernel 9's state
 
 
 def tensor_bytes(*tensors) -> int:
@@ -143,3 +145,30 @@ def elementwise_chain_work(numel, dtype, iters, chain, mode):
     rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
     return (2 * numel * _size(dtype), CHAIN_OPS[mode] * numel * iters * chain,
             rate)
+
+
+def smem_ceiling_probe_work():
+    """Kernel 8 (``smem_ceiling_probe``): x [8, 128] f32 in, out out; a
+    multiply and two adds an element.  The scratch is the kernel's own and
+    moves nothing to or from device memory."""
+    numel = 8 * 128
+    return 2 * numel * 4, 3 * numel
+
+
+def resident_bookkeeping_work(nb_v, nb_c, E, z, B, variant, captured=0):
+    """Kernel 9 (``resident_bookkeeping_probe``): a call's bf16 totals
+    [nb_v, z, B], c2v [E, z, B] and prior and its int8 syndrome [nb_c, z, B]
+    in, totals and c2v out; from "violonly" on the violation counts [B]
+    out, from "nocapture" on done and iters [B] in and out, and in "full"
+    the totals of the ``captured`` frames that converged in the call
+    written to final; the min-sum operations of one step over every slot."""
+    level = BOOKKEEPING_VARIANTS[variant]
+    nbytes = (2 * nb_v * z * B * _BF16 + 2 * E * z * B * _BF16
+              + nb_v * z * B * _BF16 + nb_c * z * B * _I8)
+    if level >= 1:
+        nbytes += B * _I32
+    if level >= 2:
+        nbytes += 4 * B * _I32
+    if level >= 3:
+        nbytes += captured * nb_v * z * _BF16
+    return nbytes, OPS_PER_SLOT["minsum"] * E * z * B

@@ -15,7 +15,9 @@ every rule and dtype pair, B off every block size, z off the warp, rows
 wider than 8, K = 1, steps past maxiter, every frame done, and the frame's
 totals in shared and in device memory.  The generic check phase (kernel 4)
 and the check-major update (kernel 5, float32 and bfloat16) are held bit
-for bit, as the card runs them.
+for bit, as the card runs them, and so are the probes' kernels 6-9 (kernel
+9 on all eight state tensors in its four variants, kernel 8 up to the
+card's shared-memory limit and refused past it).
 """
 
 import dataclasses
@@ -978,3 +980,111 @@ def test_probe_kernels_reject_what_they_do_not_take():
         kernels.elementwise_chain(t.double(), "mac", 1, 1)
     with pytest.raises(ValueError):
         kernels.elementwise_chain(t.transpose(0, 3), "mac", 1, 1)
+
+
+# --------------------------------------------------------------------- #
+# The last probes' kernels: kernel 8 (smem_ceiling_probe, a shared-memory
+# scratch of N bytes) and kernel 9 (resident_bookkeeping_probe, kernel 2's
+# min-sum check pass in four bookkeeping variants), bit for bit
+
+BOOK_VARIANTS = list(kernels.BOOKKEEPING_VARIANTS)
+# z off the warp with 5 frames; B past one block an SM (130); the frame's
+# totals too large for shared memory (z = 3200: 230 KB in bf16)
+BOOK_SHAPES = [(36 * 37, 5), (36 * 64, 130), (36 * 3200, 3)]
+
+
+def test_probe_kernels_8_9_on_cpu_tensors_run_their_plain_versions():
+    from qamreconciliation_tpu_torch.scripts import probe_resident_vmem as P
+
+    x = torch.from_numpy(np.random.default_rng(2).normal(0, 1, (8, 128))
+                         .astype(np.float32))
+    n8, n9 = kernels.smem_ceiling_probe.launches, \
+        kernels.resident_bookkeeping_probe.launches
+    assert torch.equal(kernels.smem_ceiling_probe(x, 65536),
+                       kernels.smem_ceiling_probe_ref(x, 65536))
+    tables = P.code_tables(36 * 8)
+    for variant in BOOK_VARIANTS:
+        got = P.mixed_state(tables, 6, 3, "cpu")
+        want = [t.clone() for t in got]
+        kernels.resident_bookkeeping_probe(tables, 1, 9, *got,
+                                           variant=variant, k_rounds=3)
+        kernels.resident_bookkeeping_probe_ref(tables, 1, 9, *want,
+                                               variant=variant, k_rounds=3)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert kernels.smem_ceiling_probe.launches == n8
+    assert kernels.resident_bookkeeping_probe.launches == n9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,B", BOOK_SHAPES,
+                         ids=[f"z{n // 36}xB{B}" for n, B in BOOK_SHAPES])
+@pytest.mark.parametrize("variant", BOOK_VARIANTS)
+def test_resident_bookkeeping_probe_kernel_bit_equal(variant, n, B):
+    """Kernel 9 bit for bit on all eight state tensors from a state whose
+    frames converge at the first step, later and never (it0 = 1, K = 5),
+    the frame's totals in shared memory and (z = 3200) in device memory."""
+    need_cuda()
+    from qamreconciliation_tpu_torch.scripts import probe_resident_vmem as P
+
+    tables = P.code_tables(n)
+    got = P.mixed_state(tables, B, 5, "cuda")
+    want = [t.clone() for t in got]
+    n0 = kernels.resident_bookkeeping_probe.launches
+    kernels.resident_bookkeeping_probe(tables, 1, 10 ** 6, *got,
+                                       variant=variant, k_rounds=5)
+    assert kernels.resident_bookkeeping_probe.launches == n0 + 1
+    plan = kernels.resident_bookkeeping_probe.plan
+    assert plan.totals == ("global" if tables.z == 3200 else "shared")
+    kernels.resident_bookkeeping_probe_ref(tables, 1, 10 ** 6, *want,
+                                           variant=variant, k_rounds=5)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_smem_ceiling_probe_kernel_up_to_the_limit():
+    """Kernel 8 bit for bit from the least scratch to the opt-in limit
+    (through the 48 KB static limit); past the limit the card refuses, and
+    the refusal leaves no error behind."""
+    need_cuda()
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    x = torch.from_numpy(np.random.default_rng(4).normal(0, 2, (8, 128))
+                         .astype(np.float32)).cuda()
+    for nbytes in (8192, 48 * 1024, 48 * 1024 + 512, optin):
+        n0 = kernels.smem_ceiling_probe.launches
+        got = kernels.smem_ceiling_probe(x, nbytes)
+        assert kernels.smem_ceiling_probe.launches == n0 + 1
+        want = kernels.smem_ceiling_probe_ref(x, nbytes)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    with pytest.raises(kernels.SharedMemoryRefused) as e:
+        kernels.smem_ceiling_probe(x, optin + 512)
+    assert e.value.name == "cudaErrorInvalidValue"
+    assert torch.equal(x + x, 2 * x)
+
+
+@pytest.mark.cuda
+def test_last_probe_kernels_reject_what_they_do_not_take():
+    need_cuda()
+    from qamreconciliation_tpu_torch.scripts import probe_resident_vmem as P
+
+    x = torch.ones(8, 128, device="cuda")
+    with pytest.raises(ValueError):
+        kernels.smem_ceiling_probe(x, 8192 + 100)
+    with pytest.raises(ValueError):
+        kernels.smem_ceiling_probe(x.t().contiguous(), 8192)
+    tables = P.code_tables(36 * 8)
+    state = list(P.mixed_state(tables, 4, 1, "cuda"))
+    bad_synd = list(state)
+    bad_synd[3] = state[3].int()
+    with pytest.raises(TypeError):
+        kernels.resident_bookkeeping_probe(tables, 0, 9, *bad_synd)
+    bad_total = list(state)
+    bad_total[0] = state[0].float()
+    with pytest.raises(TypeError):
+        kernels.resident_bookkeeping_probe(tables, 0, 9, *bad_total)
+    strided = list(state)
+    strided[1] = state[1].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError):
+        kernels.resident_bookkeeping_probe(tables, 0, 9, *strided)
