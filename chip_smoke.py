@@ -123,7 +123,9 @@ Phases (each must pass, or the script exits non-zero):
      beside them); kernel 7 (elementwise_chain) bit for bit in both modes
      and dtypes at [512, 1024] (4 x 16 steps, and an odd unaligned view),
      timed at the probe's 8000 x 16 steps (its operations bound at the
-     packed bf16 rate for bf16), the bf16 mac case bit for bit there too;
+     packed bf16 rate for bf16, and the exp steps also by their MUFU.EX2s
+     at the special-function units' rate, utils/perf.SFU_OPS_PER_S), the
+     bf16 mac case bit for bit there too;
      then every
      variant of the six probes at N = 64800, B = 128 (--iters, --reps and
      --p cut): one of each in a subprocess, as a user runs it, all six side
@@ -135,12 +137,18 @@ Phases (each must pass, or the script exits non-zero):
      parent's ptxas registers with no spill (RESIDENT_PTXAS) after their
      check pass moved into bp_resident.cuh; kernel 9
      (resident_bookkeeping_probe) against its plain version bit for bit in
-     its four variants (nobook, violonly, nocapture, full) on a z = 64 code
-     with B = 40 and at the probe's [36, 1800, 128] from a state whose
-     frames converge at the first step, at later steps and never (iters,
-     done and the full capture fire), and from the probe's own inputs,
-     each variant timed there with its ptxas registers and spills, bytes,
-     bound and share; kernel 8 (smem_ceiling_probe) at every probe size:
+     its four variants (nobook, violonly, nocapture, full) on both of its
+     paths (the TMA ring of c2v rows, "bulk", and the direct loads,
+     "thread"; each case asserts its plan's path): on z = 64 (bulk) and
+     z = 60 (thread) codes with B = 40 and at the probe's [36, 1800, 128]
+     from a state whose frames converge at the first step, at later steps
+     and never (iters, done and the full capture fire), and from the
+     probe's own inputs at [36, 1800, 128] (bulk) and [36, 1804, 128]
+     (thread), each variant timed there in turns with kernel 2's min-sum
+     step on the same inputs and K (ms an iteration and their ratio) and
+     with a one-step call (the time of a step beyond the first), with its
+     ptxas registers and spills (none), bytes, bound and share;
+     kernel 8 (smem_ceiling_probe) at every probe size:
      up to the card's opt-in limit bit-equal to its plain version (4.0 on
      ones), one KiB past it refused with cudaErrorInvalidValue; then
      probe_vmem, probe_resident_vmem, probe_fb_form, probe_decode,
@@ -3298,13 +3306,18 @@ def probe_kernel7(kernels):
             ms, = events_ms(
                 lambda: elementwise_chain(x, mode, iters, chain),
                 reps=3, warmup=1)
-            nbytes, ops, rate = perf.elementwise_chain_work(
+            nbytes, ops, rate, sfu = perf.elementwise_chain_work(
                 numel, dt, iters, chain, mode)
-            bound_ms, by = perf.bound(nbytes, ops, ops_per_s=rate)
+            bound_ms, by = perf.bound(nbytes, ops, ops_per_s=rate,
+                                      sfu_ops=sfu)
             text = (f"[kernel7] {mode} {str(dt)[6:]} {list(CHAIN_SHAPE)} "
                     f"bit-equal (4 x 16 steps); at {iters} x {chain}: kernel "
                     f"{ms:.4f} ms, bound {bound_ms:.4f} ms by {by} "
                     f"({100 * bound_ms / ms:.1f}%)")
+            if sfu:
+                text += (f", of which MUFU.EX2 "
+                         f"{1e3 * sfu / perf.SFU_OPS_PER_S:.4f} ms and the "
+                         f"{str(dt)[6:]} rate {1e3 * ops / rate:.4f} ms")
             if mode == "mac" and dt == torch.bfloat16:
                 got = elementwise_chain(x, mode, iters, chain)
                 start = torch.cuda.Event(enable_timing=True)
@@ -3402,9 +3415,14 @@ RESIDENT_PTXAS = {
     "sweeps_kernelIfLi1ELb0E": 55, "sweeps_kernelIfLi1ELb1E": 64,
     "sweeps_kernelIfLi0ELb0E": 54, "sweeps_kernelIfLi0ELb1E": 60,
 }
-# kernel 9's (n, B, it0, K) from states where frames converge at
-# different steps: z = 64 with a ragged B, and the probe's shape
-BOOK_CASES = ((2304, 40, 3, 6), (64800, 128, 0, 8))
+# kernel 9's (n, B, it0, K, path) from states where frames converge at
+# different steps: z = 64 (bulk path) and z = 60 (thread path) with a
+# ragged B, and the probe's shape (bulk)
+BOOK_CASES = ((2304, 40, 3, 6, "bulk"), (2160, 40, 3, 6, "thread"),
+              (64800, 128, 0, 8, "bulk"))
+# kernel 9 from the probe's own inputs, timed: the probe's shape (bulk
+# path, the record) and z = 1804 (the thread path at the same width)
+BOOK_TIMED = ((64800, 128, 8, "bulk"), (36 * 1804, 128, 8, "thread"))
 BOOK_SEED = 9
 
 
@@ -3447,29 +3465,43 @@ def book_case(tables, state, variant, it0, k):
     return got, want, launched
 
 
+def rows_plan_text(plan):
+    """Kernel 9's plan (ops/kernels.staged_rows_plan) as text."""
+    ring = (f"one producer warp, {plan.stages} stages of {plan.rows} rows, "
+            f"{plan.lanes} lanes a consumer, " if plan.path == "bulk" else "")
+    return (f"{plan.path} path, {plan.threads} threads, {ring}totals in "
+            f"{plan.totals} memory, {plan.smem} B smem, {plan.grid} blocks "
+            f"({plan.blocks_per_sm} an SM)")
+
+
 def probe_kernel9(kernels):
     """Kernel 9 against its plain version, bit for bit, in its four
-    variants: on the z = 64 code with B = 40 from a state in which frames
-    converge at different iterations (``probe_resident_vmem.mixed_state``;
-    iters, done and the full capture fire), and at the probe's default
-    shape from that kind of state and from the probe's own inputs (random
-    syndrome), each variant timed there with its ptxas registers and
+    variants on both paths: from a state in which frames converge at
+    different iterations (``probe_resident_vmem.mixed_state``; iters, done
+    and the full capture fire) on the z = 64 (bulk) and z = 60 (thread)
+    codes with B = 40 and at the probe's default shape, and from the
+    probe's own inputs (random syndrome) at the probe's shape (bulk) and
+    at z = 1804 (thread); each timed there, in turns with kernel 2's
+    min-sum step on the same inputs and K, with its ptxas registers and
     spills, bytes, bound and share."""
     from qamreconciliation_tpu_torch.ops.cuda_build import ptxas_usage
     from qamreconciliation_tpu_torch.ops.kernels import (
-        resident_bookkeeping_probe, resident_bookkeeping_probe_ref,
+        bp_decode_rounds_qc, resident_bookkeeping_probe,
+        resident_bookkeeping_probe_ref,
     )
     from qamreconciliation_tpu_torch.scripts import probe_resident_vmem as P
 
     resident_ptxas()
-    for n, B, it0, k in BOOK_CASES:
+    for n, B, it0, k, path in BOOK_CASES:
         tables = P.code_tables(n)
         state = P.mixed_state(tables, B, BOOK_SEED, "cuda")
         for variant in P.VARIANTS:
             got, _, launched = book_case(tables, state, variant, it0, k)
+            assert resident_bookkeeping_probe.plan.path == path, \
+                resident_bookkeeping_probe.plan
             done, iters, viol = got[5], got[6], got[7]
-            text = (f"[kernel9] {variant:9s} n={n} B={B} it0={it0} K={k}: "
-                    f"bit-equal; {launched} device launches")
+            text = (f"[kernel9] {variant:9s} n={n} B={B} it0={it0} K={k} "
+                    f"{path}: bit-equal; {launched} device launches")
             if variant in ("nocapture", "full"):
                 later = int((iters > it0).sum())
                 # frames converge at the first step, at later steps and
@@ -3487,40 +3519,67 @@ def probe_kernel9(kernels):
                 assert bool((viol > 0).any()), viol.tolist()
             log(text)
 
-    n, B, _, k = BOOK_CASES[-1]
-    tables = P.code_tables(n)
-    base = P.inputs(tables, B, "cuda")
-    for variant in P.VARIANTS:
-        got, want, _ = book_case(tables, base, variant, 0, k)
-        plan = resident_bookkeeping_probe.plan
-        scratch = [x.clone() for x in base]
-        ms, = events_ms(lambda: resident_bookkeeping_probe(
-            tables, 0, 10 ** 6, *scratch, variant=variant, k_rounds=k),
-            reps=10, warmup=2)
-        plain_ms, = events_ms(lambda: resident_bookkeeping_probe_ref(
-            tables, 0, 10 ** 6, *scratch, variant=variant, k_rounds=k),
-            reps=2, warmup=0)
-        ms, plain_ms = ms / k, plain_ms / k
-        captured = int((got[5] != base[5]).sum())
-        nbytes, ops = perf.resident_bookkeeping_work(
-            tables.nb_v, tables.nb_c, tables.E, tables.z, B, variant,
-            captured)
-        bound_ms, by = perf.bound(nbytes, ops, k)
-        use = ptxas_usage(PTXAS["resident_bookkeeping_probe"],
-                          P.instance_key(variant, plan.totals))
-        log(f"[kernel9] {variant:9s} [36,1800,128] random syndrome: "
-            f"bit-equal; per iteration kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms; {nbytes / 1e6:.1f} MB a call of {k}, "
-            f"bound {bound_ms:.4f} ms by {by} ({100 * bound_ms / ms:.1f}%); "
-            f"ptxas {use['registers']} registers, {use['spill_stores']} / "
-            f"{use['spill_loads']} bytes spill stores / loads; "
-            f"[{resident_plan_text(plan)}]")
-        if variant == "full":
-            err = float((got[0].float() - want[0].float()).abs().max())
-            record(kernels, "resident_bookkeeping_probe", max_abs_err=err,
-                   ms=ms, plain_ms=plain_ms, steps=k, bytes=nbytes, ops=ops,
-                   shape=[tables.nb_v, tables.z, B], dtype="bfloat16",
-                   variant=variant, registers=use["registers"])
+    for n, B, k, path in BOOK_TIMED:
+        tables = P.code_tables(n)
+        shape = [tables.nb_v, tables.z, B]
+        base = P.inputs(tables, B, "cuda")
+        # kernel 2's min-sum step (the old design of the same check pass)
+        # on the same inputs, timed in turns with each variant
+        k2 = [x.clone() for x in base]
+        k2_state = (*k2[:4], k2[5], k2[6])
+
+        def kernel2():
+            bp_decode_rounds_qc(tables, 0, 10 ** 6, *k2_state, rule="minsum",
+                                k_rounds=k)
+
+        for variant in P.VARIANTS:
+            got, want, _ = book_case(tables, base, variant, 0, k)
+            plan = resident_bookkeeping_probe.plan
+            assert plan.path == path, plan
+            scratch = [x.clone() for x in base]
+            ms, k2_ms, ms1 = events_ms(
+                lambda: resident_bookkeeping_probe(
+                    tables, 0, 10 ** 6, *scratch, variant=variant,
+                    k_rounds=k),
+                kernel2,
+                lambda: resident_bookkeeping_probe(
+                    tables, 0, 10 ** 6, *scratch, variant=variant,
+                    k_rounds=1),
+                reps=10, warmup=2)
+            plain_ms, = events_ms(lambda: resident_bookkeeping_probe_ref(
+                tables, 0, 10 ** 6, *scratch, variant=variant, k_rounds=k),
+                reps=2, warmup=0)
+            # a call's own cost (the copies, the launch, the wrapper) off a
+            # K-step call's time: the time of one more step
+            step_ms = (ms - ms1) / (k - 1)
+            ms, k2_ms, plain_ms = ms / k, k2_ms / k, plain_ms / k
+            captured = int((got[5] != base[5]).sum())
+            nbytes, ops = perf.resident_bookkeeping_work(
+                tables.nb_v, tables.nb_c, tables.E, tables.z, B, variant,
+                captured)
+            bound_ms, by = perf.bound(nbytes, ops, k)
+            use = ptxas_usage(PTXAS["resident_bookkeeping_probe"],
+                              P.instance_key(variant, plan))
+            assert use["spill_stores"] == use["spill_loads"] == 0, use
+            log(f"[kernel9] {variant:9s} {shape} random syndrome: bit-equal;"
+                f" per iteration kernel {ms:.4f} ms (a step beyond the "
+                f"first {step_ms:.4f}), kernel 2 min-sum "
+                f"{k2_ms:.4f} ms (ratio {ms / k2_ms:.3f}), plain "
+                f"{plain_ms:.4f} ms; {nbytes / 1e6:.1f} MB a call of {k}, "
+                f"bound {bound_ms:.4f} ms by {by} "
+                f"({100 * bound_ms / ms:.1f}%); ptxas {use['registers']} "
+                f"registers, {use['spill_stores']} / {use['spill_loads']} "
+                f"bytes spill stores / loads; [{rows_plan_text(plan)}]")
+            if variant == "full" and path == "bulk":
+                err = float((got[0].float() - want[0].float()).abs().max())
+                record(kernels, "resident_bookkeeping_probe",
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms, steps=k,
+                       bytes=nbytes, ops=ops, shape=shape, dtype="bfloat16",
+                       variant=variant, path=path,
+                       registers=use["registers"],
+                       kernel2_minsum_ms=k2_ms, step_ms=step_ms)
+        log(f"[kernel9] kernel 2 min-sum {shape} K={k}: "
+            f"[{resident_plan_text(bp_decode_rounds_qc.plan)}]")
 
 
 def probe_kernel8(kernels):

@@ -66,7 +66,8 @@ __all__ = [
     "PROBE_MATHS", "check_math_probe", "check_math_probe_ref",
     "CHAIN_MODES", "elementwise_chain", "elementwise_chain_ref",
     "SharedMemoryRefused", "smem_ceiling_probe", "smem_ceiling_probe_ref",
-    "BOOKKEEPING_VARIANTS", "resident_bookkeeping_probe",
+    "BOOKKEEPING_VARIANTS", "StagedRowsPlan", "staged_rows_plan",
+    "staged_rows_smem", "resident_bookkeeping_probe",
     "resident_bookkeeping_probe_ref",
 ]
 
@@ -1570,6 +1571,112 @@ smem_ceiling_probe.launches = 0
 
 BOOKKEEPING_VARIANTS = {"nobook": 0, "violonly": 1, "nocapture": 2,
                         "full": 3}
+ROW_LANES = 2               # lanes a consumer thread runs at a time: a
+                            # pair, one 32-bit word of a staged row
+ROW_STAGES_MAX = 4          # stages of the ring at most (kRowStagesMax)
+ROW_PRODUCER = 32           # threads of the producer warp (kProducer)
+
+
+@dataclass(frozen=True)
+class StagedRowsPlan:
+    """Launch shape of one call of kernel 9."""
+
+    path: str           # "bulk": the c2v rows through a TMA ring in shared
+                        # memory; "thread": kernel 2's direct loads
+    threads: int        # threads a block: the consumers and, on the bulk
+                        # path, one producer warp (ROW_PRODUCER threads)
+    lanes: int          # lanes a consumer thread runs (1 on the thread path)
+    stages: int         # stages of the ring (0 on the thread path)
+    rows: int           # rows of z values a stage holds (0 on the thread
+                        # path)
+    smem: int           # dynamic shared memory a block, bytes
+    totals: str         # "shared": the frame's totals in shared memory for
+                        # the call; "global": in the frame-major scratch
+    blocks_per_sm: int  # blocks resident on one SM
+    grid: int           # persistent blocks launched
+
+
+def staged_rows_smem(nb_v: int, nb_c: int, E: int, z: int, rows: int,
+                     stages: int, *, totals_shared: bool) -> int:
+    """Dynamic shared memory of a bulk-path plan of kernel 9, bytes: the
+    frame's bf16 totals (when in shared memory), ``stages`` stages of
+    ``rows`` bf16 rows of z, a full and an empty mbarrier per stage, the
+    block's counts and the code's tables (two ints an edge in row order,
+    two in column order, and the row and column offsets; ``rows_layout``
+    in the source)."""
+    return ((_up16(nb_v * z * 2) if totals_shared else 0)
+            + stages * _up16(rows * z * 2) + 16 * stages + 16
+            + _up16(8 * E) + 2 * _up16(4 * E) + _up16(4 * (nb_c + 1))
+            + _up16(4 * (nb_v + 1)))
+
+
+@functools.lru_cache(maxsize=256)
+def staged_rows_plan(B: int, nb_v: int, nb_c: int, E: int, z: int,
+                     dc_max: int, dv_max: int, *,
+                     sms: int = H100_SMS) -> StagedRowsPlan:
+    """The launch plan of one call of kernel 9 over ``B`` frames of a QC
+    code (``nb_v``/``nb_c`` block columns/rows of circulant size ``z``,
+    ``E`` base edges, check rows up to ``dc_max`` and variable blocks up to
+    ``dv_max`` edges), bf16 state, on a card with ``sms`` SMs.
+
+    The bulk path needs a c2v row of z bf16 values to be whole 16-byte
+    units (z a multiple of 8) and variable blocks of at most ``MAX_DC``
+    edges (a warp's lanes hold a block's shifts).  A stage holds ``rows =
+    max(dc_max, dv_max + 1)`` rows: a check block's rows, or a variable
+    block's and its prior row.  The consumers are the fewest warps that
+    give every thread ``ROW_LANES`` lanes (one pair) of a row, up to 31
+    warps, beside one producer warp; a consumer runs ``lanes = ceil(z /
+    consumers)`` lanes, at least two wherever z >= 64.  The frame's totals
+    stay in shared memory when a ring of two stages fits beside them, and
+    the ring takes as many stages, up to ``ROW_STAGES_MAX``, as fit; else
+    the totals move to device memory with the deepest ring that fits.
+    Where the bulk path does not apply, or no two-stage ring fits, the
+    plan is the thread path: kernel 2's direct loads with
+    :func:`resident_plan`'s min-sum layout.  As many blocks share an SM as
+    threads, registers (``RES_REGS`` a thread) and shared memory allow; the
+    grid is that many blocks an SM, at most B."""
+    if not (1 <= dc_max <= MAX_DC) or min(B, nb_v, nb_c, E, z) < 1 \
+            or dv_max < 0:
+        raise ValueError(f"no staged-rows plan for B={B} nb_v={nb_v} "
+                         f"nb_c={nb_c} E={E} z={z} dc_max={dc_max} "
+                         f"dv_max={dv_max}")
+    if max(nb_v, nb_c, E) * z >= 2 ** 31:
+        raise ValueError("a frame's state exceeds 2^31 elements")
+    rows = max(dc_max, dv_max + 1)
+    consumers = min(RES_THREADS_MAX - ROW_PRODUCER,
+                    32 * -(-z // (32 * ROW_LANES)))
+    threads = consumers + ROW_PRODUCER
+    for shared in ((True, False) if z % 8 == 0 and dv_max <= MAX_DC
+                   else ()):
+        stages = next((n for n in range(ROW_STAGES_MAX, 1, -1)
+                       if staged_rows_smem(nb_v, nb_c, E, z, rows, n,
+                                           totals_shared=shared)
+                       <= SMEM_BLOCK_MAX), 0)
+        if stages:
+            smem = staged_rows_smem(nb_v, nb_c, E, z, rows, stages,
+                                    totals_shared=shared)
+            blocks = max(1, min(THREADS_SM // threads,
+                                REGS_SM // (RES_REGS * threads),
+                                SMEM_SM // (smem + 1024)))
+            return StagedRowsPlan("bulk", threads, -(-z // consumers),
+                                  stages, rows, smem,
+                                  "shared" if shared else "global", blocks,
+                                  min(B, blocks * sms))
+    r = resident_plan(B, nb_v, nb_c, E, z, dc_max, 2, "minsum",
+                      layered=False, sms=sms)
+    return StagedRowsPlan("thread", r.threads, 1, 0, 0, r.smem, r.totals,
+                          r.blocks_per_sm, r.grid)
+
+
+def _staged_rows_launch_args(plan: StagedRowsPlan):
+    return (int(plan.path == "bulk"), plan.threads,
+            int(plan.totals == "shared"), plan.smem, plan.blocks_per_sm,
+            plan.grid, plan.stages, plan.rows, plan.lanes)
+
+
+def _var_degree_max(tables) -> int:
+    """The most edges of one variable block of ``tables``."""
+    return int(np.diff(tables.col_off).max())
 
 
 def _bookkeeping_args(tables, total, c2v, prior, synd, final, done, iters,
@@ -1659,8 +1766,9 @@ def resident_bookkeeping_probe(tables, it0: int, maxiter: int, total, c2v,
 
     CPU tensors run :func:`resident_bookkeeping_probe_ref`.  CUDA tensors
     run the kernel (contiguous, int8 synd, rows up to ``MAX_DC`` wide;
-    anything else raises) with kernel 2's min-sum launch plan
-    (:func:`resident_plan`, in ``.plan``): the copy of the state into
+    anything else raises) with the launch plan of
+    :func:`staged_rows_plan` (in ``.plan``; its path, bulk or thread, is
+    the plan's choice, never a retry): the copy of the state into
     frame-major scratch (final too in "full"), the K steps and the copy
     back, counted in ``.device_launches``.
     """
@@ -1680,7 +1788,10 @@ def resident_bookkeeping_probe(tables, it0: int, maxiter: int, total, c2v,
     if n == 0:
         return total, c2v, final, done, iters, viol
     B, z, dev = total.shape[-1], tables.z, total.device
-    plan = _resident_plan_for(tables, B, total, "minsum", False)
+    dv_max = _var_degree_max(tables)
+    plan = staged_rows_plan(
+        B, tables.nb_v, tables.nb_c, tables.E, z, tables.dc_max, dv_max,
+        sms=torch.cuda.get_device_properties(dev).multi_processor_count)
     tb = tables.on(dev)
     full = variant == "full"
     scratch = [torch.empty(B * rows * z, dtype=x.dtype, device=dev)
@@ -1689,8 +1800,8 @@ def resident_bookkeeping_probe(tables, it0: int, maxiter: int, total, c2v,
     f_fm = (torch.empty(B * tables.nb_v * z, dtype=final.dtype, device=dev)
             if full else None)
     n_launched = ctypes.c_int(0)
-    lib = _library("resident_bookkeeping_probe", "p" * 19 + "i" * 9 + "f"
-                   + "i" * 7 + "pp")
+    lib = _library("resident_bookkeeping_probe", "p" * 19 + "i" * 10 + "f"
+                   + "i" * 9 + "pp")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.resident_bookkeeping_probe_launch(
@@ -1701,9 +1812,9 @@ def resident_bookkeeping_probe(tables, it0: int, maxiter: int, total, c2v,
             f_fm.data_ptr() if full else None,
             *(tb[name].data_ptr() for name in (
                 "row_off", "edge_v", "edge_s", "col_off", "col_e", "col_s")),
-            tables.nb_c, tables.nb_v, tables.E, tables.dc_max, z, B,
-            BOOKKEEPING_VARIANTS[variant], int(it0), n, float(ms_alpha),
-            *_resident_launch_args(plan), ctypes.addressof(n_launched),
+            tables.nb_c, tables.nb_v, tables.E, tables.dc_max, dv_max, z,
+            B, BOOKKEEPING_VARIANTS[variant], int(it0), n, float(ms_alpha),
+            *_staged_rows_launch_args(plan), ctypes.addressof(n_launched),
             stream,
         )
     _raise_on(err, "resident_bookkeeping_probe")

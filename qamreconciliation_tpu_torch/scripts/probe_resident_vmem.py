@@ -106,11 +106,13 @@ def mixed_state(tables, B: int, seed: int, device):
     return (total, c2v, total.clone(), synd8, total.clone(), *ints)
 
 
-def instance_key(variant: str, totals: str) -> str:
-    """The mangled-name key of kernel 9's instance for ``variant`` with the
-    plan's totals (``"shared"`` or ``"global"``)."""
+def instance_key(variant: str, plan) -> str:
+    """The mangled-name key of kernel 9's instance for ``variant`` under a
+    :class:`~..ops.kernels.StagedRowsPlan` (its totals, ``"shared"`` or
+    ``"global"``, and its path, ``"bulk"`` or ``"thread"``)."""
     return (f"bookkeeping_kernelILi{K.BOOKKEEPING_VARIANTS[variant]}"
-            f"ELb{int(totals == 'shared')}E")
+            f"ELb{int(plan.totals == 'shared')}ELb{int(plan.path == 'bulk')}"
+            "EE")
 
 
 def main(argv=None) -> int:
@@ -149,7 +151,7 @@ def main(argv=None) -> int:
     report = cuda_build.ptxas_report(
         cuda_build.build("resident_bookkeeping_probe"))
     use = cuda_build.ptxas_usage(report,
-                                 instance_key(args.variant, plan.totals))
+                                 instance_key(args.variant, plan))
     print(f"{args.variant}: ptxas {use['registers']} registers, "
           f"{use['spill_stores']} bytes spill stores, {use['spill_loads']} "
           f"bytes spill loads; plan {dataclasses.asdict(plan)}; --zc "

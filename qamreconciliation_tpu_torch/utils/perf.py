@@ -6,7 +6,9 @@ least time the card could take for a call's work, the larger of
 
 * the bytes the call must move (each input read once, each output written
   once) over the memory rate, and
-* the f32 operations of the plain version over the f32 rate,
+* the f32 operations of the plain version over the f32 rate (and kernel
+  7's exp steps also by their MUFU.EX2s over the special-function units'
+  rate),
 
 with the rates of NVIDIA's H100 SXM data sheet at its full 700 W (a card
 set to a lower power limit runs slower than these rates under load).  The
@@ -27,6 +29,7 @@ import torch
 from ..ops.kernels import BOOKKEEPING_VARIANTS, GENERIC_BLOCK_C
 
 __all__ = ["HBM_BYTES_PER_S", "F32_OPS_PER_S", "BF16_OPS_PER_S",
+           "SFU_OPS_PER_S",
            "OPS_PER_SLOT", "tensor_bytes", "bound", "check_phase_qc_work",
            "decode_rounds_work", "layered_sweeps_work",
            "check_phase_generic_work", "check_node_update_work",
@@ -43,6 +46,11 @@ F32_OPS_PER_S = 67e12 / 2
 # figure, twice the f32 rate: two elements an instruction), an FMA counted
 # as two
 BF16_OPS_PER_S = 133.8e12 / 2
+# MUFU.EX2 instructions/s of the special-function units: 16 a clock an SM
+# (CUDA C++ Programming Guide, arithmetic instruction throughput, compute
+# capability 9.0) on the H100 SXM's 132 SMs at its 1.98 GHz boost clock.
+# Every exp step of kernel 7 needs an f32 expf, and so one, in both dtypes.
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
 # f32 operations per check slot of the plain versions' rules
 OPS_PER_SLOT = {"sumproduct": 30, "tanhfb": 20, "minsum": 12}
 # ... and of kernel 6's slot maths (copy: the subtraction and t's sign)
@@ -62,14 +70,15 @@ def tensor_bytes(*tensors) -> int:
 
 
 def bound(nbytes: float, ops: float, steps: int = 1,
-          ops_per_s: float = F32_OPS_PER_S):
-    """``(bound_ms, bound_by)``: the larger of ``nbytes / steps`` over the
-    memory rate and ``ops`` over ``ops_per_s`` (default the f32 rate), and
-    which of the two it is ("bytes" or "operations").  A multi-step call
-    passes its bytes and its steps with the operations of one step, for a
-    bound per step."""
+          ops_per_s: float = F32_OPS_PER_S, sfu_ops: float = 0):
+    """``(bound_ms, bound_by)``: the largest of ``nbytes / steps`` over the
+    memory rate, ``ops`` over ``ops_per_s`` (default the f32 rate) and
+    ``sfu_ops`` over the special-function units' rate, and which it is
+    ("bytes", or "operations" for either of the other two).  A multi-step
+    call passes its bytes and its steps with the operations of one step,
+    for a bound per step."""
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S / steps
-    t_ops = 1e3 * ops / ops_per_s
+    t_ops = max(1e3 * ops / ops_per_s, 1e3 * sfu_ops / SFU_OPS_PER_S)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -141,10 +150,13 @@ def check_math_probe_work(nb_c, dc, z, B, dtype, math):
 def elementwise_chain_work(numel, dtype, iters, chain, mode):
     """Kernel 7 (``elementwise_chain``): the array in and out once, and
     ``iters * chain`` steps of ``mode`` on every element; returns ``(bytes,
-    ops, ops_per_s)``, the rate that of ``dtype`` (packed bf16 or f32)."""
+    ops, ops_per_s, sfu_ops)``, the rate that of ``dtype`` (packed bf16 or
+    f32) and ``sfu_ops`` the steps' MUFU.EX2s, one an exp step in either
+    dtype (for :func:`bound`)."""
     rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
-    return (2 * numel * _size(dtype), CHAIN_OPS[mode] * numel * iters * chain,
-            rate)
+    steps = numel * iters * chain
+    return (2 * numel * _size(dtype), CHAIN_OPS[mode] * steps, rate,
+            steps if mode == "exp" else 0)
 
 
 def smem_ceiling_probe_work():

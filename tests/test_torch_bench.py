@@ -206,6 +206,28 @@ def test_perf_multi_step_bounds():
         5, dtype=torch.bfloat16)) == 58
 
 
+@pytest.mark.parametrize("mode, dtype, ms, without_sfu", [
+    ("exp", torch.float32, 16.05, 10.02),
+    ("exp", torch.bfloat16, 16.05, 5.02),
+    ("mac", torch.float32, 4.01, 4.01),
+    ("mac", torch.bfloat16, 2.01, 2.01),
+])
+def test_perf_chain_bounds_put_exp_on_the_sfu(mode, dtype, ms, without_sfu):
+    """Kernel 7 at the probe's [512, 1024] x 8000 x 16 steps: an exp step
+    needs one MUFU.EX2 in either dtype, 6.71e10 of them at 16 a clock on
+    132 SMs at 1.98 GHz, so both exp chains are bound at 16.05 ms (the
+    FMA-rate count alone gave 10.02 and 5.02); the mac bounds stay at the
+    f32 and packed-bf16 rates."""
+    nbytes, ops, rate, sfu = perf.elementwise_chain_work(
+        512 * 1024, dtype, 8000, 16, mode)
+    assert sfu == (512 * 1024 * 8000 * 16 if mode == "exp" else 0)
+    bound_ms, by = perf.bound(nbytes, ops, ops_per_s=rate, sfu_ops=sfu)
+    assert round(bound_ms, 2) == ms and by == "operations"
+    assert round(perf.bound(nbytes, ops, ops_per_s=rate)[0], 2) \
+        == without_sfu
+    assert perf.SFU_OPS_PER_S == 16 * 132 * 1.98e9
+
+
 def test_bench_and_perf_import_no_jax():
     code = ("import sys\n"
             "import qamreconciliation_tpu_torch.bench\n"

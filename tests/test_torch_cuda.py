@@ -989,8 +989,12 @@ def test_probe_kernels_reject_what_they_do_not_take():
 
 BOOK_VARIANTS = list(kernels.BOOKKEEPING_VARIANTS)
 # z off the warp with 5 frames; B past one block an SM (130); the frame's
-# totals too large for shared memory (z = 3200: 230 KB in bf16)
-BOOK_SHAPES = [(36 * 37, 5), (36 * 64, 130), (36 * 3200, 3)]
+# totals too large for shared memory (z = 3200: 230 KB in bf16); the
+# probe's width with z not a multiple of 8 (1804).  The c2v rows of z = 64
+# and 3200 take the TMA ring (bulk path), those of z = 37 and 1804 the
+# direct loads (thread path).
+BOOK_SHAPES = [(36 * 37, 5), (36 * 64, 130), (36 * 3200, 3), (36 * 1804, 8)]
+BOOK_PATHS = {37: "thread", 64: "bulk", 3200: "bulk", 1804: "thread"}
 
 
 def test_probe_kernels_8_9_on_cpu_tensors_run_their_plain_versions():
@@ -1022,7 +1026,8 @@ def test_probe_kernels_8_9_on_cpu_tensors_run_their_plain_versions():
 def test_resident_bookkeeping_probe_kernel_bit_equal(variant, n, B):
     """Kernel 9 bit for bit on all eight state tensors from a state whose
     frames converge at the first step, later and never (it0 = 1, K = 5),
-    the frame's totals in shared memory and (z = 3200) in device memory."""
+    the frame's totals in shared memory and (z = 3200) in device memory, on
+    the path its plan takes for each z."""
     need_cuda()
     from qamreconciliation_tpu_torch.scripts import probe_resident_vmem as P
 
@@ -1035,11 +1040,45 @@ def test_resident_bookkeeping_probe_kernel_bit_equal(variant, n, B):
     assert kernels.resident_bookkeeping_probe.launches == n0 + 1
     plan = kernels.resident_bookkeeping_probe.plan
     assert plan.totals == ("global" if tables.z == 3200 else "shared")
+    assert plan.path == BOOK_PATHS[tables.z]
     kernels.resident_bookkeeping_probe_ref(tables, 1, 10 ** 6, *want,
                                            variant=variant, k_rounds=5)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("change", [
+    dict(stages=5), dict(stages=1), dict(rows=5), dict(lanes=3),
+    dict(smem_delta=16), dict(blocks_per_sm=17), dict(path="thread"),
+    dict(path="bulk", z=37),
+], ids=["stages 5", "stages 1", "rows", "lanes", "smem", "blocks 17",
+        "thread with a ring", "bulk at z 37"])
+def test_bookkeeping_launch_refuses_a_plan_beyond_its_limits(monkeypatch,
+                                                             change):
+    """Kernel 9's launch holds the plan to its own layout and limits: a
+    ring deeper than 4 stages or of one, stages too short for a check
+    block, lanes that do not cover z, a shared-memory size other than the
+    layout's, more blocks an SM than registers allow, the thread path with
+    a ring, the bulk path where z is not a multiple of 8."""
+    need_cuda()
+    from qamreconciliation_tpu_torch.scripts import probe_resident_vmem as P
+
+    plan_fn = kernels.staged_rows_plan
+
+    def altered(*args, **kw):
+        plan = plan_fn(*args, **kw)
+        return dataclasses.replace(
+            plan, smem=plan.smem + change.get("smem_delta", 0),
+            **{k: v for k, v in change.items()
+               if k not in ("smem_delta", "z")})
+
+    monkeypatch.setattr(kernels, "staged_rows_plan", altered)
+    tables = P.code_tables(36 * change.get("z", 64))
+    state = P.mixed_state(tables, 8, 1, "cuda")
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernels.resident_bookkeeping_probe(tables, 0, 5, *state)
 
 
 @pytest.mark.cuda
