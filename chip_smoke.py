@@ -115,12 +115,17 @@ Phases (each must pass, or the script exits non-zero):
      kernel 2 launched;
  20. the attribution probes (phase_probes, qamreconciliation_tpu_torch/
      scripts/probe_*.py): the ptxas registers and spills of every staged-
-     tile instance of kernels 1, 4 and 6, each 80 registers and no spill,
-     as the parent's kernels 1 and 4; kernel 6 (check_math_probe) against
-     its plain version bit for bit in its three maths, bf16 and f32, at
-     [18, 6, 1800, 128] and on two ragged shapes, each case with its ms,
-     plan, bytes, bound and share (kernel 1's phi time at the first shape
-     beside them); kernel 7 (elementwise_chain) bit for bit in both modes
+     tile instance of kernels 1 and 4, each 80 registers and no spill, as
+     the parent's, and of kernel 6's own instances (none spills); kernel 6
+     (check_math_probe) against its plain version bit for bit in its three
+     maths, bf16 and f32, at [18, 6, 1800, 128], on two ragged shapes and
+     on a dc = 12 shape, each case asserting its plan's path and slots and
+     logging its ms, plan, bytes, bound and share (the three maths timed in
+     turns in one window, with kernel 1's phi on the same tiles at the
+     first shape, bf16 and f32, and their ratio; the plain versions in a
+     window of their own), and the issue floor of kernel 6's phi
+     instances from their SASS (sims/sass_floor.py) beside the bound;
+     kernel 7 (elementwise_chain) bit for bit in both modes
      and dtypes at [512, 1024] (4 x 16 steps, and an odd unaligned view),
      timed at the probe's 8000 x 16 steps (its operations bound at the
      packed bf16 rate for bf16, and the exp steps also by their MUFU.EX2s
@@ -150,7 +155,10 @@ Phases (each must pass, or the script exits non-zero):
      ptxas registers and spills (none), bytes, bound and share;
      kernel 8 (smem_ceiling_probe) at every probe size:
      up to the card's opt-in limit bit-equal to its plain version (4.0 on
-     ones), one KiB past it refused with cudaErrorInvalidValue; then
+     ones), one KiB past it refused with cudaErrorInvalidValue, then the
+     sizes again in descending order with no attribute call (bit-equal),
+     and its call at the limit timed in turns with an empty kernel's
+     launch (the launch floor) and its plain version, 20 calls a run; then
      probe_vmem, probe_resident_vmem, probe_fb_form, probe_decode,
      probe_round and probe_streaming, one of each in a subprocess as a user
      runs it, all six side by side, the rest through main() in this
@@ -169,8 +177,9 @@ an FMA counted as two; per step for kernels 2 and 3; kernel 7's bf16
 record at the packed bf16 rate, 66.9e12 a second: 133.8 TFLOP/s of
 non-tensor bf16, the Hopper white paper's figure) and its time's share
 of that bound.  Kernel 6's record is the probe's default, bf16 phi at
-[18, 6, 1800, 128]; kernel 7's bf16 mac at the probe's defaults; kernel
-8's at the opt-in limit; kernel 9's the full variant at the probe's
+[18, 6, 1800, 128], with kernel 1's phi time beside it; kernel 7's bf16
+mac at the probe's defaults; kernel 8's at the opt-in limit, with the
+empty launch's time; kernel 9's the full variant at the probe's
 defaults, per iteration of a K = 8 call.  The
 bound is the function's, not the build's: the
 operations are those of the plain version, a transcendental counted as
@@ -3154,8 +3163,13 @@ def phase_campaigns():
 # The attribution probes (qamreconciliation_tpu_torch/scripts/probe_*.py)
 
 PROBE_SHAPE = (18, 6, 1800, 128)    # kernel 6 at N = 64800, B = 128
-# z off the tile; B = 40 on the staged path, B = 37 on the per-thread one
-PROBE_RAGGED = ((5, 6, 70, 40), (3, 6, 70, 37))
+# z off the tile; B = 40 on the bulk path, B = 37 on the thread one; rows
+# of 12 slots (scratch slots on the bulk path)
+PROBE_RAGGED = ((5, 6, 70, 40), (3, 6, 70, 37), (3, 12, 70, 40))
+# the path each shape's plan takes, in (f32, bf16)
+PROBE_PATHS = {PROBE_SHAPE: ("bulk", "bulk"), (5, 6, 70, 40): ("bulk", "bulk"),
+               (3, 6, 70, 37): ("thread", "thread"),
+               (3, 12, 70, 40): ("bulk", "bulk")}
 CHAIN_SHAPE = (512, 1024)           # kernel 7 at the probe's defaults
 CHAIN_DEFAULTS = dict(iters=8000, chain=16)
 PM = "qamreconciliation_tpu_torch.scripts"
@@ -3200,45 +3214,100 @@ def probe_records(text, label):
 
 
 # registers and spill-store bytes of every staged-tile instance (kernels
-# 1, 4 and 6), as ptxas reported them for the parent's kernels 1 and 4,
-# and the instances each library holds
+# 1 and 4), as ptxas reported them for the parent's, and the instances
+# each library holds; kernel 6's own instances (check_math_kernel: per
+# dtype the bulk path's phi and min-sum at dc 1-8 and on the scratch, its
+# copy, and the thread path's three maths), none of which may spill
 TILE_PTXAS = (80, 0)
-TILE_INSTANCES = {"bp_check_phase_qc": 9, "bp_check_phase_generic": 6,
-                  "check_math_probe": 6}
+TILE_INSTANCES = {"bp_check_phase_qc": 9, "bp_check_phase_generic": 6}
+PROBE_INSTANCES = 44
+
+
+def ptxas_instances(source, kernel):
+    """(template arguments, registers, spill-store bytes) of every
+    instance of ``kernel`` in ``source``'s ptxas report."""
+    lines = PTXAS[source].splitlines()
+    found = []
+    for i, line in enumerate(lines):
+        if "entry function" not in line or kernel not in line:
+            continue
+        name = re.search(kernel + r"I(\w+?)EEvP", line).group(1)
+        rest = " ".join(lines[i + 1:i + 5])
+        found.append((name,
+                      int(re.search(r"Used (\d+) registers", rest).group(1)),
+                      int(re.search(r"(\d+) bytes spill stores",
+                                    rest).group(1))))
+    return found
 
 
 def tile_ptxas():
     """Each check_tile_kernel instance's (registers, spill bytes) in the
-    libraries of kernels 1, 4 and 6, logged, and held to TILE_PTXAS:
-    kernel 6's two extra rules leave kernels 1 and 4 as they were."""
+    libraries of kernels 1 and 4, logged, and held to TILE_PTXAS: kernel
+    6's move off their loop leaves them as they were; and kernel 6's own
+    instances, logged, none spilling."""
     for source, instances in TILE_INSTANCES.items():
-        lines = PTXAS[source].splitlines()
-        found = 0
-        for i, line in enumerate(lines):
-            if not ("entry function" in line
-                    and "check_tile_kernel" in line):
-                continue
-            name = re.search(r"check_tile_kernelI(\w+?)EEEv", line).group(1)
-            rest = " ".join(lines[i + 1:i + 5])
-            regs = int(re.search(r"Used (\d+) registers", rest).group(1))
-            spill = int(re.search(r"(\d+) bytes spill stores",
-                                  rest).group(1))
+        found = ptxas_instances(source, "check_tile_kernel")
+        for name, regs, spill in found:
             log(f"[kernel6] ptxas {source} check_tile_kernel<{name}>: "
                 f"{regs} registers, {spill} bytes spill stores")
             assert (regs, spill) == TILE_PTXAS, (source, name, regs, spill)
-            found += 1
-        assert found == instances, (source, found)
+        assert len(found) == instances, (source, len(found))
+    found = ptxas_instances("check_math_probe", "check_math_kernel")
+    for name, regs, spill in found:
+        log(f"[kernel6] ptxas check_math_kernel<{name}>: {regs} registers, "
+            f"{spill} bytes spill stores")
+        assert spill == 0, (name, spill)
+    assert len(found) == PROBE_INSTANCES, len(found)
+
+
+def probe_plan_text(plan):
+    """A kernel 6 plan (ops/kernels.probe_tile_plan) as text."""
+    return (f"{plan.path}, {plan.slots} slots, {plan.checks}x{plan.frames} "
+            f"tile, {plan.stages} stage(s), {plan.threads} threads x "
+            f"{plan.blocks_per_sm} an SM, {plan.grid} blocks, {plan.smem} B "
+            "smem")
+
+
+# kernel 6's phi instances on the bulk path's register slots at dc = 6,
+# by dtype: their mangled names in the SASS
+PHI_SASS = {torch.bfloat16: "check_math_kernelI13__nv_bfloat16Li0ELi6ELb1E",
+            torch.float32: "check_math_kernelIfLi0ELi6ELb1E"}
+
+
+def phi_issue_floors():
+    """ms the warp schedulers need to issue the slot loop of kernel 6's
+    phi instances (dc 6, bulk path) once per slot at the probe's shape,
+    from their SASS (sims/sass_floor.py; a loop iteration is one pair's
+    six slots), by dtype."""
+    from qamreconciliation_tpu_torch.ops import cuda_build
+    from qamreconciliation_tpu_torch.sims import sass_floor
+
+    sass = subprocess.run(
+        [cuda_build.cuda_tool("cuobjdump"), "-sass",
+         str(cuda_build.build("check_math_probe"))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    slots = math.prod(PROBE_SHAPE)
+    floors = {}
+    for dt, name in PHI_SASS.items():
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            floors[dt] = sass_floor.floor_of(sass, name, slots, ilp=6)
+        for line in out.getvalue().splitlines():
+            log(f"[kernel6] sass {str(dt)[6:]}: {line}")
+    return floors
 
 
 def probe_kernel6(kernels):
     """Kernel 6 against its plain version, bit for bit, in every math and
-    dtype at the probe's shape and on ragged shapes, each case with its
-    ms, plan, bytes, bound and share; kernel 1's phi time at the probe's
-    shape beside them."""
+    dtype at the probe's shape, on ragged shapes and on a dc > 8 shape,
+    each case asserting its plan's path and slots, with its ms, plan,
+    bytes, bound and share; kernel 6's phi timed in turns with kernel 1's
+    phi on the same tiles at the probe's shape, and its issue floor."""
     from qamreconciliation_tpu_torch.ops.kernels import (
         bp_check_phase_qc, check_math_probe, check_math_probe_ref,
     )
 
+    floors = phi_issue_floors()
     gen = torch.Generator(device="cuda").manual_seed(6)
     for shape in (PROBE_SHAPE, *PROBE_RAGGED):
         nb_c, dc, z, B = shape
@@ -3248,7 +3317,9 @@ def probe_kernel6(kernels):
                              device="cuda", dtype=torch.int32)
         for dt in (torch.bfloat16, torch.float32):
             args = (t.to(dt), c2v.to(dt), synd)
-            for math_ in ("phi", "copy", "minsum"):
+            maths = ("phi", "copy", "minsum")
+            cases = {}
+            for math_ in maths:
                 got, gviol = check_math_probe(*args, math_)
                 plan = check_math_probe.plan
                 want, wviol = check_math_probe_ref(*args, math_)
@@ -3256,29 +3327,48 @@ def probe_kernel6(kernels):
                 name = f"{math_} {str(dt)[6:]} {list(shape)}"
                 assert torch.equal(gviol, wviol), f"kernel 6 {name}: viol"
                 assert torch.equal(got, want), f"kernel 6 {name}: not equal"
-                ms, plain_ms = events_ms(
-                    lambda: check_math_probe(*args, math_),
-                    lambda: check_math_probe_ref(*args, math_),
-                    reps=10, run=10)
+                path = PROBE_PATHS[shape][dt == torch.bfloat16]
+                slots = ("none" if math_ == "copy" else "registers"
+                         if path == "bulk" and dc <= 8 else "scratch")
+                assert (plan.path, plan.slots) == (path, slots), (name, plan)
                 nbytes, ops = perf.check_math_probe_work(*shape, dt, math_)
                 assert nbytes == moved(*args, got, gviol), nbytes
+                cases[math_] = (name, plan, nbytes, ops,
+                                float((got.float() - want.float()).abs().max()))
+            # the three maths (and kernel 1's phi at the probe's shape) in
+            # turns in one window, the plain versions in another, so that
+            # no plain run sits between two kernel runs
+            kernel_fns = [lambda m=m: check_math_probe(*args, m)
+                          for m in maths]
+            if shape == PROBE_SHAPE:
+                kernel_fns.append(lambda: bp_check_phase_qc(*args))
+            times = events_ms(*kernel_fns, reps=20, run=10)
+            plain = events_ms(*[lambda m=m: check_math_probe_ref(*args, m)
+                                for m in maths], reps=3, run=2)
+            for math_, ms, plain_ms in zip(maths, times, plain):
+                name, plan, nbytes, ops, err = cases[math_]
                 bound_ms, by = perf.bound(nbytes, ops)
                 log(f"[kernel6] {name:32s} bit-equal kernel {ms:.4f} ms  "
                     f"plain {plain_ms:.4f} ms  {nbytes / 1e6:.1f} MB, bound "
                     f"{bound_ms:.4f} ms by {by} ({100 * bound_ms / ms:.1f}%)"
-                    f"  [{plan_text(plan)}]")
+                    f"  [{probe_plan_text(plan)}]")
                 if shape == PROBE_SHAPE and math_ == "phi" \
                         and dt == torch.bfloat16:
-                    err = float((got.float() - want.float()).abs().max())
                     record(kernels, "check_math_probe", max_abs_err=err,
                            ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops,
                            shape=list(shape), dtype="bfloat16", math="phi")
             if shape == PROBE_SHAPE:
-                k1_ms, = events_ms(lambda: bp_check_phase_qc(*args),
-                                   reps=10, run=10)
-                log(f"[kernel6] kernel 1 sumproduct {str(dt)[6:]} "
-                    f"{list(shape)}: {k1_ms:.4f} ms "
-                    f"[{plan_text(bp_check_phase_qc.plan)}]")
+                k6_ms, k1_ms = times[0], times[3]
+                bound_ms, _ = perf.bound(cases["phi"][2], 0)
+                log(f"[kernel6] phi {str(dt)[6:]} {list(shape)}, same window"
+                    f": kernel 6 {k6_ms:.4f} ms, kernel 1 {k1_ms:.4f} ms, "
+                    f"ratio {k6_ms / k1_ms:.3f}; bound {bound_ms:.4f} ms, "
+                    f"kernel 6's issue floor {floors[dt]:.4f} ms  "
+                    f"[kernel 1: {plan_text(bp_check_phase_qc.plan)}]")
+                if dt == torch.bfloat16:
+                    record(kernels, "check_math_probe", kernel1_phi_ms=k1_ms,
+                           ratio_to_kernel1=k6_ms / k1_ms,
+                           issue_floor_ms=floors[dt])
 
 
 def probe_kernel7(kernels):
@@ -3586,18 +3676,23 @@ def probe_kernel8(kernels):
     """Kernel 8 at every probe size: up to the opt-in limit equal to its
     plain version (on ones, 4.0, and on normals), one KiB past it refused
     with cudaErrorInvalidValue, after which the card still runs kernels;
-    its time at the limit beside its plain version's."""
+    the sizes again from the limit down, bit-equal with no attribute call;
+    its call at the limit timed in turns with an empty kernel's launch
+    (the launch floor) and its plain version."""
+    from qamreconciliation_tpu_torch.ops import kernels as K
     from qamreconciliation_tpu_torch.ops.kernels import (
-        SharedMemoryRefused, smem_ceiling_probe, smem_ceiling_probe_ref,
+        SharedMemoryRefused, empty_launch, smem_ceiling_probe,
+        smem_ceiling_probe_ref,
     )
     from qamreconciliation_tpu_torch.scripts import probe_vmem
 
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", 0)
     optin = probe_vmem.optin_bytes(dev)
     gen = torch.Generator(device="cuda").manual_seed(8)
     ones = torch.ones((8, 128), device="cuda")
     normal = torch.randn((8, 128), generator=gen, device="cuda")
-    for kib in probe_vmem.sizes_kib(optin):
+    sizes = probe_vmem.sizes_kib(optin)
+    for kib in sizes:
         nbytes = kib * 1024
         if nbytes > optin:
             try:
@@ -3618,17 +3713,28 @@ def probe_kernel8(kernels):
         log(f"[kernel8] {kib} KiB: bit-equal, 4.0 on ones")
     # no error of the refused request is left behind
     assert torch.equal(ones + ones, 2 * ones)
+    # the limit granted, every smaller size launches without the attribute
+    for kib in sorted((k for k in sizes if k * 1024 <= optin), reverse=True):
+        assert not K._SMEM_PROBE_GRANTS.needs(0, kib * 1024), kib
+        got = smem_ceiling_probe(normal, kib * 1024)
+        assert torch.equal(got, smem_ceiling_probe_ref(normal, kib * 1024))
+    log(f"[kernel8] {sorted(sizes, reverse=True)[1:]} KiB again, from the "
+        "limit down: bit-equal, no attribute call")
     nbytes = optin
-    ms, plain_ms = events_ms(lambda: smem_ceiling_probe(normal, nbytes),
-                             lambda: smem_ceiling_probe_ref(normal, nbytes),
-                             reps=10, run=20)
+    ms, floor_ms, plain_ms = events_ms(
+        lambda: smem_ceiling_probe(normal, nbytes),
+        lambda: empty_launch(dev),
+        lambda: smem_ceiling_probe_ref(normal, nbytes), reps=10, run=20)
     work, ops = perf.smem_ceiling_probe_work()
     assert work == moved(normal, normal)
     bound_ms, by = perf.bound(work, ops)
-    log(f"[kernel8] at the limit, {optin} bytes: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {by}")
+    log(f"[kernel8] at the limit, {optin} bytes, in turns (20 calls a run): "
+        f"kernel 8's call {ms:.4f} ms, an empty kernel's launch (the launch "
+        f"floor) {floor_ms:.4f} ms, {ms / floor_ms:.2f}x the floor; plain "
+        f"{plain_ms:.4f} ms; bytes bound {bound_ms:.6f} ms by {by}")
     record(kernels, "smem_ceiling_probe", max_abs_err=err, ms=ms,
-           plain_ms=plain_ms, bytes=work, ops=ops, smem_bytes=optin)
+           plain_ms=plain_ms, bytes=work, ops=ops, smem_bytes=optin,
+           launch_floor_ms=floor_ms)
 
 
 # the six probes: the first run of each in a subprocess as a user runs it

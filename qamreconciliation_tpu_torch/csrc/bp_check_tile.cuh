@@ -1,9 +1,8 @@
 // The staged-tile check phase shared by bp_check_phase_qc.cu (kernel 1, the
 // dense QC layout [nb_c, dc, z, B]) and bp_check_phase_generic.cu (kernel 4,
-// the generic slot-major layout [dc, C, B] with a float mask [dc, C]).
-// check_math_probe.cu (kernel 6, the check-math attribution probe) runs
-// kernel 1's instances of this loop with two slot maths of its own,
-// kProbeCopy and kProbeMinSum, which no decoder offers.
+// the generic slot-major layout [dc, C, B] with a float mask [dc, C]).  Its
+// TMA and mbarrier helpers also serve check_math_probe.cu (kernel 6, with
+// TileShape) and resident_bookkeeping_probe.cu (kernel 9).
 //
 // Both layouts are one: element (g, d, r, b) of t, c2v and out lies at
 // ((g * dc + d) * R + r) * B + b, with G check groups of R checks (kernel 1:
@@ -426,15 +425,6 @@ struct TileKernel {
             m2[k] = lt ? m1[k] : (eq ? m2[k] : other);
             cnt[k] = lt ? 1 : cnt[k] + (int)eq;
             m1[k] = lt ? a : m1[k];
-          } else if constexpr (RULE == kProbeMinSum) {
-            // the probe's min-sum: m1 the minimum, m2 the least value
-            // strictly above it (1e30 caps it in pass 2)
-            const float a = fabsf(v[k]);
-            const bool lt = a < m1[k];
-            m2[k] = lt ? m1[k] : (a > m1[k] ? fminf(m2[k], a) : m2[k]);
-            m1[k] = lt ? a : m1[k];
-          } else if constexpr (RULE == kProbeCopy) {
-            // nothing to gather: pass 2 stores v
           } else {
             const float e = expf(-a_of(k, d, v[k]));
             const float pm = __fsub_rn(1.0f, e), qm = __fadd_rn(1.0f, e);
@@ -490,28 +480,6 @@ struct TileKernel {
             float scaled = __fmul_rn(alpha, mv);
             if (beta != 0.0f) scaled = fmaxf(__fsub_rn(scaled, beta), 0.0f);
             emit(k, d, scaled);
-          }
-        }
-      } else if constexpr (RULE == kProbeMinSum) {
-        // a slot at the minimum (ties included) sees min2, every other
-        // slot the minimum; 0.8125 times that
-        for (int d = 0; d < dc; ++d) {
-#pragma unroll
-          for (int k = 0; k < W; ++k) {
-            const float a = fabsf(__fsub_rn(load_f(ts + d * P + pp[k]),
-                                            load_f(cs + d * P + pp[k])));
-            const float mv = a <= m1[k] ? fminf(m2[k], 1e30f) : m1[k];
-            emit(k, d, __fmul_rn(0.8125f, mv));
-          }
-        }
-      } else if constexpr (RULE == kProbeCopy) {
-        // v = t - c2v itself, no sign or prefactor
-        for (int d = 0; d < dc; ++d) {
-#pragma unroll
-          for (int k = 0; k < W; ++k) {
-            const float v = __fsub_rn(load_f(ts + d * P + pp[k]),
-                                      load_f(cs + d * P + pp[k]));
-            if (ok[k]) store_f(cs + d * P + pp[k], v);
           }
         }
       } else if (dc == 1) {

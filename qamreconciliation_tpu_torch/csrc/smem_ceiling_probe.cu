@@ -19,7 +19,11 @@
 // each sum rounds once).
 //
 // Bound: 8 KB in and out and 3072 operations, far below a launch: the
-// probe measures whether the launch is taken, not a rate.
+// probe measures whether the launch is taken, not a rate.  So the call's
+// own cost is what it adds to a launch: the shared-memory attribute is a
+// host call, and the caller asks for it only when a request exceeds what
+// the device already granted the kernel (ops/kernels.py SmemGrants), not
+// on every call.  An empty kernel beside it gives the launch floor.
 
 #include <cuda_runtime.h>
 
@@ -41,30 +45,37 @@ smem_ceiling_kernel(const float* __restrict__ x, float* __restrict__ out,
   out[u] = __fadd_rn(scratch[u], far[u]);
 }
 
+// No work: the launch floor that kernel 8's call is timed against.
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 // Launch on `stream` with `nbytes` of dynamic shared memory (a multiple of
-// 512 and at least 8 KB).  *stage gets 1 when the shared-memory attribute
+// 512 and at least 8 KB), first setting the kernel's shared-memory limit
+// to `nbytes` when `set_attr` is not 0.  *stage gets 1 when the attribute
 // call fails and 2 when the launch does.  Returns the CUDA error (0 = ok),
 // or cudaErrorInvalidValue for arguments the kernel does not take.  A
 // refused call's error is cleared, so that it does not surface at the next
 // launch on this thread.
 extern "C" int smem_ceiling_probe_launch(const void* x, void* out,
-                                         long long nbytes, void* stage,
-                                         void* stream) {
+                                         long long nbytes, int set_attr,
+                                         void* stage, void* stream) {
   int* st = static_cast<int*>(stage);
   *st = 0;
   if (nbytes < 2 * kRows * kCols * 4 || nbytes % (kCols * 4) ||
       nbytes > (1LL << 30))
     return (int)cudaErrorInvalidValue;
   const int rows = (int)(nbytes / (kCols * 4));
-  cudaError_t err = cudaFuncSetAttribute(
-      smem_ceiling_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)nbytes);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    *st = 1;
-    return (int)err;
+  cudaError_t err;
+  if (set_attr) {
+    err = cudaFuncSetAttribute(smem_ceiling_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)nbytes);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      *st = 1;
+      return (int)err;
+    }
   }
   smem_ceiling_kernel<<<1, kElems, (size_t)nbytes,
                         static_cast<cudaStream_t>(stream)>>>(
@@ -72,6 +83,13 @@ extern "C" int smem_ceiling_probe_launch(const void* x, void* out,
   err = cudaGetLastError();
   if (err != cudaSuccess) *st = 2;
   return (int)err;
+}
+
+// Launch the empty kernel (one thread) on `stream`; returns
+// cudaGetLastError().
+extern "C" int smem_ceiling_probe_empty(void* stream) {
+  empty_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
 }
 
 // cudaGetErrorName of a code the launch returned.

@@ -18,8 +18,9 @@ Five wrappers of the decoders' kernels, each replacing a Pallas TPU kernel of
 and four more replacing the Pallas kernels of the JAX package's probes
 (``scripts/``):
 
-* ``check_math_probe`` (``csrc/check_math_probe.cu``): kernel 1's staged
-  tiles with ``probe_check_math.py``'s slot maths (phi, copy, its min-sum);
+* ``check_math_probe`` (``csrc/check_math_probe.cu``): kernel 1's memory
+  pattern with ``probe_check_math.py``'s slot maths (phi, copy, its
+  min-sum), on warp-specialised staged tiles of its own;
 * ``elementwise_chain`` (``csrc/elementwise_chain.cu``): the chain of
   ``probe_bf16pack.py`` in float32 or packed bfloat16;
 * ``smem_ceiling_probe`` (``csrc/smem_ceiling_probe.cu``): the copy kernel
@@ -63,9 +64,12 @@ __all__ = [
     "bp_layered_sweeps_qc", "bp_layered_sweeps_qc_ref",
     "bp_check_phase_generic", "bp_check_phase_generic_ref",
     "check_node_update_fused", "check_node_update_fused_ref",
-    "PROBE_MATHS", "check_math_probe", "check_math_probe_ref",
+    "SmemGrants", "PROBE_MATHS", "ProbeTilePlan", "probe_tile_plan",
+    "probe_tile_smem", "probe_instance", "check_math_probe",
+    "check_math_probe_ref",
     "CHAIN_MODES", "elementwise_chain", "elementwise_chain_ref",
     "SharedMemoryRefused", "smem_ceiling_probe", "smem_ceiling_probe_ref",
+    "empty_launch",
     "BOOKKEEPING_VARIANTS", "StagedRowsPlan", "staged_rows_plan",
     "staged_rows_smem", "resident_bookkeeping_probe",
     "resident_bookkeeping_probe_ref",
@@ -1325,15 +1329,158 @@ check_node_update_fused.plan = None
 
 
 # --------------------------------------------------------------------- #
-# Kernel 6: the check-math attribution probe (kernel 1's staged tiles with
-# the probe's slot maths)
+# Shared-memory attribute, set once per (kernel instance, device, size)
 
-# the probe's slot maths -> (the kernel's rule number, the decoder rule
-# whose tile plan it shares: the same shared-memory scratch)
-PROBE_MATHS = {"phi": (0, "sumproduct"), "copy": (3, "minsum"),
-               "minsum": (4, "minsum")}
+
+class SmemGrants:
+    """The most dynamic shared memory each key (a kernel instance on a
+    device) has been granted by ``cudaFuncSetAttribute`` in this process.
+    The attribute is a ceiling, so a launch sets it only when it asks for
+    more than the key was granted (:meth:`needs`), and records it once the
+    card took it (:meth:`grant`); a refused request records nothing."""
+
+    def __init__(self):
+        self.granted = {}
+
+    def needs(self, key, nbytes: int) -> bool:
+        return nbytes > self.granted.get(key, -1)
+
+    def grant(self, key, nbytes: int) -> None:
+        if self.needs(key, nbytes):
+            self.granted[key] = nbytes
+
+
+# --------------------------------------------------------------------- #
+# Kernel 6: the check-math attribution probe, on warp-specialised staged
+# tiles of its own (csrc/check_math_probe.cu)
+
+# the probe's slot maths, in the kernel's numbering (none is a decoder rule
+# but phi)
+PROBE_MATHS = {"phi": 0, "copy": 3, "minsum": 4}
 PROBE_MINSUM_SCALE = 0.8125     # the probe's min-sum normalisation
 _PROBE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+PROBE_CONSUMERS = 256       # consumer threads a block (kConsumers)
+PROBE_PRODUCER = 32         # the bulk path's producer warp (kProducer)
+PROBE_BLOCKS_PER_SM = 4     # blocks an SM at most (kBlocksPerSm: the launch
+                            # bounds' budget, 56 registers a thread)
+PROBE_REGISTER_DC = 8       # widest row whose slot values stay in registers
+PROBE_PAIRS_MAX = 8         # pairs a consumer thread takes a tile at most
+PROBE_STAGES_MAX = 4        # stages of the bulk path's ring at most
+_PROBE_SLOTS = {"none": 0, "registers": 1, "scratch": 2}
+# pairs a consumer thread takes a tile, largest first
+_PROBE_PAIRS = tuple(PROBE_PAIRS_MAX >> k
+                     for k in range(PROBE_PAIRS_MAX.bit_length()))
+_PROBE_GRANTS = SmemGrants()
+
+
+@dataclass(frozen=True)
+class ProbeTilePlan:
+    """Launch shape of one call of kernel 6."""
+
+    path: str           # "bulk": TMA loads and stores through a ring that a
+                        # producer warp keeps; "thread": plain loads/stores
+    slots: str          # where a pair's slot values wait for pass 2:
+                        # "registers", "scratch" (shared memory) or "none"
+                        # (copy has no pass 2)
+    threads: int        # threads a block: PROBE_CONSUMERS, plus the
+                        # producer warp on the bulk path
+    checks: int         # checks per tile: (PROBE_CONSUMERS // frames) times
+                        # the pairs a consumer thread takes
+    frames: int         # frames per tile
+    stages: int         # stages of the ring (0 on the thread path)
+    smem: int           # dynamic shared memory a block, bytes
+    blocks_per_sm: int  # blocks resident on one SM
+    tiles: int          # tiles of the call
+    grid: int           # persistent blocks launched
+
+
+def probe_tile_smem(dc: int, checks: int, frames: int, stages: int,
+                    size: int, scratch: bool) -> int:
+    """Dynamic shared memory of a kernel 6 plan, bytes: ``stages`` stages
+    of [t, c2v, syndrome] tiles (the new messages overwrite the c2v tile),
+    a full and an empty mbarrier a stage, and, for the scratch slots, one
+    f32 column of ``dc`` values a consumer thread (``probe_layout`` in the
+    source)."""
+    pairs = checks * frames
+    stage = 2 * _up16(dc * pairs * size) + _up16(pairs * 4)
+    return (stages * (stage + 16)
+            + (dc * PROBE_CONSUMERS * 4 if scratch else 0))
+
+
+@functools.lru_cache(maxsize=256)
+def probe_tile_plan(nb_c: int, dc: int, z: int, B: int, size: int,
+                    math: str, *, aligned: bool = True,
+                    sms: int = H100_SMS) -> ProbeTilePlan:
+    """The launch plan of one call of kernel 6 on [nb_c, dc, z, B] tensors
+    of element size ``size`` bytes with slot math ``math``, on a card with
+    ``sms`` SMs.
+
+    A tile is ``checks`` checks of one block row by ``frames`` frames (all
+    B up to ``PROBE_CONSUMERS``); a consumer thread owns one frame of it
+    and every ``PROBE_CONSUMERS // frames``-th check.  The bulk path needs
+    16-byte units (B times ``size`` a multiple of 16 and ``aligned``
+    pointers); else the thread path, with no ring, plain loads and one
+    pair a thread a tile.  Phi and min-sum keep a pair's slot values from
+    pass 1 to pass 2 in registers on the bulk path for dc <=
+    ``PROBE_REGISTER_DC``, else in a shared-memory scratch; copy keeps
+    none.  Warps an SM come first: from ``PROBE_BLOCKS_PER_SM`` blocks an
+    SM down, the largest tile (up to ``PROBE_PAIRS_MAX`` pairs a thread)
+    whose ring of two stages fits that many blocks; the ring then takes as
+    many stages, up to ``PROBE_STAGES_MAX``, as still fit.  The grid is
+    persistent: that many blocks an SM, each a contiguous run of tiles.
+
+    The bound is the bytes (t, c2v and synd in, out and the counts out:
+    166 MB in bf16 at [18, 6, 1800, 128], 0.050 ms at 3.35 TB/s); phi's
+    two precise transcendental chains a slot need the card to issue far
+    more instructions than copy, and warps an SM hide their latency,
+    hence warps first."""
+    if math not in PROBE_MATHS:
+        raise ValueError(f"unknown probe math {math!r}")
+    if not (1 <= dc <= MAX_DC) or min(nb_c, z, B) < 1 or size not in (2, 4):
+        raise ValueError(f"no probe tile plan for nb_c={nb_c} dc={dc} "
+                         f"z={z} B={B} size={size}")
+    bulk = aligned and (B * size) % 16 == 0
+    frames = min(B, PROBE_CONSUMERS)
+    rows = PROBE_CONSUMERS // frames
+    if math == "copy":
+        slots = "none"
+    else:
+        slots = ("registers" if bulk and dc <= PROBE_REGISTER_DC
+                 else "scratch")
+    scratch = slots == "scratch"
+
+    def smem(checks, stages):
+        return probe_tile_smem(dc, checks, frames, stages, size, scratch)
+
+    def fits(checks, stages, blocks):
+        need = smem(checks, stages)
+        return need <= SMEM_BLOCK_MAX and blocks * (need + 1024) <= SMEM_SM
+
+    if bulk:
+        checks, blocks = next(
+            (rows * m, blocks)
+            for blocks in range(PROBE_BLOCKS_PER_SM, 0, -1)
+            for m in _PROBE_PAIRS if fits(rows * m, 2, blocks))
+        stages = 2
+        while stages < PROBE_STAGES_MAX and fits(checks, stages + 1, blocks):
+            stages += 1
+    else:
+        checks, stages = rows, 0
+        blocks = next(b for b in range(PROBE_BLOCKS_PER_SM, 0, -1)
+                      if fits(checks, 0, b))
+    tiles = nb_c * -(-z // checks) * -(-B // frames)
+    return ProbeTilePlan(
+        "bulk" if bulk else "thread", slots,
+        PROBE_CONSUMERS + (PROBE_PRODUCER if bulk else 0), checks, frames,
+        stages, smem(checks, stages), blocks, tiles,
+        min(tiles, blocks * sms))
+
+
+def probe_instance(plan: ProbeTilePlan, dtype, math: str, dc: int):
+    """The kernel instance a plan launches: (dtype, math, the compile-time
+    dc of the register slots, 0 for the others, path)."""
+    return (str(dtype), math, dc if plan.slots == "registers" else 0,
+            plan.path)
 
 
 def _probe_args(t, c2v, synd, math):
@@ -1372,8 +1519,8 @@ def check_math_probe_ref(t, c2v, synd, math: str):
 
 
 def check_math_probe(t, c2v, synd, math: str):
-    """The check-math attribution probe: kernel 1's memory pattern with one
-    of the probe's slot maths.
+    """The check-math attribution probe: the QC check phase's memory
+    pattern (kernel 1's) with one of the probe's slot maths.
 
     Args:
       t, c2v: [nb_c, dc, z, B], both float32 or both bfloat16.
@@ -1389,8 +1536,8 @@ def check_math_probe(t, c2v, synd, math: str):
     frame) of t's hard decisions.
 
     CPU tensors run :func:`check_math_probe_ref`.  CUDA tensors run the
-    kernel (contiguous, int32 synd, dc <= ``MAX_DC``); anything else
-    raises.
+    kernel (contiguous, int32 synd, dc <= ``MAX_DC``) with the plan of
+    :func:`probe_tile_plan` (kept in ``.plan``); anything else raises.
     """
     if t.device.type == "cpu":
         return check_math_probe_ref(t, c2v, synd, math)
@@ -1405,20 +1552,28 @@ def check_math_probe(t, c2v, synd, math: str):
     nb_c, dc, z, B = t.shape
     if dc > MAX_DC:
         raise ValueError(f"check degree {dc} exceeds the kernel's {MAX_DC}")
-    rule, plan_rule = PROBE_MATHS[math]
     out = torch.empty_like(c2v)
     viol = torch.zeros((nb_c, B), dtype=torch.int32, device=t.device)
-    plan = _plan_for(nb_c, dc, z, B, t, c2v, plan_rule, False, t, c2v, synd,
-                     out)
-    lib = _library("check_math_probe", "ppppp" + "i" * 13 + "p")
+    aligned = all(y.data_ptr() % 16 == 0 for y in (t, c2v, synd, out))
+    plan = probe_tile_plan(
+        nb_c, dc, z, B, t.element_size(), math, aligned=aligned,
+        sms=torch.cuda.get_device_properties(t.device).multi_processor_count)
+    key = (probe_instance(plan, t.dtype, math, dc), t.device.index)
+    set_attr = _PROBE_GRANTS.needs(key, plan.smem)
+    lib = _library("check_math_probe", "ppppp" + "i" * 16 + "p")
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
         err = lib.check_math_probe_launch(
             t.data_ptr(), c2v.data_ptr(), synd.data_ptr(), out.data_ptr(),
-            viol.data_ptr(), _PROBE_DTYPES[t.dtype], nb_c, dc, z, B, rule,
-            *_tile_launch_args(plan), stream,
+            viol.data_ptr(), _PROBE_DTYPES[t.dtype], nb_c, dc, z, B,
+            PROBE_MATHS[math], int(plan.path == "bulk"),
+            _PROBE_SLOTS[plan.slots], plan.threads, plan.checks, plan.frames,
+            plan.stages, plan.smem, plan.blocks_per_sm, plan.grid,
+            int(set_attr), stream,
         )
     _raise_on(err, "check_math_probe")
+    if set_attr:
+        _PROBE_GRANTS.grant(key, plan.smem)
     check_math_probe.launches += 1
     check_math_probe.plan = plan
     return out, viol
@@ -1536,7 +1691,9 @@ def smem_ceiling_probe(x, nbytes: int):
     of 512, at least 8192).
 
     CPU tensors run :func:`smem_ceiling_probe_ref`.  CUDA tensors run the
-    kernel (contiguous); a size the card refuses raises
+    kernel (contiguous); the launch sets the kernel's shared-memory
+    attribute only when ``nbytes`` exceeds what the device has granted it
+    (:class:`SmemGrants`); a size the card refuses raises
     :class:`SharedMemoryRefused`, any other failure RuntimeError.
     """
     nbytes = int(nbytes)
@@ -1547,22 +1704,36 @@ def smem_ceiling_probe(x, nbytes: int):
     _require_contiguous(x=x)
     out = torch.empty_like(x)
     stage = ctypes.c_int(0)
-    lib = _library("smem_ceiling_probe", "pplpp")
+    set_attr = _SMEM_PROBE_GRANTS.needs(x.device.index, nbytes)
+    lib = _library("smem_ceiling_probe", "pplipp")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.smem_ceiling_probe_launch(
-            x.data_ptr(), out.data_ptr(), nbytes, ctypes.addressof(stage),
-            stream)
+            x.data_ptr(), out.data_ptr(), nbytes, int(set_attr),
+            ctypes.addressof(stage), stream)
     if err and stage.value == 1:
         name_fn = lib.smem_ceiling_probe_error_name
         name_fn.argtypes, name_fn.restype = [ctypes.c_int], ctypes.c_char_p
         raise SharedMemoryRefused(nbytes, err, name_fn(err).decode())
     _raise_on(err, "smem_ceiling_probe")
+    if set_attr:
+        _SMEM_PROBE_GRANTS.grant(x.device.index, nbytes)
     smem_ceiling_probe.launches += 1
     return out
 
 
 smem_ceiling_probe.launches = 0
+_SMEM_PROBE_GRANTS = SmemGrants()
+
+
+def empty_launch(device) -> None:
+    """Launch an empty kernel (one thread, no work) on ``device``'s current
+    stream through the same C interface as kernel 8: the floor of a
+    launch, timed beside kernel 8's call.  Counts nowhere."""
+    lib = _library("smem_ceiling_probe", "p", "smem_ceiling_probe_empty")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _raise_on(lib.smem_ceiling_probe_empty(stream), "empty_launch")
 
 
 # --------------------------------------------------------------------- #

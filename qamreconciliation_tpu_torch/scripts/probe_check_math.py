@@ -2,7 +2,8 @@
 
 The port's counterpart of the JAX package's ``scripts/probe_check_math.py``:
 a 50-step loop of kernel 6 (``ops.kernels.check_math_probe``, kernel 1's
-staged tiles and launch plan) with one of three slot maths,
+memory pattern on warp-specialised staged tiles of its own, plan
+``ops.kernels.probe_tile_plan``) with one of three slot maths,
 
   phi    -- kernel 1's phi sum-product (the baseline),
   copy   -- out = t - c2v (no transcendentals: the floor of the memory

@@ -1,15 +1,21 @@
-"""The instruction-issue floor of kernel 5's slot loops, from its SASS.
+"""The instruction-issue floor of a kernel's slot loops, from its SASS.
 
     python -m qamreconciliation_tpu_torch.sims.sass_floor SASS FUNCTION \\
-        --elements N
+        --elements N [--ilp SLOTS]
 
 ``SASS`` is ``cuobjdump -sass`` output (``chip_smoke.py --sass DIR`` writes
 one a library into DIR), ``FUNCTION`` a substring of the kernel's mangled
 name (``check_major_tile_kernelIfE`` for kernel 5's float32 instance,
-``check_major_tile_kernelI13__nv_bfloat16E`` for bf16).  The slot loops
-are the innermost loops that issue MUFU instructions (the transcendental
-chains); each runs one slot of ``ops.kernels.CM_ILP`` (check, frame)
-pairs in lockstep, and kernel 5 holds each pass's loop once.  Their
+``check_major_tile_kernelI13__nv_bfloat16E`` for bf16;
+``check_math_kernelIfLi0ELi6ELb1E`` for kernel 6's float32 phi at dc 6 on
+its bulk path).  The slot loops are the innermost loops that issue MUFU
+instructions other than MUFU.RCP (the transcendental chains; an integer
+division by a value known only at run time issues a MUFU.RCP too, as
+kernel 6's producer loops do); an iteration of each runs
+``--ilp`` slots (default ``ops.kernels.CM_ILP``: kernel 5 runs one slot of
+that many (check, frame) pairs in lockstep, and holds each pass's loop
+once; kernel 6's register instances run a pair's dc slots, both passes,
+in one iteration of one loop, so ``--ilp`` is dc there).  Their
 common path leaves out the phi rule's large-argument regime (the block
 that a branch on an ``FSETP`` against 10 jumps over), which the slots
 rarely take.  The floor is the time the warp schedulers of the H100 SXM
@@ -28,7 +34,7 @@ import re
 from ..ops.kernels import CM_ILP, H100_SMS
 
 __all__ = ["CLOCK_GHZ", "parse_function", "slot_loops", "common_path",
-           "issue_floor_ms", "main"]
+           "issue_floor_ms", "floor_of", "main"]
 
 CLOCK_GHZ = 1.98            # the H100 SXM's 1980 MHz maximum SM clock
 
@@ -37,6 +43,8 @@ _BRA = re.compile(r"BRA (?:`\()?0x([0-9a-f]+)")
 # a predicate set by a compare, and the phi regime's compare against 10
 _SETP = re.compile(r"(?:@!?P\d )?[FIDH]?SETP\S* (P\d),")
 _REGIME = re.compile(r"FSETP\.GEU?\.AND (P\d), PT, R\d+, 10,")
+# a transcendental MUFU: any but the reciprocal of an integer division
+_MUFU = re.compile(r"MUFU\.(?!RCP )")
 
 
 def parse_function(sass: str, name: str):
@@ -58,15 +66,15 @@ def parse_function(sass: str, name: str):
 
 
 def slot_loops(instrs):
-    """The innermost MUFU loops as (first, last) address pairs: backward
-    branches whose range holds a MUFU instruction and no smaller such
-    range."""
+    """The innermost transcendental loops as (first, last) address pairs:
+    backward branches whose range holds a MUFU instruction other than
+    MUFU.RCP and no smaller such range."""
     loops = []
     for addr, text in instrs:
         m = _BRA.search(text)
         if m and int(m.group(1), 16) < addr:
             lo = int(m.group(1), 16)
-            if any(lo <= a <= addr and "MUFU" in t for a, t in instrs):
+            if any(lo <= a <= addr and _MUFU.search(t) for a, t in instrs):
                 loops.append((lo, addr))
     return sorted(r for r in loops
                   if not any(o != r and r[0] <= o[0] and o[1] <= r[1]
@@ -101,27 +109,38 @@ def issue_floor_ms(instr_per_slot: float, elements: int,
     return 1e3 * warp_instrs / (sms * 4 * clock_ghz * 1e9)
 
 
+def floor_of(sass: str, function: str, elements: int,
+             ilp: int = CM_ILP) -> float:
+    """The issue floor (ms) of ``function``'s slot loops in ``sass`` for
+    ``elements`` slots, an iteration of each loop running ``ilp`` slots;
+    prints each loop and the total."""
+    instrs = parse_function(sass, function)
+    per_slot = 0.0
+    for loop in slot_loops(instrs):
+        n = common_path(instrs, loop)
+        size = sum(loop[0] <= a <= loop[1] for a, _ in instrs)
+        print(f"slot loop {loop[0]:#x}-{loop[1]:#x}: {size} instructions, "
+              f"{n} on the common path, {n / ilp:g} a slot")
+        per_slot += n / ilp
+    floor = issue_floor_ms(per_slot, elements)
+    print(f"{function}: {per_slot:g} instructions a slot; issue floor "
+          f"{floor:.4f} ms for {elements} slots at {CLOCK_GHZ} GHz "
+          f"on {H100_SMS} SMs")
+    return floor
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="sass_floor")
     parser.add_argument("sass")
     parser.add_argument("function")
     parser.add_argument("--elements", type=int, required=True,
                         help="slots of one call (checks x dc x frames)")
+    parser.add_argument("--ilp", type=int, default=CM_ILP,
+                        help="slots an iteration of a slot loop runs "
+                             f"(default {CM_ILP}, kernel 5's pairs)")
     args = parser.parse_args(argv)
     with open(args.sass) as f:
-        instrs = parse_function(f.read(), args.function)
-    per_slot = 0.0
-    for loop in slot_loops(instrs):
-        n = common_path(instrs, loop)
-        size = sum(loop[0] <= a <= loop[1] for a, _ in instrs)
-        print(f"slot loop {loop[0]:#x}-{loop[1]:#x}: {size} instructions, "
-              f"{n} on the common path, {n / CM_ILP:g} a slot")
-        per_slot += n / CM_ILP
-    floor = issue_floor_ms(per_slot, args.elements)
-    print(f"{args.function}: {per_slot:g} instructions a slot; issue floor "
-          f"{floor:.4f} ms for {args.elements} slots at {CLOCK_GHZ} GHz "
-          f"on {H100_SMS} SMs")
-    return floor
+        return floor_of(f.read(), args.function, args.elements, args.ilp)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """The launch plans of the staged-tile check phase (kernels 1 and 4,
-``csrc/bp_check_tile.cuh``, and kernel 6, the check-math probe on the same
-tiles) and of kernel 5's check-major tiles (``check_major_plan``): pure
-functions of the call's shape, held here on the CPU.  Plain torch, no
-JAX."""
+``csrc/bp_check_tile.cuh``), of kernel 5's check-major tiles
+(``check_major_plan``) and of kernel 6's warp-specialised tiles
+(``probe_tile_plan``), and the shared-memory attribute's record
+(``SmemGrants``, kernels 6 and 8): pure functions of the call's shape, held
+here on the CPU.  Plain torch, no JAX."""
 
 import itertools
 
@@ -11,8 +12,10 @@ import torch
 
 from qamreconciliation_tpu_torch.ops.kernels import (
     CM_ILP, CM_THREADS_MAX, CM_THREADS_SM, GENERIC_BLOCK_C, MAX_DC,
-    PROBE_MATHS, RULES as KERNEL_RULES, SMEM_BLOCK_MAX, SMEM_SM,
-    check_major_plan, check_major_smem, check_tile_plan, tile_smem,
+    PROBE_BLOCKS_PER_SM, PROBE_CONSUMERS, PROBE_MATHS, PROBE_PAIRS_MAX,
+    PROBE_PRODUCER, PROBE_REGISTER_DC, PROBE_STAGES_MAX, SMEM_BLOCK_MAX,
+    SMEM_SM, SmemGrants, check_major_plan, check_major_smem, check_tile_plan,
+    probe_instance, probe_tile_plan, probe_tile_smem, tile_smem,
 )
 
 torch.set_num_threads(1)
@@ -225,21 +228,188 @@ def test_check_major_smem_matches_the_layout_by_hand():
         3 * (14336 + 2048 + 112) + 48
 
 
-@pytest.mark.parametrize("size", [2, 4], ids=["bf16", "f32"])
-@pytest.mark.parametrize("math_", sorted(PROBE_MATHS))
-def test_check_math_probe_plan_is_kernel_1s(math_, size):
-    """Kernel 6 takes the plan of kernel 1's rule with its scratch (phi:
-    the phi rule's one f32 a slot; copy and the probe's min-sum: none), is
-    staged at the probe's shape [18, 6, 1800, 128], and its rule numbers
-    are none of the decoders' but phi's."""
-    rule, plan_rule = PROBE_MATHS[math_]
-    assert (rule == KERNEL_RULES["sumproduct"]) == (math_ == "phi")
-    assert rule not in (KERNEL_RULES["tanhfb"], KERNEL_RULES["minsum"])
-    plan = check_tile_plan(18, 6, 1800, 128, size, size, plan_rule,
-                           masked=False)
-    scratch = 1 if math_ == "phi" else 0
-    assert plan.smem == tile_smem(6, plan.checks, plan.frames, plan.stages,
-                                  size, size, False, scratch)
-    assert plan.path == "staged" and plan.frames == 128
-    assert plan.tiles == 18 * -(-1800 // plan.checks)
+# ---------------------------------------------------------------- kernel 6
+
+# (label, nb_c, dc, z, B, aligned): the probe's shape [18, 6, 1800, 128],
+# ragged ones (z off the tile, B off 16 bytes, past one tile's frames), an
+# unaligned pointer, and rows wider than the register slots
+PROBE_SHAPES = [
+    ("probe", 18, 6, 1800, 128, True),
+    ("z=70 B=40", 5, 6, 70, 40, True),
+    ("z=70 B=37", 3, 6, 70, 37, True),
+    ("z=21 B=300", 2, 6, 21, 300, True),
+    ("z=64 B=100", 18, 6, 64, 100, True),
+    ("unaligned", 18, 6, 64, 128, False),
+    ("dc=12", 3, 12, 70, 40, True),
+    ("dc=32", 2, 32, 21, 64, True),
+]
+PROBE_SIZES = {"bf16": 2, "f32": 4}
+probe_cases = pytest.mark.parametrize(
+    "shape,size,math_",
+    [(shape, size, m) for shape in PROBE_SHAPES for size in PROBE_SIZES
+     for m in sorted(PROBE_MATHS)],
+    ids=[f"{shape[0]}-{size}-{m}" for shape in PROBE_SHAPES
+         for size in PROBE_SIZES for m in sorted(PROBE_MATHS)])
+
+
+def probe_plan_of(shape, size, math_):
+    _, nb_c, dc, z, B, aligned = shape
+    return probe_tile_plan(nb_c, dc, z, B, PROBE_SIZES[size], math_,
+                           aligned=aligned)
+
+
+@probe_cases
+def test_probe_plan_path_and_slots(shape, size, math_):
+    """The bulk path where 16-byte units line up, with a producer warp
+    beside the 256 consumers; phi and min-sum keep their slot values in
+    registers there up to dc 8, else in the scratch; copy keeps none."""
+    _, nb_c, dc, z, B, aligned = shape
+    plan = probe_plan_of(shape, size, math_)
+    bulk = aligned and (B * PROBE_SIZES[size]) % 16 == 0
+    assert plan.path == ("bulk" if bulk else "thread")
+    assert plan.threads == PROBE_CONSUMERS + (PROBE_PRODUCER if bulk else 0)
+    if math_ == "copy":
+        assert plan.slots == "none"
+    else:
+        assert plan.slots == ("registers" if bulk and dc <= PROBE_REGISTER_DC
+                              else "scratch")
+    if bulk:
+        assert 2 <= plan.stages <= PROBE_STAGES_MAX
+        assert (plan.frames * PROBE_SIZES[size]) % 16 == 0
+    else:
+        assert plan.stages == 0
+
+
+@probe_cases
+def test_probe_plan_smem_is_its_layout(shape, size, math_):
+    """Per stage the t and c2v tiles ([dc][checks][frames], each rounded
+    to 16 bytes) and the int32 syndrome tile, a full and an empty mbarrier
+    a stage, and the scratch: one f32 column of dc values a consumer."""
+    _, nb_c, dc, z, B, aligned = shape
+    plan = probe_plan_of(shape, size, math_)
+    pairs = plan.checks * plan.frames
+    tile = -(-dc * pairs * PROBE_SIZES[size] // 16) * 16
+    synd = -(-pairs * 4 // 16) * 16
+    scratch = dc * 256 * 4 if plan.slots == "scratch" else 0
+    assert plan.smem == plan.stages * (2 * tile + synd + 16) + scratch
+    assert plan.smem == probe_tile_smem(dc, plan.checks, plan.frames,
+                                        plan.stages, PROBE_SIZES[size],
+                                        plan.slots == "scratch")
+
+
+@probe_cases
+def test_probe_plan_tiles_and_grid(shape, size, math_):
+    """A consumer thread owns one frame of a tile and the same number
+    (1..PROBE_PAIRS_MAX) of its checks; the tiles cover every (check,
+    frame) of each block row once; a persistent grid."""
+    _, nb_c, dc, z, B, aligned = shape
+    plan = probe_plan_of(shape, size, math_)
+    assert plan.frames == min(B, PROBE_CONSUMERS)
+    rows = PROBE_CONSUMERS // plan.frames
+    assert plan.checks % rows == 0
+    assert 1 <= plan.checks // rows <= PROBE_PAIRS_MAX
+    if plan.path == "thread":
+        assert plan.checks == rows
+    assert plan.tiles == nb_c * -(-z // plan.checks) * -(-B // plan.frames)
+    assert plan.grid == min(plan.tiles, plan.blocks_per_sm * 132)
+
+
+@probe_cases
+def test_probe_plan_fits_the_sm(shape, size, math_):
+    """No more blocks an SM than the launch bounds' register budget and the
+    SM's shared memory take, and no block over the opt-in limit; no tile
+    of two pairs a thread more would fit as many blocks (warps first, tile
+    second)."""
+    _, nb_c, dc, z, B, aligned = shape
+    plan = probe_plan_of(shape, size, math_)
+    assert 1 <= plan.blocks_per_sm <= PROBE_BLOCKS_PER_SM
+    assert plan.smem <= SMEM_BLOCK_MAX
     assert plan.blocks_per_sm * (plan.smem + 1024) <= SMEM_SM
+    if plan.path == "bulk":
+        bigger = probe_tile_smem(dc, 2 * plan.checks, plan.frames, 2,
+                                 PROBE_SIZES[size], plan.slots == "scratch")
+        assert (2 * plan.checks // (PROBE_CONSUMERS // plan.frames)
+                > PROBE_PAIRS_MAX
+                or plan.blocks_per_sm * (bigger + 1024) > SMEM_SM)
+
+
+@pytest.mark.parametrize("math_", sorted(PROBE_MATHS))
+@pytest.mark.parametrize("size", list(PROBE_SIZES))
+def test_probe_plan_at_the_probes_shape(size, math_):
+    """At [18, 6, 1800, 128]: bulk, four blocks of 288 threads an SM (36
+    warps), a tile of 4 checks by all 128 frames (two pairs a consumer),
+    three stages in bf16 (14,352 B a stage with its mbarriers) and two in
+    f32 (26,640 B), a persistent grid of 528 blocks."""
+    plan = probe_tile_plan(18, 6, 1800, 128, PROBE_SIZES[size], math_)
+    assert plan.path == "bulk"
+    assert plan.slots == ("none" if math_ == "copy" else "registers")
+    assert plan.blocks_per_sm * plan.threads // 32 == 36 >= 32
+    assert (plan.checks, plan.frames) == (4, 128)
+    assert (plan.stages, plan.smem) == ((3, 43056) if size == "bf16"
+                                        else (2, 53280))
+    assert plan.tiles == 18 * 450 and plan.grid == 528
+
+
+def test_probe_plan_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError):
+        probe_tile_plan(18, 6, 1800, 128, 2, "tanhfb")
+    with pytest.raises(ValueError):
+        probe_tile_plan(18, MAX_DC + 1, 1800, 128, 2, "phi")
+    with pytest.raises(ValueError):
+        probe_tile_plan(18, 6, 1800, 128, 8, "phi")
+
+
+@pytest.mark.parametrize("math_", sorted(PROBE_MATHS))
+def test_probe_instance_names_the_register_rows(math_):
+    """The instance a plan launches: the compile-time dc only for register
+    slots, so every scratch or copy plan of a dtype and path shares one."""
+    reg = probe_tile_plan(18, 6, 1800, 128, 2, math_)
+    wide = probe_tile_plan(3, 12, 70, 40, 2, math_)
+    assert probe_instance(reg, torch.bfloat16, math_, 6)[2] == \
+        (6 if math_ != "copy" else 0)
+    assert probe_instance(wide, torch.bfloat16, math_, 12)[2] == 0
+    assert probe_instance(reg, torch.bfloat16, math_, 6)[3] == "bulk"
+
+
+# -------------------------------------- the shared-memory attribute, once
+
+def test_grants_ascending_sizes_each_set_the_attribute():
+    g = SmemGrants()
+    for nbytes in (8192, 49152, 98304, 232448):
+        assert g.needs(0, nbytes)
+        g.grant(0, nbytes)
+        assert not g.needs(0, nbytes)
+    assert g.granted == {0: 232448}
+
+
+def test_grants_descending_sizes_after_a_grant_set_nothing():
+    g = SmemGrants()
+    g.grant(0, 232448)
+    for nbytes in (204800, 98304, 49152, 8192, 0):
+        assert not g.needs(0, nbytes)
+    assert g.granted == {0: 232448}
+
+
+def test_grants_a_refusal_records_nothing():
+    """A request past the card's limit is asked for (and refused by the
+    card, so never granted); it is asked for again next time, and the
+    sizes granted before still need nothing."""
+    g = SmemGrants()
+    g.grant(0, 232448)
+    assert g.needs(0, 233472)
+    assert g.needs(0, 233472)
+    assert not g.needs(0, 232448)
+    assert g.granted == {0: 232448}
+
+
+def test_grants_are_per_device_and_instance():
+    g = SmemGrants()
+    g.grant(0, 98304)
+    assert g.needs(1, 8192) and not g.needs(0, 8192)
+    g.grant(1, 8192)
+    assert g.needs(1, 98304) and not g.needs(0, 98304)
+    a, b = ("bf16", "phi", 6, "bulk"), ("bf16", "copy", 0, "bulk")
+    g.grant((a, 0), 43056)
+    assert g.needs((b, 0), 43056) and not g.needs((a, 0), 43056)
+    # the first request of a key always sets the attribute, even of 0 bytes
+    assert g.needs((b, 1), 0)

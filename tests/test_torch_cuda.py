@@ -886,16 +886,40 @@ def test_stream_fused_on_the_card_equals_the_plain_check_phase(dtype):
 
 
 # --------------------------------------------------------------------- #
-# The attribution probes' kernels: kernel 6 (check_math_probe, kernel 1's
-# staged tiles with the probe's slot maths) and kernel 7
-# (elementwise_chain, the packed-bf16 chain), bit for bit
+# The attribution probes' kernels: kernel 6 (check_math_probe, the QC check
+# phase's memory pattern with the probe's slot maths, on warp-specialised
+# tiles of its own) and kernel 7 (elementwise_chain, the packed-bf16
+# chain), bit for bit
 
 PROBE_MATHS = ["phi", "copy", "minsum"]
 PROBE_DTYPES = [torch.float32, torch.bfloat16]
-# z off the tile; B off the block (40: staged, 37 and 100 in bf16: the
-# per-thread path), and beyond one tile's frames (300)
-PROBE_TILE_SHAPES = [(3, 6, 70, 40), (3, 6, 70, 37), (2, 6, 21, 300),
-                     (18, 6, 64, 100)]
+# shape -> the path its plan takes in (f32, bf16): the probe's shape; z off
+# the tile, B = 40 on the bulk path; B = 37 (and 100 and 300 in bf16) on
+# the thread path; B = 300 past one tile's frames (f32: per-row bulk
+# copies); rows wider than the register slots (dc 12) on the scratch
+PROBE_TILE_SHAPES = {(18, 6, 1800, 128): ("bulk", "bulk"),
+                     (3, 6, 70, 40): ("bulk", "bulk"),
+                     (3, 6, 70, 37): ("thread", "thread"),
+                     (2, 6, 21, 300): ("bulk", "thread"),
+                     (18, 6, 64, 100): ("bulk", "thread"),
+                     (3, 12, 70, 40): ("bulk", "bulk")}
+
+
+def probe_inputs(shape, dtype, offset=0):
+    """t, c2v and synd on the card, with tied magnitudes in half the frames
+    (integer-valued t, zero c2v); t and c2v start ``offset`` elements into
+    their buffers (an unaligned view when not 0)."""
+    t, c2v, synd = make_inputs(31, shape, irregular=False)
+    half = shape[-1] // 2
+    t[..., :half] = np.round(t[..., :half])
+    c2v[..., :half] = 0.0
+
+    def at(a):
+        flat = torch.zeros(a.size + offset, dtype=dtype, device="cuda")
+        flat[offset:] = torch.from_numpy(a.reshape(-1)).to("cuda", dtype)
+        return flat[offset:].view(shape)
+
+    return at(t), at(c2v), torch.from_numpy(synd).cuda()
 
 
 def test_probe_kernels_on_cpu_tensors_run_their_plain_versions():
@@ -915,22 +939,16 @@ def test_probe_kernels_on_cpu_tensors_run_their_plain_versions():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", PROBE_TILE_SHAPES,
+@pytest.mark.parametrize("shape", list(PROBE_TILE_SHAPES),
                          ids=["x".join(map(str, s)) for s in PROBE_TILE_SHAPES])
 @pytest.mark.parametrize("dtype", PROBE_DTYPES)
 @pytest.mark.parametrize("math_", PROBE_MATHS)
 def test_check_math_probe_kernel_bit_equal(math_, dtype, shape):
-    """Kernel 6 on ragged shapes: out and the violation counts bit for bit,
-    with tied magnitudes in half the frames (integer-valued t, zero c2v);
-    the plan that of kernel 1's rule with the same scratch."""
+    """Kernel 6 on its paths: out and the violation counts bit for bit,
+    with tied magnitudes in half the frames; the plan that of
+    probe_tile_plan, on the path and slots each shape takes."""
     need_cuda()
-    t, c2v, synd = make_inputs(31, shape, irregular=False)
-    half = shape[-1] // 2
-    t[..., :half] = np.round(t[..., :half])
-    c2v[..., :half] = 0.0
-    args = (torch.from_numpy(t).to("cuda", dtype),
-            torch.from_numpy(c2v).to("cuda", dtype),
-            torch.from_numpy(synd).cuda())
+    args = probe_inputs(shape, dtype)
     n0 = kernels.check_math_probe.launches
     got, gviol = kernels.check_math_probe(*args, math_)
     assert kernels.check_math_probe.launches == n0 + 1
@@ -940,10 +958,55 @@ def test_check_math_probe_kernel_bit_equal(math_, dtype, shape):
     assert torch.equal(gviol, wviol)
     assert torch.equal(got, want)
     nb_c, dc, z, B = shape
-    assert kernels.check_math_probe.plan == check_tile_plan(
-        nb_c, dc, z, B, args[0].element_size(), args[0].element_size(),
-        kernels.PROBE_MATHS[math_][1], masked=False,
+    plan = kernels.check_math_probe.plan
+    assert plan == kernels.probe_tile_plan(
+        nb_c, dc, z, B, args[0].element_size(), math_,
         sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    assert plan.path == PROBE_TILE_SHAPES[shape][dtype == torch.bfloat16]
+    assert plan.slots == ("none" if math_ == "copy" else
+                          "registers" if plan.path == "bulk" and dc <= 8
+                          else "scratch")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", PROBE_DTYPES)
+@pytest.mark.parametrize("math_", PROBE_MATHS)
+def test_check_math_probe_kernel_unaligned_view(math_, dtype):
+    """t and c2v one element into their buffers: a shape whose rows line
+    up takes the thread path, bit for bit."""
+    need_cuda()
+    shape = (3, 6, 70, 40)
+    args = probe_inputs(shape, dtype, offset=1)
+    got, gviol = kernels.check_math_probe(*args, math_)
+    want, wviol = kernels.check_math_probe_ref(*args, math_)
+    torch.cuda.synchronize()
+    assert kernels.check_math_probe.plan.path == "thread"
+    assert torch.equal(gviol, wviol) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("change", [
+    dict(stages=5), dict(stages=1), dict(checks=3), dict(smem_delta=16),
+    dict(blocks_per_sm=5), dict(slots="scratch"), dict(path="thread"),
+    dict(threads=256),
+], ids=["stages 5", "stages 1", "checks", "smem", "blocks 5",
+        "scratch at dc 6", "thread with a ring", "no producer"])
+def test_check_math_probe_launch_refuses_a_plan_beyond_its_limits(
+        monkeypatch, change):
+    """Kernel 6's launch holds the plan to its own layout and limits."""
+    need_cuda()
+    plan_fn = kernels.probe_tile_plan
+
+    def altered(*args, **kw):
+        plan = plan_fn(*args, **kw)
+        return dataclasses.replace(
+            plan, smem=plan.smem + change.get("smem_delta", 0),
+            **{k: v for k, v in change.items() if k != "smem_delta"})
+
+    monkeypatch.setattr(kernels, "probe_tile_plan", altered)
+    args = probe_inputs((3, 6, 70, 40), torch.bfloat16)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernels.check_math_probe(*args, "phi")
 
 
 @pytest.mark.cuda
@@ -1101,6 +1164,32 @@ def test_smem_ceiling_probe_kernel_up_to_the_limit():
         kernels.smem_ceiling_probe(x, optin + 512)
     assert e.value.name == "cudaErrorInvalidValue"
     assert torch.equal(x + x, 2 * x)
+
+
+@pytest.mark.cuda
+def test_smem_ceiling_probe_kernel_descending_after_a_grant():
+    """Once the opt-in limit is granted, smaller sizes launch without the
+    attribute call, bit for bit; past the limit the card still refuses,
+    and the sizes granted before still run."""
+    need_cuda()
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    x = torch.from_numpy(np.random.default_rng(5).normal(0, 2, (8, 128))
+                         .astype(np.float32)).cuda()
+    grants = kernels._SMEM_PROBE_GRANTS
+    kernels.smem_ceiling_probe(x, optin)
+    assert not grants.needs(0, optin)
+    for nbytes in (optin - 512, 160 * 1024, 48 * 1024, 8192):
+        assert not grants.needs(0, nbytes)
+        got = kernels.smem_ceiling_probe(x, nbytes)
+        want = kernels.smem_ceiling_probe_ref(x, nbytes)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    with pytest.raises(kernels.SharedMemoryRefused) as e:
+        kernels.smem_ceiling_probe(x, optin + 1024)
+    assert e.value.name == "cudaErrorInvalidValue"
+    assert grants.granted[0] == optin
+    assert torch.equal(kernels.smem_ceiling_probe(x, optin),
+                       kernels.smem_ceiling_probe_ref(x, optin))
 
 
 @pytest.mark.cuda

@@ -5,7 +5,8 @@ import pytest
 
 from qamreconciliation_tpu_torch.ops.kernels import CM_ILP, H100_SMS
 from qamreconciliation_tpu_torch.sims.sass_floor import (
-    CLOCK_GHZ, common_path, issue_floor_ms, main, parse_function, slot_loops,
+    CLOCK_GHZ, common_path, floor_of, issue_floor_ms, main, parse_function,
+    slot_loops,
 )
 
 SASS = """
@@ -66,3 +67,31 @@ def test_issue_floor_arithmetic_and_cli(tmp_path):
     assert (CM_ILP, H100_SMS, CLOCK_GHZ) == (2, 132, 1.98)
     with pytest.raises(ValueError, match="no function"):
         parse_function(SASS, "missing")
+
+
+@pytest.mark.parametrize("ilp", [1, 6])
+def test_ilp_sets_the_slots_a_loop_iteration_runs(tmp_path, ilp):
+    """``--ilp`` (kernel 6's register rows run a pair's dc slots an
+    iteration) divides the loop's common path into that many slots."""
+    path = tmp_path / "k.sass"
+    path.write_text(SASS)
+    floor = main([str(path), "kernelIfE", "--elements", "64",
+                  "--ilp", str(ilp)])
+    assert floor == pytest.approx(issue_floor_ms(7 / ilp, 64))
+    assert floor_of(SASS, "kernelIfE", 64, ilp) == floor
+
+
+def test_integer_division_loops_are_not_slot_loops():
+    """A loop whose only MUFU is the MUFU.RCP of an integer division (a
+    producer's copy loop) is no slot loop; the transcendental one is."""
+    sass = """
+        Function : _Z4probev
+        /*0000*/                   MUFU.EX2 R5, R4 ;
+        /*0010*/                   FADD R5, R5, 1 ;
+        /*0020*/              @!P1 BRA 0x0000 ;
+        /*0030*/                   MUFU.RCP R7, R6 ;
+        /*0040*/                   IMAD.HI.U32 R8, R7, R6, RZ ;
+        /*0050*/              @!P2 BRA 0x0030 ;
+        /*0060*/                   EXIT ;
+"""
+    assert slot_loops(parse_function(sass, "probe")) == [(0x0, 0x20)]
