@@ -32,6 +32,7 @@ import torch
 from ..config import DEFAULT_DTYPE, as_dtype
 from ..ops.boxplus import MINSUM_ALPHA, box_plus
 from ..ops.kernels import bp_check_phase_generic
+from ..utils.trace import span
 
 __all__ = ["TannerGraph", "Decoder"]
 
@@ -299,54 +300,59 @@ class Decoder:
         that moment (captured at convergence); failures report
         ``max_iterations`` and the totals after the last iteration.
         """
-        dev, B = self.device, prior_vb.shape[1]
-        maxiter = int(max_iterations)
-        prior = prior_vb.to(dev, self.dtype)
-        prior_sum = prior.to(self.sum_dtype)
-        synd = self._check_synd(synd_cb.to(dev, torch.int32))
+        with span("rr.decoder.decode"):
+            dev, B = self.device, prior_vb.shape[1]
+            maxiter = int(max_iterations)
+            prior = prior_vb.to(dev, self.dtype)
+            prior_sum = prior.to(self.sum_dtype)
+            synd = self._check_synd(synd_cb.to(dev, torch.int32))
 
-        c2v = torch.zeros((self.graph.dc_max, synd.shape[0], B),
-                          dtype=self.dtype, device=dev)
-        total = prior
-        final = prior
-        done = torch.zeros(B, dtype=torch.bool, device=dev)
-        iters = torch.zeros(B, dtype=torch.int32, device=dev)
-        it = 0
-        all_done = False
-        while it < maxiter and not all_done:
-            t = self._check_inputs(total)                    # gather 1
-            # convergence of the current totals (after iteration it; at
-            # it = 0 the test of the prior) and the new messages
-            c2v, viol = self.check_phase(
-                t, c2v, synd, self._c_mask_T, rule=self.rule,
-                ms_alpha=self.minsum_alpha, ms_beta=self.minsum_beta,
-            )
-            conv = self._frame_violations(viol.sum(0)) == 0
-            newly = conv & ~done
-            iters = torch.where(newly, it, iters)
-            done = done | conv
-            # one host read per iteration: skip the snapshot when no frame
-            # newly converged, stop when all have
-            any_new, all_done = torch.stack(
-                [newly.any(), done.all()]
-            ).tolist()
-            if any_new:
+            c2v = torch.zeros((self.graph.dc_max, synd.shape[0], B),
+                              dtype=self.dtype, device=dev)
+            total = prior
+            final = prior
+            done = torch.zeros(B, dtype=torch.bool, device=dev)
+            iters = torch.zeros(B, dtype=torch.int32, device=dev)
+            it = 0
+            all_done = False
+            while it < maxiter and not all_done:
+                with span("rr.decoder.gather1"):
+                    t = self._check_inputs(total)
+                # convergence of the current totals (after iteration it; at
+                # it = 0 the test of the prior) and the new messages
+                c2v, viol = self.check_phase(
+                    t, c2v, synd, self._c_mask_T, rule=self.rule,
+                    ms_alpha=self.minsum_alpha, ms_beta=self.minsum_beta,
+                )
+                conv = self._frame_violations(viol.sum(0)) == 0
+                newly = conv & ~done
+                iters = torch.where(newly, it, iters)
+                done = done | conv
+                # one host read per iteration: skip the snapshot when no frame
+                # newly converged, stop when all have
+                with span("rr.decoder.poll"):
+                    any_new, all_done = torch.stack(
+                        [newly.any(), done.all()]
+                    ).tolist()
+                if any_new:
+                    final = torch.where(newly, total, final)
+                with span("rr.decoder.gather2"):
+                    total = self.var_totals(prior_sum, c2v)
+                it += 1
+                self.iterations_run += 1
+
+            # frames that converged at the last allowed iteration exit the loop
+            # untested: one final syndrome test covers them
+            with span("rr.decoder.tail"):
+                conv = self._consistent(total, synd)
+                newly = conv & ~done
+                iters = torch.where(newly, min(it, maxiter), iters)
                 final = torch.where(newly, total, final)
-            total = self.var_totals(prior_sum, c2v)          # gather 2
-            it += 1
-            self.iterations_run += 1
-
-        # frames that converged at the last allowed iteration exit the loop
-        # untested: one final syndrome test covers them
-        conv = self._consistent(total, synd)
-        newly = conv & ~done
-        iters = torch.where(newly, min(it, maxiter), iters)
-        final = torch.where(newly, total, final)
-        done = done | conv
-        iters = torch.where(done, iters, maxiter)
-        # failures: the totals at max_iterations
-        final = torch.where(done, final, total)
-        return done, iters, final
+                done = done | conv
+                iters = torch.where(done, iters, maxiter)
+                # failures: the totals at max_iterations
+                final = torch.where(done, final, total)
+            return done, iters, final
 
     # The steps of decode_batched that a mesh of ranks overrides
     # (parallel/graph_shard.ShardedDecoder): on one device they cover

@@ -40,10 +40,17 @@ from ..ops.kernels import (
     QCTables, bp_check_phase_qc, bp_check_phase_qc_ref, bp_decode_rounds_qc,
     bp_layered_sweeps_qc, layered_sweep,
 )
+from ..utils.trace import span
 
 __all__ = ["QCDecoder", "make_qc_ldpc", "make_qc_ira", "color_disjoint_rows",
            "layered_plan", "save_qc_csv", "load_qc_csv", "detect_qc",
            "fold_incoming"]
+
+
+def _all_done(done) -> bool:
+    """The host read of "all done?" of a decode loop."""
+    with span("rr.decoder.poll"):
+        return bool(done.all())
 
 
 def make_qc_ldpc(nb_v: int, z: int, dv: int = 3, dc: int = 6, seed: int = 0):
@@ -568,17 +575,20 @@ class QCDecoder:
         prior); ``final`` holds its totals from that moment.  Failed frames
         report ``max_iterations`` and their totals after the last one.
         """
-        if self.schedule == "layered":
+        with span("rr.decoder.decode"):
+            if self.schedule == "layered":
+                if self.resident:
+                    return self._decode_resident_layered(prior_vb, synd_cb,
+                                                         max_iterations)
+                return self._decode_layered(prior_vb, synd_cb,
+                                            max_iterations)
             if self.resident:
-                return self._decode_resident_layered(prior_vb, synd_cb,
-                                                     max_iterations)
-            return self._decode_layered(prior_vb, synd_cb, max_iterations)
-        if self.resident:
-            return self._decode_resident(prior_vb, synd_cb, max_iterations)
-        if self.compressed:
-            return self._decode_compressed(prior_vb, synd_cb,
-                                           max_iterations)
-        return self._decode_dense(prior_vb, synd_cb, max_iterations)
+                return self._decode_resident(prior_vb, synd_cb,
+                                             max_iterations)
+            if self.compressed:
+                return self._decode_compressed(prior_vb, synd_cb,
+                                               max_iterations)
+            return self._decode_dense(prior_vb, synd_cb, max_iterations)
 
     def _decode_dense(self, prior_vb, synd_cb, max_iterations: int):
         """The dense flooding loop: one check-phase kernel call and one
@@ -633,7 +643,9 @@ class QCDecoder:
         newly = conv & ~done
         iters = torch.where(newly, it, iters)
         done = done | conv
-        any_new, all_done = torch.stack([newly.any(), done.all()]).tolist()
+        with span("rr.decoder.poll"):
+            any_new, all_done = torch.stack([newly.any(),
+                                             done.all()]).tolist()
         if any_new:
             final = torch.where(newly, total, final)
         return final, done, iters, all_done
@@ -644,14 +656,15 @@ class QCDecoder:
         update count ``min(it, max_iterations)``; failed frames report
         ``max_iterations`` and their last totals.  ``synd`` holds the
         syndrome lanes of the checks updated here."""
-        conv = self._totals_consistent(total, synd)
-        newly = conv & ~done
-        iters = torch.where(newly, min(it, max_iterations), iters)
-        final = torch.where(newly, total, final)
-        done = done | conv
-        iters = torch.where(done, iters, max_iterations)
-        final = self._all_lanes(torch.where(done, final, total))
-        return done, iters, final.reshape(self.vnum, total.shape[-1])
+        with span("rr.decoder.tail"):
+            conv = self._totals_consistent(total, synd)
+            newly = conv & ~done
+            iters = torch.where(newly, min(it, max_iterations), iters)
+            final = torch.where(newly, total, final)
+            done = done | conv
+            iters = torch.where(done, iters, max_iterations)
+            final = self._all_lanes(torch.where(done, final, total))
+            return done, iters, final.reshape(self.vnum, total.shape[-1])
 
     def _sr_check_phase(self, total, c2v, synd_chk, gen):
         """The check phase of the stochastically rounded loop: the plain
@@ -832,15 +845,16 @@ class QCDecoder:
             )
             self.iterations_run += min(K, maxiter - it)
             it += K
-            if bool(done.all()):        # the one host read per call
+            if _all_done(done):         # the one host read per call
                 break
         # total IS final for every frame: frozen at convergence in done
         # frames, after the last iteration in the others
-        conv = self._consistent_flat(total, synd)
-        done = done.bool()
-        iters = torch.where(conv & ~done, min(it, maxiter), iters)
-        done = done | conv
-        iters = torch.where(done, iters, maxiter)
+        with span("rr.decoder.tail"):
+            conv = self._consistent_flat(total, synd)
+            done = done.bool()
+            iters = torch.where(conv & ~done, min(it, maxiter), iters)
+            done = done | conv
+            iters = torch.where(done, iters, maxiter)
         return done, iters, total.reshape(self.vnum, B)
 
     def _decode_layered(self, prior_vb, synd_cb, max_iterations: int):
@@ -864,7 +878,7 @@ class QCDecoder:
         done = self._consistent_flat(prior, synd)
         iters = torch.zeros(B, dtype=torch.int32, device=dev)
         it = 0
-        while it < maxiter and not bool(done.all()):
+        while it < maxiter and not _all_done(done):
             # sweeps past max_iterations would change nothing returned
             for swp in range(it + 1, min(it + self.layered_chunk,
                                          maxiter) + 1):
@@ -901,7 +915,7 @@ class QCDecoder:
         done = self._consistent_flat(prior, synd).to(torch.int32)
         iters = torch.zeros(B, dtype=torch.int32, device=dev)
         it = 0
-        while it < maxiter and not bool(done.all()):
+        while it < maxiter and not _all_done(done):
             self.sweeps_step(
                 self.tables, it, maxiter, total, c2v, synd8, done, iters,
                 rule=self.rule, k_sweeps=K, ms_alpha=self.minsum_alpha,

@@ -49,6 +49,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils.trace import span
 from .boxplus import (
     BIG, MINSUM_ALPHA, minsum_extrinsic_mag, minsum_mag, phi_llr,
     tanhfb_extrinsic_mag,
@@ -79,6 +80,21 @@ __all__ = [
 RULES = {"sumproduct": 0, "tanhfb": 1, "minsum": 2}
 # widest check row the kernels take (a row's sign bits fill one word)
 MAX_DC = 32
+
+
+def _spanned(entry):
+    """A decoder kernel's entry, each call inside the profiler span
+    ``rr.kernel.<name>`` (:func:`~qamreconciliation_tpu_torch.utils.trace.
+    span`), on the card and on the CPU alike."""
+    name = f"rr.kernel.{entry.__name__}"
+
+    @functools.wraps(entry)
+    def call(*args, **kw):
+        with span(name):
+            return entry(*args, **kw)
+    return call
+
+
 # (totals dtype, message dtype) pairs the kernels take, in their numbering
 _KERNEL_DTYPES = {
     (torch.float32, torch.float32): (0, 0),
@@ -388,6 +404,7 @@ def bp_check_phase_qc_ref(t, c2v, synd, tiny: float = 1e-30, *,
     return new.to(out_dtype), viol
 
 
+@_spanned
 def bp_check_phase_qc(t, c2v, synd, tiny: float = 1e-30, *,
                       rule: str = "sumproduct",
                       ms_alpha: float = MINSUM_ALPHA, ms_beta: float = 0.0):
@@ -844,6 +861,7 @@ def bp_decode_rounds_qc_ref(tables, it0: int, maxiter: int, total, c2v,
     return total, c2v, done, iters
 
 
+@_spanned
 def bp_decode_rounds_qc(tables, it0: int, maxiter: int, total, c2v, prior,
                         synd, done, iters, *, rule: str = "sumproduct",
                         k_rounds: int = 8, tiny: float = 1e-30,
@@ -994,6 +1012,7 @@ def bp_layered_sweeps_qc_ref(tables, it0: int, maxiter: int, total, c2v,
     return total, c2v, done, iters
 
 
+@_spanned
 def bp_layered_sweeps_qc(tables, it0: int, maxiter: int, total, c2v, synd,
                          done, iters, *, rule: str = "sumproduct",
                          k_sweeps: int = 4, tiny: float = 1e-30,
@@ -1175,6 +1194,7 @@ def bp_check_phase_generic_ref(t, c2v, synd, c_mask, tiny: float = 1e-30,
     return new.to(out_dtype), viol
 
 
+@_spanned
 def bp_check_phase_generic(t, c2v, synd, c_mask, tiny: float = 1e-30, *,
                            rule: str = "sumproduct",
                            ms_alpha: float = MINSUM_ALPHA,
@@ -1268,6 +1288,7 @@ def check_node_update_fused_ref(v2c_c, synd, c_mask, tiny: float = 1e-30):
                             MINSUM_ALPHA, 0.0)
 
 
+@_spanned
 def check_node_update_fused(v2c_c, synd, c_mask, tiny: float = 1e-30):
     """Check-major phi sum-product check update, the counterpart of the JAX
     package's ``check_node_update_pallas`` (body ``_kernel``).

@@ -37,6 +37,7 @@ from ..models.alphabet import PAMAlphabet
 from ..models.matrix import Matrix
 from ..models.noisemapper import NoiseMapper
 from ..ops.llr import y_to_lappr_gray_bits
+from ..utils.trace import span
 
 __all__ = ["ReconciliationEngine", "PointResult", "round_generator",
            "point_seed", "bf16_normal", "run_rounds", "dispatched",
@@ -131,7 +132,9 @@ def run_rounds(round_fn, n_rounds: int, frames_per_round: int, stop):
 
     def accumulate(out):
         nonlocal frames
-        for i, v in enumerate(out.tolist()):    # one host read
+        with span("rr.engine.read"):
+            counts = out.tolist()               # one host read
+        for i, v in enumerate(counts):
             total[i] += v
         frames += frames_per_round
 
@@ -190,9 +193,10 @@ def dispatched(round_fn, rounds_per_dispatch: int):
         return round_fn
 
     def dispatch(d):
-        out = round_fn(d * R)
-        for s in range(1, R):
-            out = out + round_fn(d * R + s)
+        with span("rr.engine.dispatch"):
+            out = round_fn(d * R)
+            for s in range(1, R):
+                out = out + round_fn(d * R + s)
         return out
 
     return dispatch
@@ -306,35 +310,39 @@ class ReconciliationEngine:
         # where it has one, else the generic graph's gather
         synd_fn = getattr(self.dec, "syndrome_from_bits", None) \
             or self.dec.graph.syndrome_from_bits
-        synd = synd_fn(word_nb.to(torch.int32))
+        with span("rr.engine.syndrome"):
+            synd = synd_fn(word_nb.to(torch.int32))
         success, iters, final = self.dec._build_decode()(
             lappr_nb, synd, max_iterations
         )
         K = self.K
-        errb = (final[:K] < 0).to(torch.int32) ^ word_nb[:K].to(torch.int32)
-        errors = torch.sum(errb, dim=0)                   # [B] int64
-        per_frame = torch.stack([
-            errors, (errors > 0).to(errors.dtype),
-            torch.where(success, iters, 0).to(errors.dtype),
-            success.to(errors.dtype),
-        ])                                                 # [4, B]
-        if points is None:
-            return per_frame.sum(dim=1)
-        return per_frame.reshape(4, points, -1).sum(dim=2).T
+        with span("rr.engine.count"):
+            errb = (final[:K] < 0).to(torch.int32) \
+                ^ word_nb[:K].to(torch.int32)
+            errors = torch.sum(errb, dim=0)               # [B] int64
+            per_frame = torch.stack([
+                errors, (errors > 0).to(errors.dtype),
+                torch.where(success, iters, 0).to(errors.dtype),
+                success.to(errors.dtype),
+            ])                                             # [4, B]
+            if points is None:
+                return per_frame.sum(dim=1)
+            return per_frame.reshape(4, points, -1).sum(dim=2).T
 
     def _sample_sb(self, generator, sigma):
         """Shaped PAM symbols x [S, B] and their AWGN samples y: the
         symbols from float32 uniforms in every dtype, as the JAX package
         draws them; bf16 noise by JAX's bf16 draw (:func:`bf16_normal`)."""
         shape = (self.N_symb, self.batch)
-        x = self.pa.random_symbols(generator, shape, self.device)
-        if self.dtype == torch.bfloat16:
-            noise = bf16_normal(generator, shape, self.device)
-        else:
-            noise = torch.randn(shape, generator=generator,
-                                device=self.device, dtype=self.dtype)
-        sigma = torch.tensor(sigma, dtype=self.dtype)
-        y = self.pa.index_to_value(x, self.dtype) + sigma * noise
+        with span("rr.engine.sample"):
+            x = self.pa.random_symbols(generator, shape, self.device)
+            if self.dtype == torch.bfloat16:
+                noise = bf16_normal(generator, shape, self.device)
+            else:
+                noise = torch.randn(shape, generator=generator,
+                                    device=self.device, dtype=self.dtype)
+            sigma = torch.tensor(sigma, dtype=self.dtype)
+            y = self.pa.index_to_value(x, self.dtype) + sigma * noise
         return x, y
 
     def _softening_inputs(self, nm, x, y, alpha):
@@ -381,12 +389,13 @@ class ReconciliationEngine:
     def round_inputs(self, mode, nm, x, y, sigma, alpha):
         """The decoder's LLRs [N, B] and the word [N, B] of a ``mode``
         round on symbols ``x`` and samples ``y`` ([S, B])."""
-        if mode == "softening":
-            return self._softening_inputs(nm, x, y, alpha)
-        if mode == "hard":
-            return self._hard_inputs(nm, x, y)
-        if mode == "direct":
-            return self._direct_inputs(x, y, sigma)
+        with span("rr.engine.inputs"):
+            if mode == "softening":
+                return self._softening_inputs(nm, x, y, alpha)
+            if mode == "hard":
+                return self._hard_inputs(nm, x, y)
+            if mode == "direct":
+                return self._direct_inputs(x, y, sigma)
         raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
 
     def round(self, mode, nm, sigma, alpha, max_iterations, generator=None,
@@ -395,9 +404,11 @@ class ReconciliationEngine:
         NoiseMapper (:meth:`mode_noisemapper`); ``alpha`` scales the
         softening LLRs only.  ``xy=(x, y)`` injects the symbols and samples
         in place of drawing them from ``generator``."""
-        x, y = xy if xy is not None else self._sample_sb(generator, sigma)
-        lappr, word = self.round_inputs(mode, nm, x, y, sigma, alpha)
-        return self._decode_and_count_nb(lappr, word, max_iterations)
+        with span("rr.engine.round"):
+            x, y = (xy if xy is not None
+                    else self._sample_sb(generator, sigma))
+            lappr, word = self.round_inputs(mode, nm, x, y, sigma, alpha)
+            return self._decode_and_count_nb(lappr, word, max_iterations)
 
     def softening_round(self, nm, sigma, alpha, max_iterations,
                         generator=None, xy=None):
@@ -425,12 +436,13 @@ class ReconciliationEngine:
         table alone (no sign configuration, no fit), none for direct."""
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
-        if mode == "softening":
-            return self.make_noisemapper(snr_dB, nmconfig)
-        if mode == "hard":
-            return NoiseMapper(self.pa, self.noise_var(snr_dB), None,
-                               dtype=self.dtype, device=self.device,
-                               fy_mode=self.fy_mode)
+        with span("rr.engine.setup"):
+            if mode == "softening":
+                return self.make_noisemapper(snr_dB, nmconfig)
+            if mode == "hard":
+                return NoiseMapper(self.pa, self.noise_var(snr_dB), None,
+                                   dtype=self.dtype, device=self.device,
+                                   fy_mode=self.fy_mode)
         return None
 
     def noise_var(self, snr_dB: float) -> float:
@@ -462,19 +474,22 @@ class ReconciliationEngine:
         already issued are counted).  ``timer``, a list, gets the point's
         seconds appended.
         """
-        nm = self.mode_noisemapper(mode, snr_dB, nmconfig)
-        sigma = math.sqrt(self.noise_var(snr_dB))
-        it0 = self.dec.iterations_run
-        total, frames, elapsed = run_rounds(
-            seeded_dispatches(
-                lambda gen: self.round(mode, nm, sigma, alpha,
-                                       decoder_iterations, generator=gen),
-                seed, self.rounds_per_dispatch, self.device, self.mesh),
-            max(1, math.ceil(simulation_loops / self.frames_per_round)),
-            self.frames_per_round,
-            lambda errs, ferrs, frames: (ferrs >= ferr_count_min
-                                         and frames > simulation_loops / 20),
-        )
+        with span("rr.engine.point"):
+            nm = self.mode_noisemapper(mode, snr_dB, nmconfig)
+            sigma = math.sqrt(self.noise_var(snr_dB))
+            it0 = self.dec.iterations_run
+            total, frames, elapsed = run_rounds(
+                seeded_dispatches(
+                    lambda gen: self.round(mode, nm, sigma, alpha,
+                                           decoder_iterations,
+                                           generator=gen),
+                    seed, self.rounds_per_dispatch, self.device, self.mesh),
+                max(1, math.ceil(simulation_loops / self.frames_per_round)),
+                self.frames_per_round,
+                lambda errs, ferrs, frames: (
+                    ferrs >= ferr_count_min
+                    and frames > simulation_loops / 20),
+            )
         if timer is not None:
             timer.append(elapsed)
         return point_result(snr_dB, total, frames, elapsed, self.K,
@@ -516,8 +531,6 @@ class ReconciliationEngine:
                  else [int(s) for s in seeds])
         if len(seeds) != P:
             raise ValueError("one seed per SNR point")
-        nms = [self.mode_noisemapper(mode, s, nmconfig) for s in points]
-        sigmas = [math.sqrt(self.noise_var(s)) for s in points]
         R = self.rounds_per_dispatch
         rank = None if self.mesh is None else self.mesh.rank
         n_dispatches = max(1, math.ceil(simulation_loops
@@ -528,42 +541,48 @@ class ReconciliationEngine:
 
         def dispatch(d, pts):
             out = None
-            for s in range(R):
-                ins = []
-                for p in pts:
-                    gen = round_generator(seeds[p], d * R + s, self.device,
-                                          rank)
-                    x, y = self._sample_sb(gen, sigmas[p])
-                    ins.append(self.round_inputs(mode, nms[p], x, y,
-                                                 sigmas[p], alpha))
-                counters = self._decode_and_count_nb(
-                    torch.cat([lappr for lappr, _ in ins], dim=1),
-                    torch.cat([word for _, word in ins], dim=1),
-                    decoder_iterations, points=len(pts))
-                out = counters if out is None else out + counters
+            with span("rr.engine.dispatch"):
+                for s in range(R):
+                    ins = []
+                    for p in pts:
+                        gen = round_generator(seeds[p], d * R + s,
+                                              self.device, rank)
+                        x, y = self._sample_sb(gen, sigmas[p])
+                        ins.append(self.round_inputs(mode, nms[p], x, y,
+                                                     sigmas[p], alpha))
+                    counters = self._decode_and_count_nb(
+                        torch.cat([lappr for lappr, _ in ins], dim=1),
+                        torch.cat([word for _, word in ins], dim=1),
+                        decoder_iterations, points=len(pts))
+                    out = counters if out is None else out + counters
             return out if self.mesh is None else self.mesh.all_reduce_sum(out)
 
         def accumulate(pts, out):
-            totals[pts] += np.asarray(out.tolist(), np.int64)   # one read
+            with span("rr.engine.read"):
+                counts = out.tolist()                   # one host read
+            totals[pts] += np.asarray(counts, np.int64)
             frames[pts] += self.frames_per_round
             for p in pts:
                 if (p in issuing and totals[p, 1] >= ferr_count_min
                         and frames[p] > simulation_loops / 20):
                     issuing.remove(p)
 
-        it0 = self.dec.iterations_run
-        t0 = time.perf_counter()
-        pending = None
-        for d in range(n_dispatches):
-            if not issuing:
-                break
-            out = (list(issuing), dispatch(d, issuing))
+        with span("rr.engine.point"):
+            nms = [self.mode_noisemapper(mode, s, nmconfig) for s in points]
+            sigmas = [math.sqrt(self.noise_var(s)) for s in points]
+            it0 = self.dec.iterations_run
+            t0 = time.perf_counter()
+            pending = None
+            for d in range(n_dispatches):
+                if not issuing:
+                    break
+                out = (list(issuing), dispatch(d, issuing))
+                if pending is not None:
+                    accumulate(*pending)
+                pending = out
             if pending is not None:
                 accumulate(*pending)
-            pending = out
-        if pending is not None:
-            accumulate(*pending)
-        elapsed = time.perf_counter() - t0
+            elapsed = time.perf_counter() - t0
         fps = float(frames.sum()) / elapsed if elapsed > 0 else 0.0
         iterations = self.dec.iterations_run - it0
         results = []
