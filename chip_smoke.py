@@ -38,8 +38,9 @@ Phases (each must pass, or the script exits non-zero):
      7, 128] and [16200, 14, 128] (the codes' masks) and [8100, 32, 128]
      (a random mask), bit for bit, each case with its plan, ms and its
      instance's ptxas registers and spills (phase_check_major);
- 10. the generic decoder on the exact DVB-S2 rate-1/2 H: kernel against
-     plain check phase on the card, bit for bit;
+ 10. the generic decoder on the exact DVB-S2 rate-1/2 H: kernels 4 and
+     gather 2's fold against the plain check phase and fold on the card,
+     bit for bit;
  11. main paths, counts set to 0 just before each and read just after: the
      generic sweep CLI (no --qc) on the exact rate-1/2 H and the regular
      (3,6) code, the --lift-qc CLI, and kernel 5's check-major update;
@@ -1126,14 +1127,15 @@ def phase_check_major(kernels):
 
 
 def phase_generic_decoder():
-    """The rate-1/2 generic decoder on the card (kernel 4) against the same
-    decoder with the plain check phase on the card, bit for bit on
-    (success, iters, final), min-sum in f32 and bf16, and f32 phi; B = 128
-    frames at mixed SNRs around the knee."""
+    """The rate-1/2 generic decoder on the card (kernel 4 and gather 2's
+    fold kernel) against the same decoder with the plain check phase and
+    fold on the card, bit for bit on (success, iters, final), min-sum in
+    f32 and bf16, and f32 phi; B = 128 frames at mixed SNRs around the
+    knee."""
     from qamreconciliation_tpu_torch.models.decoder import Decoder
     from qamreconciliation_tpu_torch.models.matrix import Matrix
     from qamreconciliation_tpu_torch.ops.kernels import (
-        bp_check_phase_generic_ref,
+        bp_check_phase_generic_ref, bp_var_totals_generic_ref,
     )
 
     vid, cid = dvbs2_code("1/2")
@@ -1149,6 +1151,7 @@ def phase_generic_decoder():
             dec = Decoder(vid, cid, device="cuda", **kw)
             if plain:
                 dec.check_phase = bp_check_phase_generic_ref
+                dec.var_fold = bp_var_totals_generic_ref
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out.append(dec.decode_batched(lappr, synd, 50))

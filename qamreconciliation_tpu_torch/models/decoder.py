@@ -12,9 +12,11 @@ iteration is
 * the fused check phase (ops/kernels.bp_check_phase_generic: the kernel on
   the card, its plain version on the CPU): the convergence test of the
   current totals and the new check->variable messages;
-* gather 2: each variable's incoming messages ``c2v[v_from_c_T]``
-  ([dv_max, V, B]), masked and summed in f32 (f64 for float64 decodes) in
-  slot order, plus the prior, rounded once to the storage dtype.
+* gather 2 (ops/kernels.bp_var_totals_generic: a kernel on the card that
+  reads only each variable's real edges, the masked loop over the dv_max
+  slots on the CPU): each variable's incoming messages ``c2v[v_from_c_T]``
+  summed in f32 (f64 for float64 decodes) in slot order, plus the prior,
+  rounded once to the storage dtype.
 
 Semantics as the JAX decoder: ``iters == 0`` and the LLRs passed through
 for a consistent input; a frame's ``iters`` is the 0-based iteration at
@@ -31,7 +33,7 @@ import torch
 
 from ..config import DEFAULT_DTYPE, as_dtype
 from ..ops.boxplus import MINSUM_ALPHA, box_plus
-from ..ops.kernels import bp_check_phase_generic
+from ..ops.kernels import bp_check_phase_generic, bp_var_totals_generic
 from ..utils.trace import span
 
 __all__ = ["TannerGraph", "Decoder"]
@@ -137,8 +139,9 @@ class TannerGraph:
     _INDEX = ("c_from_v", "v_from_c", "c_vids", "c_vids_T", "v_from_c_T")
 
     def on(self, device) -> dict:
-        """The int64 index tensors (keyed without the leading underscore)
-        and the int32 slot-major check mask ``c_mask_T_i`` on ``device``,
+        """The int64 index tensors (keyed without the leading underscore),
+        the int32 slot-major check mask ``c_mask_T_i`` and gather 2's int32
+        ``v_from_c_T_i`` and variable degrees ``dv_i`` on ``device``,
         uploaded once per device."""
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
@@ -149,6 +152,10 @@ class TannerGraph:
                   for name in self._INDEX}
             tb["c_mask_T_i"] = torch.as_tensor(
                 self._c_mask_T_np.astype(np.int32), device=device)
+            tb["v_from_c_T_i"] = torch.as_tensor(
+                self._v_from_c_T.astype(np.int32), device=device)
+            tb["dv_i"] = torch.as_tensor(self.dv.astype(np.int32),
+                                         device=device)
             self._cache[device] = tb
         return self._cache[device]
 
@@ -213,7 +220,8 @@ class Decoder:
     is always ``check_phase`` (kernel 4 on the card, its plain version on
     the CPU), which a test may replace with
     ``ops.kernels.bp_check_phase_generic_ref`` to run the plain version on
-    the card.
+    the card; gather 2's fold is ``var_fold`` in the same way
+    (``bp_var_totals_generic`` / ``bp_var_totals_generic_ref``).
     """
 
     def __init__(self, e_to_v, e_to_c, dtype=DEFAULT_DTYPE, *,
@@ -251,11 +259,11 @@ class Decoder:
         self._c_mask_T = torch.as_tensor(g._c_mask_T_np, dtype=torch.float32,
                                          device=self.device)
         self._c_mask_T_i = g.on(self.device)["c_mask_T_i"]
-        self._v_mask_T = torch.as_tensor(g._v_mask_T_np, device=self.device
-                                         ).to(self.sum_dtype)
-        # the fused check phase; a test may put the plain version
-        # (ops/kernels.bp_check_phase_generic_ref) here to run it on the card
+        # the fused check phase and gather 2's fold; a test may put the
+        # plain versions (ops/kernels.bp_check_phase_generic_ref,
+        # bp_var_totals_generic_ref) here to run them on the card
         self.check_phase = bp_check_phase_generic
+        self.var_fold = bp_var_totals_generic
         # BP iterations run on the device by this decoder
         self.iterations_run = 0
 
@@ -277,17 +285,11 @@ class Decoder:
 
     def var_totals(self, prior, c2v):
         """Gather 2: ``round(prior + sum_d c2v[v_from_c_T[d]] * v_mask[d])``
-        with the sum a left fold over the dv_max slots in ``sum_dtype``;
-        prior [V, B] in ``sum_dtype``, c2v [dc_max, C, B] -> [V, B] in the
-        storage dtype."""
-        flat = c2v.reshape(-1, c2v.shape[-1])
-        idx = self.graph.on(c2v.device)["v_from_c_T"]
-        acc = None
-        for d in range(self.graph.dv_max):
-            x = flat.index_select(0, idx[d]).to(self.sum_dtype) \
-                * self._v_mask_T[d][:, None]
-            acc = x if acc is None else acc + x
-        return (prior + acc).to(self.dtype)
+        with the sum a left fold over the dv_max slots in ``sum_dtype``
+        (``var_fold``); prior [V, B] in ``sum_dtype``, c2v [dc_max, C, B]
+        -> [V, B] in the storage dtype."""
+        tb = self.graph.on(c2v.device)
+        return self.var_fold(prior, c2v, tb["v_from_c_T_i"], tb["dv_i"])
 
     def decode_batched(self, prior_vb, synd_cb, max_iterations: int):
         """prior [V, B], synd [C, B] -> (success [B], iters [B] int32,
@@ -304,7 +306,8 @@ class Decoder:
             dev, B = self.device, prior_vb.shape[1]
             maxiter = int(max_iterations)
             prior = prior_vb.to(dev, self.dtype)
-            prior_sum = prior.to(self.sum_dtype)
+            # contiguous once a decode, as gather 2's kernel reads it
+            prior_sum = prior.to(self.sum_dtype).contiguous()
             synd = self._check_synd(synd_cb.to(dev, torch.int32))
 
             c2v = torch.zeros((self.graph.dc_max, synd.shape[0], B),

@@ -13,7 +13,12 @@ Five wrappers of the decoders' kernels, each replacing a Pallas TPU kernel of
   fused check phase of the generic decoder, slot-major and masked;
 * ``check_node_update_fused`` (a second kernel in the same source): the
   check-major phi check update of the JAX package's
-  ``check_node_update_pallas``, in float32 or bfloat16.
+  ``check_node_update_pallas``, in float32 or bfloat16;
+
+one of a generic decoder step that the JAX package leaves to XLA:
+
+* ``bp_var_totals_generic`` (``csrc/bp_var_totals_generic.cu``): gather 2,
+  each variable's new totals folded from its real edges' messages;
 
 and four more replacing the Pallas kernels of the JAX package's probes
 (``scripts/``):
@@ -65,6 +70,7 @@ __all__ = [
     "bp_layered_sweeps_qc", "bp_layered_sweeps_qc_ref",
     "bp_check_phase_generic", "bp_check_phase_generic_ref",
     "check_node_update_fused", "check_node_update_fused_ref",
+    "var_totals_vec", "bp_var_totals_generic", "bp_var_totals_generic_ref",
     "SmemGrants", "PROBE_MATHS", "ProbeTilePlan", "probe_tile_plan",
     "probe_tile_smem", "probe_instance", "check_math_probe",
     "check_math_probe_ref",
@@ -1347,6 +1353,115 @@ def check_node_update_fused(v2c_c, synd, c_mask, tiny: float = 1e-30):
 
 check_node_update_fused.launches = 0
 check_node_update_fused.plan = None
+
+
+# --------------------------------------------------------------------- #
+# Gather 2 of the generic decoder: each variable's totals from its real
+# edges (csrc/bp_var_totals_generic.cu; no Pallas kernel: the JAX package
+# leaves this step to XLA)
+
+
+def var_totals_vec(B: int, size: int, aligned: bool) -> int:
+    """Frames a thread of the fold kernel takes: 16 bytes of a message row
+    (``16 // size``) where B fills whole 16-byte units and every pointer is
+    16-byte aligned, else 1."""
+    wide = 16 // size
+    return wide if aligned and B % wide == 0 else 1
+
+
+def _var_totals_args(prior, c2v, table, degree):
+    if prior.dim() != 2 or c2v.dim() < 2 or table.dim() != 2 \
+            or degree.dim() != 1:
+        raise ValueError(
+            f"prior must be [V, B], c2v [..., B], table [dv_max, V] and "
+            f"degree [V], got {tuple(prior.shape)}, {tuple(c2v.shape)}, "
+            f"{tuple(table.shape)} and {tuple(degree.shape)}")
+    V, B = prior.shape
+    if c2v.shape[-1] != B or table.shape[1] != V or degree.shape[0] != V:
+        raise ValueError(
+            f"c2v [..., {B}], table [dv_max, {V}] and degree [{V}] must "
+            f"match prior [V, B] = {(V, B)}, got {tuple(c2v.shape)}, "
+            f"{tuple(table.shape)} and {tuple(degree.shape)}")
+    want = torch.float64 if c2v.dtype == torch.float64 else torch.float32
+    if prior.dtype != want:
+        raise TypeError(f"prior must be in the sum dtype {want} of "
+                        f"{c2v.dtype} messages, got {prior.dtype}")
+    if not (prior.device == c2v.device == table.device == degree.device):
+        raise ValueError("prior, c2v, table and degree must be on one "
+                         "device")
+
+
+def bp_var_totals_generic_ref(prior, c2v, table, degree):
+    """Plain PyTorch gather 2 (any device): the masked left fold over every
+    one of the dv_max slots; see :func:`bp_var_totals_generic`."""
+    _var_totals_args(prior, c2v, table, degree)
+    flat = c2v.reshape(-1, c2v.shape[-1])
+    mask = (torch.arange(table.shape[0], device=table.device)[:, None]
+            < degree).to(prior.dtype)
+    acc = None
+    for d in range(table.shape[0]):
+        x = flat.index_select(0, table[d]).to(prior.dtype) \
+            * mask[d][:, None]
+        acc = x if acc is None else acc + x
+    return (prior + acc).to(c2v.dtype)
+
+
+@_spanned
+def bp_var_totals_generic(prior, c2v, table, degree):
+    """Gather 2 of the generic decoder: each variable's new totals.
+
+    Args:
+      prior:  [V, B] the decode's prior in the sum dtype (float32; float64
+              for float64 messages).
+      c2v:    [dc_max, C, B] (any shape [..., B] whose flat rows ``table``
+              indexes) check->variable messages, in the storage dtype.
+      table:  [dv_max, V] integer: the flat row of c2v of each variable's
+              d-th edge in edge-id order (0 on padded slots).
+      degree: [V] integer: each variable's real edges, ``table``'s first
+              rows.
+
+    Returns ``round(prior + fold)`` [V, B] in c2v's dtype, where ``fold``
+    is the left fold in the sum dtype over the dv_max slots of ``c2v[table[
+    d]] * (d < degree)``: the real messages in slot order, and for a
+    variable with fewer edges the padded slots' ``c2v row 0 * 0.0`` (a +-0
+    that can turn a fold of -0 into +0).
+
+    CPU tensors run :func:`bp_var_totals_generic_ref`.  CUDA tensors run
+    the kernel, which reads only each variable's real rows and is bit-equal
+    to it, zero signs included; it takes contiguous float32 or bfloat16
+    messages, a float32 prior and int32 ``table`` and ``degree``; anything
+    else raises.
+    """
+    if c2v.device.type == "cpu":
+        return bp_var_totals_generic_ref(prior, c2v, table, degree)
+    _var_totals_args(prior, c2v, table, degree)
+    _require_cuda("bp_var_totals_generic", c2v)
+    code = _dtype_codes("bp_var_totals_generic", c2v.dtype, c2v.dtype)[0]
+    if table.dtype != torch.int32 or degree.dtype != torch.int32:
+        raise TypeError(f"table and degree must be int32, got {table.dtype} "
+                        f"and {degree.dtype}")
+    _require_contiguous(prior=prior, c2v=c2v, table=table, degree=degree)
+    (V, B), dv_max = prior.shape, table.shape[0]
+    out = torch.empty((V, B), dtype=c2v.dtype, device=c2v.device)
+    if B == 0:
+        return out
+    aligned = all(x.data_ptr() % 16 == 0 for x in (prior, c2v, out))
+    vec = var_totals_vec(B, c2v.element_size(), aligned)
+    lib = _library("bp_var_totals_generic", "ppppp" + "i" * 5 + "p")
+    with torch.cuda.device(c2v.device):
+        stream = torch.cuda.current_stream(c2v.device).cuda_stream
+        err = lib.bp_var_totals_generic_launch(
+            prior.data_ptr(), c2v.data_ptr(), table.data_ptr(),
+            degree.data_ptr(), out.data_ptr(), code, V, B, dv_max, vec,
+            stream)
+    _raise_on(err, "bp_var_totals_generic")
+    bp_var_totals_generic.launches += 1
+    bp_var_totals_generic.vec = vec
+    return out
+
+
+bp_var_totals_generic.launches = 0
+bp_var_totals_generic.vec = None
 
 
 # --------------------------------------------------------------------- #

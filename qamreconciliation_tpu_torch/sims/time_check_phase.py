@@ -10,7 +10,9 @@ Times kernel 1 (``bp_check_phase_qc``) at the dense QC headline shape
 DVB-S2 rate-1/2 shape [7, 32400, 128], for f32 phi, f32 min-sum and bf16
 tanh-F/B, and kernel 5 (``check_node_update_fused``, f32 phi) at the same
 code's check-major shape [32400, 7, 128] (CUDA events over runs of 10
-calls, the median of 10 runs), then the softening rounds of the two main paths that run them: the
+calls, the median of 10 runs) and gather 2's fold (``bp_var_totals_generic``,
+f32 and bf16, beside its plain version and its bytes bound) on that code,
+then the softening rounds of the two main paths that run them: the
 dense QC decoder on the headline code and the generic decoder on the exact
 rate-1/2 H, f32 phi, 128 frames at 3.5 and 4.0 dB (host clock over 4
 rounds after a warm-up; preamble, then decode + count, then the counters'
@@ -96,8 +98,9 @@ def headline_qc():
 
 
 def kernel_times():
-    """ms per call of kernels 1 and 4 at their main-path shapes, and of
-    kernel 5 at the check-major shape of kernel 4's code."""
+    """ms per call of kernels 1 and 4 at their main-path shapes, of kernel
+    5 at the check-major shape of kernel 4's code, and of gather 2's fold
+    on that code."""
     import torch
 
     from qamreconciliation_tpu_torch.models.decoder import TannerGraph
@@ -109,8 +112,9 @@ def kernel_times():
     c1 = torch.randn(shape, generator=gen, device="cuda")
     s1 = torch.randint(0, 2, (90, 360, 128), generator=gen, device="cuda",
                        dtype=torch.int32)
-    mask = torch.as_tensor(TannerGraph(*dvbs2_half(), device="cuda")
-                           ._c_mask_T_np, dtype=torch.float32, device="cuda")
+    g = TannerGraph(*dvbs2_half(), device="cuda")
+    mask = torch.as_tensor(g._c_mask_T_np, dtype=torch.float32,
+                           device="cuda")
     dc, C = mask.shape
     t4 = 3.0 * torch.randn((dc, C, 128), generator=gen, device="cuda")
     c4 = torch.randn((dc, C, 128), generator=gen, device="cuda") \
@@ -130,6 +134,34 @@ def kernel_times():
     a5 = (t4.transpose(0, 1).contiguous(), s4, mask.T.contiguous())
     out["kernel5 sumproduct float32"], = events_ms(
         lambda: K.check_node_update_fused(*a5), reps=10, run=10)
+    if hasattr(K, "bp_var_totals_generic"):
+        out.update(fold_times(g, c4, gen))
+    return out
+
+
+def fold_times(g, c2v, gen):
+    """Gather 2's fold (``bp_var_totals_generic``) and its plain version on
+    ``g`` with the messages ``c2v`` [dc_max, C, B], float32 and bfloat16,
+    beside the bound of its bytes (``utils/perf``)."""
+    import torch
+
+    from qamreconciliation_tpu_torch.ops import kernels as K
+    from qamreconciliation_tpu_torch.utils import perf
+
+    tb = g.on("cuda")
+    V, B = g.vnum, c2v.shape[-1]
+    prior = 3.0 * torch.randn((V, B), generator=gen, device="cuda")
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        a = (prior.to(dtype).float(), c2v.to(dtype), tb["v_from_c_T_i"],
+             tb["dv_i"])
+        out[f"fold {dt}"], out[f"fold plain {dt}"] = events_ms(
+            lambda: K.bp_var_totals_generic(*a),
+            lambda: K.bp_var_totals_generic_ref(*a), reps=10, run=10)
+        nbytes, ops = perf.var_totals_generic_work(
+            g.ednum, V, B, dtype, int((g.dv < g.dv_max).sum()))
+        out[f"fold bound {dt}"] = perf.bound(nbytes, ops)[0]
     return out
 
 

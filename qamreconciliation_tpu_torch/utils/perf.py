@@ -33,8 +33,9 @@ __all__ = ["HBM_BYTES_PER_S", "F32_OPS_PER_S", "BF16_OPS_PER_S",
            "OPS_PER_SLOT", "tensor_bytes", "bound", "check_phase_qc_work",
            "decode_rounds_work", "layered_sweeps_work",
            "check_phase_generic_work", "check_node_update_work",
-           "check_math_probe_work", "elementwise_chain_work",
-           "smem_ceiling_probe_work", "resident_bookkeeping_work"]
+           "var_totals_generic_work", "check_math_probe_work",
+           "elementwise_chain_work", "smem_ceiling_probe_work",
+           "resident_bookkeeping_work"]
 
 # H100 SXM data-sheet rates: HBM3 bytes/s, and f32 instructions/s outside
 # the tensor cores (67 TFLOP/s counts an FMA as two operations; none of the
@@ -136,6 +137,19 @@ def check_node_update_work(C, dc, B, dtype):
     slots = C * dc * B
     nbytes = 2 * slots * _size(dtype) + C * B * _I32 + C * dc * 4
     return nbytes, OPS_PER_SLOT["sumproduct"] * slots
+
+
+def var_totals_generic_work(E, V, B, m_dtype, padded):
+    """Gather 2's fold (``bp_var_totals_generic``): the E real edges'
+    message rows [E, B] in, c2v's row 0 once for the ``padded`` variables
+    with fewer than dv_max edges, the f32 prior [V, B] in, the int32 table
+    entries of the real edges and the degrees [V] in, the totals [V, B]
+    out; an f32 addition per real edge and per variable, and a product and
+    an addition per padded variable, per frame."""
+    size = _size(m_dtype)
+    nbytes = (E * B * size + (B * size if padded else 0) + V * B * 4
+              + E * _I32 + V * _I32 + V * B * size)
+    return nbytes, (E + V + 2 * padded) * B
 
 
 def check_math_probe_work(nb_c, dc, z, B, dtype, math):

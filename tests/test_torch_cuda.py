@@ -756,6 +756,197 @@ def test_cuda_generic_decode_matches_plain_and_cpu(kw, dtype):
                                    atol=1e-4)
 
 
+# ------------------------------------ gather 2 (bp_var_totals_generic)
+
+FOLD_BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+def fold_edges(seed, V, C, dv_max):
+    """(e_to_v, e_to_c) in shuffled edge-id order: degrees 1 to dv_max
+    (variable 0 at dv_max, variable 1 at 1), variable 3 with no edge."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(1, dv_max + 1, V)
+    deg[0], deg[1], deg[3] = dv_max, 1, 0
+    vid = np.repeat(np.arange(V), deg)
+    cid = np.concatenate([rng.choice(C, d, replace=False) for d in deg])
+    order = rng.permutation(vid.size)
+    return vid[order], cid[order]
+
+
+def fold_args(g, dtype, B, seed, offset=0):
+    """(prior [V, B] f32, c2v [dc_max, C, B], table, degree) on the card:
+    c2v zero on padded slots with a share of exact +-0, the prior rounded
+    to ``dtype``; ``offset`` elements shift c2v off 16-byte alignment."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mask = torch.as_tensor(g._c_mask_T_np, dtype=torch.float32,
+                           device="cuda")[:, :, None]
+    c2v = 4.0 * torch.randn((g.dc_max, g.cnum, B), generator=gen,
+                            device="cuda")
+    pick = torch.rand(c2v.shape, generator=gen, device="cuda")
+    c2v = torch.where(pick < 0.05, 0.0, torch.where(pick < 0.1, -0.0, c2v))
+    c2v = (c2v * mask).to(dtype)
+    if offset:
+        buf = torch.empty(c2v.numel() + offset, dtype=dtype, device="cuda")
+        buf[offset:] = c2v.reshape(-1)
+        c2v = buf[offset:].view(c2v.shape)
+    prior = 3.0 * torch.randn((g.vnum, B), generator=gen, device="cuda")
+    prior = torch.where(torch.rand(prior.shape, generator=gen,
+                                   device="cuda") < 0.1, -0.0, prior)
+    tb = g.on("cuda")
+    return (prior.to(dtype).float(), c2v, tb["v_from_c_T_i"], tb["dv_i"])
+
+
+def assert_fold_equal(args):
+    n0 = kernels.bp_var_totals_generic.launches
+    got = kernels.bp_var_totals_generic(*args)
+    assert kernels.bp_var_totals_generic.launches == n0 + 1
+    want = kernels.bp_var_totals_generic_ref(*args)
+    torch.cuda.synchronize()
+    bits = FOLD_BITS[got.dtype]
+    assert got.dtype == want.dtype == args[1].dtype
+    assert torch.equal(got.view(bits), want.view(bits))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fold_kernel_bit_equal_on_the_dvbs2_graph(dtype):
+    """The exact DVB-S2 rate-1/2 H (degrees 8/3/2/1) at B = 128, 16 bytes
+    of a row a thread."""
+    need_cuda()
+    from qamreconciliation_tpu_torch.models.decoder import TannerGraph
+    from qamreconciliation_tpu_torch.models.dvbs2 import (
+        expanded_edges, make_table,
+    )
+
+    g = TannerGraph(*expanded_edges(make_table("1/2", seed=0)),
+                    device="cuda")
+    assert g.dv_max == 8 and int(g.dv.min()) == 1
+    args = fold_args(g, dtype, 128, seed=11)
+    assert_fold_equal(args)
+    assert kernels.bp_var_totals_generic.vec == 16 // args[1].element_size()
+
+
+# (dv_max, B, c2v offset): dv_max 13 (past one batch of 8 in flight), B = 1,
+# B off 8 (the f32 path's 16 bytes still fit at 100, not at 37), unaligned
+FOLD_SHAPES = [(13, 128, 0), (13, 1, 0), (13, 100, 0), (13, 37, 0),
+               (13, 128, 1), (8, 64, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FOLD_SHAPES,
+                         ids=["x".join(map(str, s)) for s in FOLD_SHAPES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fold_kernel_bit_equal_on_random_graphs(dtype, shape):
+    need_cuda()
+    from qamreconciliation_tpu_torch.models.decoder import TannerGraph
+
+    dv_max, B, offset = shape
+    g = TannerGraph(*fold_edges(dv_max, 300, 120, dv_max), device="cuda")
+    assert g.dv_max == dv_max and g.dv[3] == 0
+    args = fold_args(g, dtype, B, seed=dv_max + B, offset=offset)
+    assert_fold_equal(args)
+    wide = 16 // args[1].element_size()
+    aligned = offset == 0
+    assert kernels.bp_var_totals_generic.vec == (
+        wide if aligned and B % wide == 0 else 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row0", [1.5, -1.5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fold_kernel_keeps_the_padded_slots_zero_sign(dtype, row0):
+    """Every real message and prior -0: a variable with padded slots takes
+    row 0's sign of zero (+0 for a positive row 0), one without keeps -0;
+    the kernel as the plain version, at B = 8 (16 bytes a thread) and 3."""
+    need_cuda()
+    from qamreconciliation_tpu_torch.models.decoder import TannerGraph
+
+    edges = [(0, 0), (0, 1), (0, 2), (0, 3), (1, 1), (1, 2), (2, 2), (4, 3),
+             (4, 1), (5, 0), (5, 1), (5, 2), (5, 3)]
+    g = TannerGraph(*(np.array(x) for x in zip(*edges)), device="cuda")
+    for B in (8, 3):
+        mask = torch.as_tensor(g._c_mask_T_np, device="cuda")
+        c2v = torch.full((g.dc_max, g.cnum, B), -0.0, device="cuda") \
+            * mask[:, :, None].float()
+        c2v[0, 0] = row0
+        prior = torch.full((g.vnum, B), -0.0, device="cuda")
+        tb = g.on("cuda")
+        got = assert_fold_equal((prior, c2v.to(dtype), tb["v_from_c_T_i"],
+                                 tb["dv_i"]))
+        negative = torch.signbit(got.float()).all(dim=1).tolist()
+        assert negative[1:] == [row0 < 0] * 4 + [True]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kw", [
+    (torch.bfloat16, dict(check_phi="tanhfb")), (torch.float32, dict())],
+    ids=["bf16-tanhfb", "f32-phi"])
+def test_generic_decode_with_the_fold_kernel_equals_the_plain_fold(dtype,
+                                                                  kw):
+    """50 iterations of the generic decoder on the exact DVB-S2 rate-1/2 H:
+    the fold kernel against ``var_fold`` set to the plain version on the
+    card, bit for bit on (done, iters, final), one launch an iteration."""
+    need_cuda()
+    from qamreconciliation_tpu_torch.models.dvbs2 import (
+        expanded_edges, make_table,
+    )
+
+    vid, cid = expanded_edges(make_table("1/2", seed=0))
+    rng = np.random.default_rng(6)
+    B = 32
+    word = rng.integers(0, 2, (B, 64800))
+    synd = Matrix(vid, cid).eval_syndrome(torch.from_numpy(word))
+    sigma = np.linspace(0.75, 1.05, B)[:, None]
+    llr = torch.from_numpy(
+        2 * ((1 - 2 * word) + rng.normal(0, 1, word.shape) * sigma)
+        / sigma ** 2).float()
+    dec = Decoder(vid, cid, dtype, device="cuda", **kw)
+    plain = Decoder(vid, cid, dtype, device="cuda", **kw)
+    plain.var_fold = kernels.bp_var_totals_generic_ref
+    n0, it0 = kernels.bp_var_totals_generic.launches, dec.iterations_run
+    got = dec.decode_batch(llr, synd, 50)
+    assert kernels.bp_var_totals_generic.launches - n0 \
+        == dec.iterations_run - it0 == 50
+    n1 = kernels.bp_var_totals_generic.launches
+    want = plain.decode_batch(llr, synd, 50)
+    assert kernels.bp_var_totals_generic.launches == n1
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    bits = FOLD_BITS[dtype]
+    assert torch.equal(got[2].contiguous().view(bits),
+                       want[2].contiguous().view(bits))
+    assert 0 < int(got[0].sum()) < B
+
+
+@pytest.mark.cuda
+def test_fold_kernel_rejects_what_it_does_not_take():
+    need_cuda()
+    from qamreconciliation_tpu_torch.models.decoder import TannerGraph
+
+    g = TannerGraph(*fold_edges(2, 60, 30, 5), device="cuda")
+    prior, c2v, table, dv = fold_args(g, torch.bfloat16, 16, seed=2)
+    fold = kernels.bp_var_totals_generic
+    with pytest.raises(TypeError, match="float64"):
+        fold(prior.double(), c2v.double(), table, dv)
+    with pytest.raises(TypeError, match="sum dtype"):
+        fold(prior.bfloat16(), c2v, table, dv)
+    with pytest.raises(TypeError, match="int32"):
+        fold(prior, c2v, table.long(), dv)
+    with pytest.raises(TypeError, match="int32"):
+        fold(prior, c2v, table, dv.long())
+    with pytest.raises(ValueError, match="match"):
+        fold(prior[:, :8].contiguous(), c2v, table, dv)
+    with pytest.raises(ValueError, match="one device"):
+        fold(prior.cpu(), c2v, table, dv)
+    with pytest.raises(ValueError, match="contiguous"):
+        fold(prior.t().contiguous().t(), c2v, table, dv)
+    with pytest.raises(ValueError, match="contiguous"):
+        fold(prior, c2v.transpose(1, 2).contiguous().transpose(1, 2), table,
+             dv)
+
+
 # ------------------------------------------------ the streaming batches
 
 

@@ -73,8 +73,14 @@ def test_tanner_graph_matches_jax(name):
                  "_c_vids", "_c_vids_T", "_v_from_c_T"):
         np.testing.assert_array_equal(getattr(tg, attr),
                                       np.asarray(getattr(jg, attr)))
+    # the int32 forms (the check mask, gather 2's slot table and degrees)
+    int32 = {"c_mask_T_i": tg._c_mask_T_np, "v_from_c_T_i": tg._v_from_c_T,
+             "dv_i": tg.dv}
     for name, idx in tg.on("cpu").items():
-        if name != "c_mask_T_i":
+        if name in int32:
+            assert idx.dtype == torch.int32
+            np.testing.assert_array_equal(idx.numpy(), int32[name])
+        else:
             np.testing.assert_array_equal(idx.numpy(),
                                           getattr(tg, "_" + name))
     rng = np.random.default_rng(1)

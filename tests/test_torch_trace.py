@@ -33,10 +33,10 @@ DECODERS = {
                                 resident=True),
     "generic": None,
 }
-KERNEL = {"qc_resident": "bp_decode_rounds_qc",
-          "qc_dense": "bp_check_phase_qc",
-          "qc_resident_layered": "bp_layered_sweeps_qc",
-          "generic": "bp_check_phase_generic"}
+KERNELS = {"qc_resident": ("bp_decode_rounds_qc",),
+           "qc_dense": ("bp_check_phase_qc",),
+           "qc_resident_layered": ("bp_layered_sweeps_qc",),
+           "generic": ("bp_check_phase_generic", "bp_var_totals_generic")}
 
 
 def _engine(kind):
@@ -118,15 +118,18 @@ def test_a_profiled_point_opens_each_span_in_its_place(kind, tmp_path):
     if kind == "generic":
         assert n["rr.decoder.gather1"] == n["rr.decoder.gather2"] == iters
         assert n["rr.decoder.poll"] == iters
+        # gather 2 is one fold call an iteration
+        assert n["rr.kernel.bp_var_totals_generic"] == iters
+        assert _inside(spans["rr.kernel.bp_var_totals_generic"],
+                       spans["rr.decoder.gather2"])
     else:
         assert "rr.decoder.gather2" not in n
     if kind == "qc_resident":
         # chunk 50 > 12 iterations: one kernel call and one poll a decode
         assert n["rr.kernel.bp_decode_rounds_qc"] == rounds
         assert n["rr.decoder.poll"] == rounds
-    kernels = [k for k in n if k.startswith("rr.kernel.")]
-    assert kernels == ([f"rr.kernel.{KERNEL[kind]}"] if kind in KERNEL
-                       else [])
+    kernels = sorted(k for k in n if k.startswith("rr.kernel."))
+    assert kernels == sorted(f"rr.kernel.{k}" for k in KERNELS.get(kind, ()))
     assert _inside(spans["rr.engine.setup"], spans["rr.engine.point"])
     assert _inside(spans["rr.engine.round"], spans["rr.engine.dispatch"])
     for name in ("rr.engine.sample", "rr.engine.inputs",
