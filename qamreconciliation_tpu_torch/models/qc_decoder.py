@@ -616,8 +616,10 @@ class QCDecoder:
         all_done = False
         while it < max_iterations and not all_done:
             if gen is None:
+                with span("rr.decoder.gather1"):
+                    t = self._check_inputs(total)
                 c2v, viol = self.check_phase(
-                    self._check_inputs(total), c2v, synd_chk,
+                    t, c2v, synd_chk,
                     rule=self.rule, ms_alpha=self.minsum_alpha,
                     ms_beta=self.minsum_beta,
                 )
@@ -626,9 +628,10 @@ class QCDecoder:
             conv = self._frame_violations(viol.sum(0)) == 0
             final, done, iters, all_done = self._record_converged(
                 conv, it, total, final, done, iters)
-            total = (
-                prior.to(self.sum_dtype) + self._var_sums(c2v)
-            ).to(self.acc_dtype)
+            with span("rr.decoder.gather2"):
+                total = (
+                    prior.to(self.sum_dtype) + self._var_sums(c2v)
+                ).to(self.acc_dtype)
             it += 1
             self.iterations_run += 1
         return self._finish_flooding(total, final, done, iters, synd_chk, it,

@@ -971,6 +971,26 @@ def test_qc_kernel_at_stream_batches(rule, dtype, B):
 
 
 @pytest.mark.cuda
+def test_qc_kernel_at_the_dense_cell_shape():
+    """Kernel 1 as the dense QC benchmark cell runs it: [90, 6, 360, 128],
+    bf16 totals and messages, the phi rule; bit for bit on the messages'
+    bit patterns and the violations."""
+    need_cuda()
+    t, c2v, synd = (torch.from_numpy(a).cuda()
+                    for a in make_inputs(43, (90, 6, 360, 128),
+                                         irregular=False))
+    args = (t.to(torch.bfloat16), c2v.to(torch.bfloat16), synd)
+    n0 = bp_check_phase_qc.launches
+    got, gviol = bp_check_phase_qc(*args, rule="sumproduct")
+    assert bp_check_phase_qc.launches == n0 + 1
+    want, wviol = bp_check_phase_qc_ref(*args, rule="sumproduct")
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(gviol, wviol)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B", [8, 64])
 @pytest.mark.parametrize("rule,m_dtype", [("minsum", torch.bfloat16),
                                           ("tanhfb", torch.bfloat16),

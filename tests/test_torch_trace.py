@@ -115,15 +115,17 @@ def test_a_profiled_point_opens_each_span_in_its_place(kind, tmp_path):
                                            else rounds)
     assert n["rr.engine.dispatch"] == n["rr.engine.read"] == rounds // R
     assert n["rr.decoder.poll"] >= rounds
-    if kind == "generic":
+    if kind in ("generic", "qc_dense"):
+        # the loops with a gather each way and a poll an iteration
         assert n["rr.decoder.gather1"] == n["rr.decoder.gather2"] == iters
         assert n["rr.decoder.poll"] == iters
+    else:
+        assert "rr.decoder.gather2" not in n
+    if kind == "generic":
         # gather 2 is one fold call an iteration
         assert n["rr.kernel.bp_var_totals_generic"] == iters
         assert _inside(spans["rr.kernel.bp_var_totals_generic"],
                        spans["rr.decoder.gather2"])
-    else:
-        assert "rr.decoder.gather2" not in n
     if kind == "qc_resident":
         # chunk 50 > 12 iterations: one kernel call and one poll a decode
         assert n["rr.kernel.bp_decode_rounds_qc"] == rounds
