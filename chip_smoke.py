@@ -9,7 +9,11 @@ Phases (each must pass, or the script exits non-zero):
   3. kernel 1 (bp_check_phase_qc) against its plain PyTorch version on the
      card, bit for bit, at the headline check-phase shape [90, 6, 360, 128],
      every rule and dtype pair, plus a case with +1e30 padded slots; each
-     case prints its launch plan (tile, stages, load path);
+     case prints its launch plan (tile, stages, load path); then the dense
+     loop's variable pass (bp_var_pass_qc) against its plain version at
+     the same shape, B = 128, float32 and bfloat16 with planted -0 priors
+     and messages: the totals and the t it writes, bit for bit
+     (phase_var_pass);
   4. kernel 2 (bp_decode_rounds_qc) against its plain version, bit for bit
      on all four state tensors: one K = 45 call at the headline shape [180,
      360, 128] (E = 540) from a mid-decode state, up to maxiter 50 as the
@@ -25,7 +29,8 @@ Phases (each must pass, or the script exits non-zero):
      and resident layered min-sum against the plain serial layered loop,
      bit for bit;
   7. main paths, each with every launch count set to 0 just before it and
-     read just after: the dense, resident and resident-layered soft
+     read just after: the dense (float32 and bfloat16; kernel 1 and the
+     variable pass once an iteration), resident and resident-layered soft
      reverse-reconciliation sweep CLIs on the headline code, with the
      device launches per wrapper call of the resident ones;
   8. quality watch: the knee FERs of the resident and resident-layered
@@ -236,10 +241,14 @@ ALTERNATING = np.array([0, 1, 0, 1], np.uint8)
 CSRC = "qamreconciliation_tpu_torch/csrc"
 PALLAS = "qamreconciliation_tpu/ops/pallas_kernels.py"
 # wrapper in ops/kernels.py -> (its source in csrc/, the TPU kernel it
-# replaces); kernel 5 is a second kernel in kernel 4's source; kernels 6
-# to 9 replace the Pallas kernels of four of the JAX package's probes
+# replaces); kernel 5 is a second kernel in kernel 4's source; the dense
+# variable pass replaces XLA's gather and sum of the JAX package's dense
+# loop; kernels 6 to 9 replace the Pallas kernels of four of the JAX
+# package's probes
 KERNELS = {
     "bp_check_phase_qc": ("bp_check_phase_qc", f"{PALLAS}:158"),
+    "bp_var_pass_qc": ("bp_var_totals_generic",
+                       "qamreconciliation_tpu/models/qc_decoder.py:1218"),
     "bp_decode_rounds_qc": ("bp_decode_rounds_qc", f"{PALLAS}:580"),
     "bp_layered_sweeps_qc": ("bp_layered_sweeps_qc", f"{PALLAS}:1185"),
     "bp_check_phase_generic": ("bp_check_phase_generic", f"{PALLAS}:224"),
@@ -507,6 +516,65 @@ def phase_kernel(kernels):
     record(kernels, "bp_check_phase_qc", **rec)
 
 
+def phase_var_pass(kernels):
+    """The dense loop's variable pass against its plain version on the
+    headline code at [90, 6, 360, 128], float32 and bfloat16 (the dense
+    cell's instance, 8 frames a thread): the totals and t, bit for bit,
+    zero signs included; the bfloat16 case is the kernel's record."""
+    from qamreconciliation_tpu_torch.models.qc_decoder import (
+        QCDecoder, make_qc_ldpc,
+    )
+    from qamreconciliation_tpu_torch.ops.kernels import (
+        bp_var_pass_qc, bp_var_pass_qc_ref,
+    )
+
+    base, _, _ = make_qc_ldpc(CODE["nb_v"], CODE["z"], CODE["dv"],
+                              CODE["dc"], seed=CODE["seed"])
+    B = SHAPE[-1]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def draw(shape, scale):
+        """Normal draws with a share of exact +0 and -0."""
+        x = scale * torch.randn(shape, generator=gen, device="cuda")
+        pick = torch.rand(shape, generator=gen, device="cuda")
+        return torch.where(pick < 0.05, 0.0,
+                           torch.where(pick < 0.1, -0.0, x))
+
+    prior, c2v, other = (draw((CODE["nb_v"], CODE["z"], B), 3.0),
+                         draw(SHAPE, 4.0),
+                         draw((CODE["nb_v"], CODE["z"], B), 2.0))
+    for dtype in (torch.float32, torch.bfloat16):
+        dec = QCDecoder(base, CODE["z"], dtype, device="cuda")
+        bits = torch.int32 if dtype == torch.float32 else torch.int16
+        t = dec.gather_totals(other.to(dtype))
+        assert tuple(t.shape) == SHAPE
+        t_plain = t.clone()
+        args = (prior.to(dtype), c2v.to(dtype), dec._var_rows,
+                dec._var_degree)
+        got = bp_var_pass_qc(*args, t)
+        want = bp_var_pass_qc_ref(*args, t_plain)
+        torch.cuda.synchronize()
+        name = f"{str(dtype)[6:]} B={B}"
+        assert torch.equal(got.view(bits), want.view(bits)), \
+            f"variable pass {name}: totals not bit-equal"
+        assert torch.equal(t.view(bits), t_plain.view(bits)), \
+            f"variable pass {name}: t not bit-equal"
+        vec = bp_var_pass_qc.vec
+        assert vec == 16 // got.element_size(), vec
+        ms, plain_ms = events_ms(lambda: bp_var_pass_qc(*args, t),
+                                 lambda: bp_var_pass_qc_ref(*args, t_plain),
+                                 reps=10, run=10)
+        nbytes, ops = perf.var_pass_qc_work(int(dec._var_degree.sum()),
+                                            dec.vnum, B, dtype)
+        bound_ms = perf.bound(nbytes, ops)[0]
+        log(f"[var pass] {name:14s} totals and t bit-equal kernel "
+            f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
+            f"({100 * bound_ms / ms:.1f}%)  {vec} frames a thread")
+        if dtype == torch.bfloat16:
+            record(kernels, "bp_var_pass_qc", max_abs_err=0.0, ms=ms,
+                   plain_ms=plain_ms, bytes=nbytes, ops=ops)
+
+
 def compare_state(got, want, what):
     """Raises unless every state tensor is bit-equal to the plain
     version's; returns the largest |difference| of the float ones (0)."""
@@ -685,19 +753,21 @@ def phase_sweeps(kernels):
 
 def phase_decoder():
     """The headline code decoded three ways from the same softening LLRs:
-    on the card through the kernel, on the card through the plain check
-    phase, and on the CPU (plain).  Kernel and plain on the card must agree
-    bit for bit.  Against the CPU, success, iters and the decoded frames'
-    hard decisions must agree and min-sum totals bit for bit; sum-product
-    totals drift there, since the CPU's and the card's libms differ by an
-    ulp and a decode compounds it over up to 50 iterations, so their largest
-    relative difference is reported."""
+    on the card through the kernels, on the card through the plain check
+    phase and variable pass, and on the CPU (plain).  Kernels and plain on
+    the card must agree bit for bit.  Against the CPU, success, iters and
+    the decoded frames' hard decisions must agree and min-sum totals bit
+    for bit; sum-product totals drift there, since the CPU's and the
+    card's libms differ by an ulp and a decode compounds it over up to 50
+    iterations, so their largest relative difference is reported."""
     from qamreconciliation_tpu_torch.models.alphabet import PAMAlphabet
     from qamreconciliation_tpu_torch.models.matrix import Matrix
     from qamreconciliation_tpu_torch.models.qc_decoder import (
         QCDecoder, make_qc_ldpc,
     )
-    from qamreconciliation_tpu_torch.ops.kernels import bp_check_phase_qc_ref
+    from qamreconciliation_tpu_torch.ops.kernels import (
+        bp_check_phase_qc_ref, bp_var_pass_qc_ref,
+    )
     from qamreconciliation_tpu_torch.sims.engine import (
         ReconciliationEngine, round_generator,
     )
@@ -722,6 +792,7 @@ def phase_decoder():
         t1 = time.perf_counter()
         plain = QCDecoder(base, CODE["z"], device="cuda", **kw)
         plain.check_phase = bp_check_phase_qc_ref
+        plain.var_pass = bp_var_pass_qc_ref
         sp, ip, fp = plain.decode_batched(lappr, synd, maxiter)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
@@ -871,6 +942,19 @@ def phase_main_paths(kernels):
         log_rounds("main dense", dec, Matrix(dec.vid, dec.cid), snr)
     record(kernels, "bp_check_phase_qc",
            launches=launches["bp_check_phase_qc"])
+    # the variable pass once an iteration (the gather once a decode)
+    assert launches["bp_var_pass_qc"] == iterations, launches
+    # dense bf16, the dense cell's instances
+    res, launches, _ = run_cli(qc_code(base, z), [
+        "--dtype", "bfloat16", "--snr", "3.5", "3.5", "--nsnr", "1",
+        "--simloops", "256"], "main dense bf16")
+    iterations16 = sum(r.bp_iterations for r in res)
+    assert iterations16 > 0
+    assert launches["bp_check_phase_qc"] == iterations16, launches
+    assert launches["bp_var_pass_qc"] == iterations16, launches
+    log(f"[main dense] variable pass launches: {iterations} (float32), "
+        f"{iterations16} (bfloat16), one an iteration")
+    record(kernels, "bp_var_pass_qc", launches=iterations16)
     # resident bf16 (kernel 2; tanh-F/B by the auto rule), the JAX
     # package's headline engine
     res, launches, dev = run_cli(qc_code(base, z), [
@@ -1337,7 +1421,9 @@ def phase_modes(kernels):
     from qamreconciliation_tpu_torch.models.qc_decoder import (
         QCDecoder, make_qc_ldpc,
     )
-    from qamreconciliation_tpu_torch.ops.kernels import bp_check_phase_qc_ref
+    from qamreconciliation_tpu_torch.ops.kernels import (
+        bp_check_phase_qc_ref, bp_var_pass_qc_ref,
+    )
     from qamreconciliation_tpu_torch.sims.engine import (
         ReconciliationEngine, round_generator,
     )
@@ -1387,6 +1473,7 @@ def phase_modes(kernels):
     # one hard and one direct round on the same inputs: kernel 1 == plain
     plain_dec = QCDecoder(base, z, device="cuda")
     plain_dec.check_phase = bp_check_phase_qc_ref
+    plain_dec.var_pass = bp_var_pass_qc_ref
     for mode, snr in (("hard", 5.0), ("direct", 3.5)):
         outs = []
         for dec in (kernel_dec, plain_dec):
@@ -3888,6 +3975,7 @@ def main(argv=None):
     build_all(sass_dir)
     kernels = {}
     for phase, args in ((phase_kernel, (kernels,)),
+                        (phase_var_pass, (kernels,)),
                         (phase_rounds, (kernels,)),
                         (phase_sweeps, (kernels,)),
                         (phase_decoder, ()),

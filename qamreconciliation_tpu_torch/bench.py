@@ -119,8 +119,9 @@ ROWS = ("decode", "irregular_qc", "true_shape_qc", "rate34_qc", "headline",
         "streaming", "mc_mi", "generic", "vs_baseline")
 # the decoders' kernel hooks (ops/kernels wrappers, each with a *_ref)
 HOOKS = ("check_phase", "rounds_step", "sweeps_step")
-# and the generic decoder's gather-2 fold, which the meter does not count
-PLAIN_HOOKS = HOOKS + ("var_fold",)
+# and the variable sides of the generic and dense QC decoders, which the
+# meter does not count
+PLAIN_HOOKS = HOOKS + ("var_fold", "var_pass")
 KERNELS = ("bp_check_phase_qc", "bp_decode_rounds_qc", "bp_layered_sweeps_qc",
            "bp_check_phase_generic")
 # BENCH_r05.json's (fer, mean_iters) of each row (JAX, TPU), printed beside

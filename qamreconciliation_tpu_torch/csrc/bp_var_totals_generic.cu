@@ -1,46 +1,66 @@
-// Gather 2 of the generic decoder, for Hopper (sm_90a): each variable's new
-// totals from the check->variable messages of its real edges, in one pass.
-// Replaces no Pallas kernel: the JAX package leaves this step to XLA's gather
-// and sum (qamreconciliation_tpu/models/decoder.py, the decode loop's
-// variable totals); the port's plain version is today's masked loop over
-// the dv_max padded slots, ops/kernels.py:bp_var_totals_generic_ref.
+// The variable side of two flooding decoders, for Hopper (sm_90a): each
+// variable's new totals from the check->variable messages of its real edges,
+// in one pass.  Replaces no Pallas kernel: the JAX package leaves this step to
+// XLA's gather and sum (qamreconciliation_tpu/models/decoder.py and
+// models/qc_decoder.py, the decode loops' variable totals).  Two entries share
+// one kernel template:
 //
-//   prior  [V, B] f32 (the decode's prior, in the sum dtype)
-//   c2v    [dc_max * C, B] f32 or bf16, slot-major rows (row d * C + c)
-//   table  [dv_max, V] int32: row of c2v of each variable's d-th edge, in
-//          edge-id order (padded slots hold 0)
+// * gather 2 of the generic decoder (bp_var_totals_generic_launch; plain
+//   version ops/kernels.py:bp_var_totals_generic_ref, the masked loop over
+//   the dv_max padded slots);
+// * the variable pass of the dense QC decoder (bp_var_pass_qc_launch; plain
+//   version ops/kernels.py:bp_var_pass_qc_ref, the fold of
+//   models/qc_decoder.fold_incoming plus the prior), which also writes each
+//   lane's totals into the check phase's next input t, so that the loop's
+//   gather of the totals runs once a decode.
+//
+//   prior  [V, B] f32 (generic: the decode's prior in the sum dtype) or c2v's
+//          dtype (QC: the prior in storage, widened here, exactly)
+//   c2v    [rows, B] f32 or bf16: the messages, any layout of flat rows
+//   table  [dv_max, V] int32: row of c2v of each variable's d-th edge, in the
+//          fold's order (padded slots hold 0)
 //   degree [V] int32: each variable's real edges (table's first rows)
 //   out    [V, B] c2v's dtype
+//   t      [rows, B] c2v's dtype (QC only): row table[d, v] of t takes
+//          out[v] for each real slot d; other rows are left as they are
 //
 //   out[v, b] = round(prior[v, b] + fold_v[b])
 //
 // fold_v is the left fold, in f32 with each addition rounded to nearest
 // (__fadd_rn; no contraction, no fast-math, no atomics, no split sums), of
 // the variable's real messages in slot order, each widened exactly to f32.
-// The plain version also adds every padded slot, as c2v row 0 times 0.0:
-// a +-0 (or a NaN), which can still turn a fold of -0 into +0.  Adding the
-// same term again changes nothing, so a variable with fewer than dv_max
+// Generic: the plain version also adds every padded slot, as c2v row 0 times
+// 0.0: a +-0 (or a NaN), which can still turn a fold of -0 into +0.  Adding
+// the same term again changes nothing, so a variable with fewer than dv_max
 // edges adds __fmul_rn(row 0, 0.0f) once after its real slots, and a
-// variable with no edge starts its fold from it.  The sum with the prior
-// rounds once to the storage type, to nearest even (__float2bfloat16_rn, as
-// PyTorch's cast on the card).  The results are bit-identical to the plain
-// version, zero signs included.
+// variable with no edge starts its fold from it.  QC: no padded-slot term; a
+// variable with no edge folds to +0 (the plain version's zero accumulator,
+// which turns a -0 prior into +0).  The sum with the prior rounds once to the
+// storage type, to nearest even (__float2bfloat16_rn, as PyTorch's cast on
+// the card).  The results are bit-identical to the plain versions, zero signs
+// included.
 //
 // Bound: bytes.  A call reads each real edge's message row once, the prior
-// and the two index arrays, and writes the totals: 3.2 adds a row element
-// at the DVB-S2 rate-1/2 degrees, far below the card's operation rate.  At
-// [7, 32400, 128] bf16 (226,799 edges, V = 64,800) that is 58.1 MB of
-// messages, 33.2 MB of prior, 16.6 MB of totals and about 1 MB of indices,
-// 0.033 ms at 3.35 TB/s.  c2v (58 MB) is larger than the 50 MB L2, so the
-// rows stream from device memory.
+// and the two index arrays, and writes the totals (and, QC, each real edge's
+// t row): 3.2 adds a row element at the DVB-S2 rate-1/2 degrees, far below
+// the card's operation rate.  Generic at [7, 32400, 128] bf16 (226,799
+// edges, V = 64,800): 58.1 MB of messages, 33.2 MB of prior, 16.6 MB of
+// totals and about 1 MB of indices, 0.033 ms at 3.35 TB/s.  QC at [90, 6,
+// 360, 128] bf16 (194,400 edges, V = 64,800): 49.8 MB of messages, 16.6 MB
+// of prior, 16.6 MB of totals, 49.8 MB of t and 1.0 MB of indices, 0.040 ms.
+// The messages are larger than half the 50 MB L2, so the rows stream from
+// device memory.
 // Design: a thread owns VEC consecutive frames (16 bytes of a message row:
 // 8 bf16 or 4 f32) of one variable, so a row of B frames is read by B / VEC
 // neighbouring lanes in one coalesced access.  It reads up to kBatch table
 // entries beside its degree (one round trip, not two), then issues the rows
 // of its real slots among them before it adds any, so up to 8 rows a thread
-// are in flight, and only the variable's real slots' rows are read.  Every
-// variable of a ragged B, or of unaligned tensors, takes one frame a thread
-// (VEC = 1) on the same arithmetic.
+// are in flight, and only the variable's real slots' rows are read.  The QC
+// pass then writes its rounded totals with one 16-byte store to out and one
+// to each real slot's t row (the same row numbers as its messages, so the
+// stores of neighbouring threads coalesce as the loads do).  Every variable
+// of a ragged B, or of unaligned tensors, takes one frame a thread (VEC = 1)
+// on the same arithmetic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -127,13 +147,16 @@ __device__ __forceinline__ void store_out(T* p, const float (&x)[VEC]) {
   }
 }
 
-template <typename T, int VEC>
+// kQC: the dense QC variable pass (a prior of type T, no padded-slot
+// term, the totals mirrored into t); else gather 2 of the generic decoder
+template <typename T, int VEC, bool kQC>
 __global__ void __launch_bounds__(kThreads)
-    var_totals_kernel(const float* __restrict__ prior,
+    var_totals_kernel(const void* __restrict__ prior,
                       const T* __restrict__ c2v,
                       const int* __restrict__ table,
                       const int* __restrict__ degree, T* __restrict__ out,
-                      int V, int B, int dv_max, int chunks) {
+                      T* __restrict__ t, int V, int B, int dv_max,
+                      int chunks) {
   const long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (g >= (long long)V * chunks) return;
   const int v = (int)(g / chunks);
@@ -142,7 +165,14 @@ __global__ void __launch_bounds__(kThreads)
   const size_t at = (size_t)v * B + b0;
 
   float pr[VEC], acc[VEC];
-  load_prior<VEC>(prior + at, pr);
+  if constexpr (kQC) {
+    Frames<T, VEC> p;
+    p.load(static_cast<const T*>(prior) + at);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) pr[i] = p.get(i);
+  } else {
+    load_prior<VEC>(static_cast<const float*>(prior) + at, pr);
+  }
 #pragma unroll
   for (int i = 0; i < VEC; ++i) acc[i] = 0.0f;
 
@@ -166,55 +196,93 @@ __global__ void __launch_bounds__(kThreads)
                                  : __fadd_rn(acc[i], x[j].get(i));
       }
   }
-  if (dv < dv_max) {  // the padded slots' one term: row 0 times 0.0
-    Frames<T, VEC> z;
-    z.load(c2v + b0);
+  if constexpr (!kQC) {
+    if (dv < dv_max) {  // the padded slots' one term: row 0 times 0.0
+      Frames<T, VEC> z;
+      z.load(c2v + b0);
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      const float p = __fmul_rn(z.get(i), 0.0f);
-      acc[i] = dv == 0 ? p : __fadd_rn(acc[i], p);
+      for (int i = 0; i < VEC; ++i) {
+        const float p = __fmul_rn(z.get(i), 0.0f);
+        acc[i] = dv == 0 ? p : __fadd_rn(acc[i], p);
+      }
     }
   }
 #pragma unroll
   for (int i = 0; i < VEC; ++i) acc[i] = __fadd_rn(pr[i], acc[i]);
   store_out<T, VEC>(out + at, acc);
+  if constexpr (kQC) {
+    // the same totals into t's row of each real slot: the rows of the
+    // messages just read (their table entries are cached)
+    for (int d0 = 0; d0 < dv; d0 += kBatch) {
+      int row[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+        row[j] = d0 + j < dv ? __ldg(table + (size_t)(d0 + j) * V + v) : 0;
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+        if (d0 + j < dv) store_out<T, VEC>(t + (size_t)row[j] * B + b0, acc);
+    }
+  }
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool kQC>
 int launch(const void* prior, const void* c2v, const void* table,
-           const void* degree, void* out, int V, int B, int dv_max,
+           const void* degree, void* out, void* t, int V, int B, int dv_max,
            cudaStream_t s) {
   const int chunks = B / VEC;
   const long long threads = (long long)V * chunks;
   const long long grid = (threads + kThreads - 1) / kThreads;
   if (grid > INT_MAX) return (int)cudaErrorInvalidValue;
-  var_totals_kernel<T, VEC><<<(int)grid, kThreads, 0, s>>>(
-      static_cast<const float*>(prior), static_cast<const T*>(c2v),
-      static_cast<const int*>(table), static_cast<const int*>(degree),
-      static_cast<T*>(out), V, B, dv_max, chunks);
+  var_totals_kernel<T, VEC, kQC><<<(int)grid, kThreads, 0, s>>>(
+      prior, static_cast<const T*>(c2v), static_cast<const int*>(table),
+      static_cast<const int*>(degree), static_cast<T*>(out),
+      static_cast<T*>(t), V, B, dv_max, chunks);
   return (int)cudaGetLastError();
+}
+
+// the four (dtype, VEC) instances of one entry
+template <bool kQC>
+int dispatch(const void* prior, const void* c2v, const void* table,
+             const void* degree, void* out, void* t, int dtype, int V, int B,
+             int dv_max, int vec, void* stream) {
+  if (V < 1 || B < 1 || dv_max < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32 && vec == 1)
+    return launch<float, 1, kQC>(prior, c2v, table, degree, out, t, V, B,
+                                 dv_max, s);
+  if (dtype == kF32 && vec == 4 && B % 4 == 0)
+    return launch<float, 4, kQC>(prior, c2v, table, degree, out, t, V, B,
+                                 dv_max, s);
+  if (dtype == kBF16 && vec == 1)
+    return launch<__nv_bfloat16, 1, kQC>(prior, c2v, table, degree, out, t,
+                                         V, B, dv_max, s);
+  if (dtype == kBF16 && vec == 8 && B % 8 == 0)
+    return launch<__nv_bfloat16, 8, kQC>(prior, c2v, table, degree, out, t,
+                                         V, B, dv_max, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // The fold with VEC frames a thread (ops/kernels.py var_totals_vec: 1, or
 // 16 bytes of the message dtype when B fills whole 16-byte units and every
-// pointer is 16-byte aligned); returns cudaGetLastError() after the launch
-// (0 = ok), or cudaErrorInvalidValue for arguments the kernel does not take.
+// pointer is 16-byte aligned); each entry returns cudaGetLastError() after
+// the launch (0 = ok), or cudaErrorInvalidValue for arguments the kernel
+// does not take.
 extern "C" int bp_var_totals_generic_launch(
     const void* prior, const void* c2v, const void* table, const void* degree,
     void* out, int dtype, int V, int B, int dv_max, int vec, void* stream) {
-  if (V < 1 || B < 1 || dv_max < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32 && vec == 1)
-    return launch<float, 1>(prior, c2v, table, degree, out, V, B, dv_max, s);
-  if (dtype == kF32 && vec == 4 && B % 4 == 0)
-    return launch<float, 4>(prior, c2v, table, degree, out, V, B, dv_max, s);
-  if (dtype == kBF16 && vec == 1)
-    return launch<__nv_bfloat16, 1>(prior, c2v, table, degree, out, V, B,
-                                    dv_max, s);
-  if (dtype == kBF16 && vec == 8 && B % 8 == 0)
-    return launch<__nv_bfloat16, 8>(prior, c2v, table, degree, out, V, B,
-                                    dv_max, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(prior, c2v, table, degree, out, nullptr, dtype, V,
+                         B, dv_max, vec, stream);
+}
+
+// The dense QC variable pass: as above with a prior of c2v's dtype, and the
+// totals also written to t's rows of the real slots.
+extern "C" int bp_var_pass_qc_launch(const void* prior, const void* c2v,
+                                     const void* table, const void* degree,
+                                     void* out, void* t, int dtype, int V,
+                                     int B, int dv_max, int vec,
+                                     void* stream) {
+  return dispatch<true>(prior, c2v, table, degree, out, t, dtype, V, B,
+                        dv_max, vec, stream);
 }

@@ -8,11 +8,14 @@ package's layouts (frames last): totals ``[nb_v, z, B]``, messages
 layered paths).  The decode loops of
 ``qamreconciliation_tpu.models.qc_decoder.QCDecoder``:
 
-* dense flooding: per iteration the totals are gathered into the message
-  layout, the fused check phase runs (ops/kernels.bp_check_phase_qc) and
-  the new messages are summed back per variable in a fixed order; with
-  ``sr_messages`` the plain check update runs instead and its bf16 message
-  stores are stochastically rounded;
+* dense flooding: the totals are gathered into the message layout once a
+  decode; per iteration the fused check phase runs
+  (ops/kernels.bp_check_phase_qc) and the variable pass
+  (ops/kernels.bp_var_pass_qc) sums the new messages back per variable in
+  a fixed order and writes the new totals into the check phase's next
+  input; with ``sr_messages`` the plain check update runs instead, its
+  bf16 message stores stochastically rounded, and the totals are summed
+  and gathered again every iteration;
 * compressed-state min-sum flooding: the messages kept as two magnitudes
   and a packed argmin/sign word per check, in plain PyTorch;
 * resident flooding: ``resident_chunk`` iterations per call of
@@ -37,8 +40,8 @@ from ..ops.boxplus import (
     BIG, MINSUM_ALPHA, minsum_mag, stochastic_round_bf16,
 )
 from ..ops.kernels import (
-    QCTables, bp_check_phase_qc, bp_check_phase_qc_ref, bp_decode_rounds_qc,
-    bp_layered_sweeps_qc, layered_sweep,
+    VAR_PASS_DTYPES, QCTables, bp_check_phase_qc, bp_check_phase_qc_ref,
+    bp_decode_rounds_qc, bp_layered_sweeps_qc, bp_var_pass_qc, layered_sweep,
 )
 from ..utils.trace import span
 
@@ -482,6 +485,7 @@ class QCDecoder:
         # test may put their plain versions (ops/kernels.*_ref) here to run
         # them on the card
         self.check_phase = bp_check_phase_qc
+        self.var_pass = bp_var_pass_qc
         self.rounds_step = bp_decode_rounds_qc
         self.sweeps_step = bp_layered_sweeps_qc
         # BP iterations (or layered sweeps) run on the device by this decoder
@@ -502,7 +506,9 @@ class QCDecoder:
         Scatter: for each variable block its incoming messages
         ``c2v[cb, d, (k + s) % z]`` in (cb ascending, slot ascending) order,
         variable blocks grouped by degree so every group stacks
-        rectangularly.
+        rectangularly; for the variable pass the same rows as an int32
+        table ``[dv_max, nb_v * z]`` of each lane's d-th message row (0 on
+        padded slots) and each lane's degree.
         """
         z, dc = self.z, self.dc
         j = np.arange(z)
@@ -525,6 +531,14 @@ class QCDecoder:
              deg)
             for deg, vbs in sorted(by_deg.items())
         ]
+        degree = np.array([len(parts) for parts in incoming], np.int32)
+        rows = np.zeros((max(degree), self.nb_v, z), np.int32)
+        for v, parts in enumerate(incoming):
+            if parts:
+                rows[:len(parts), v] = parts
+        self._var_rows = torch.as_tensor(rows.reshape(len(rows), -1),
+                                         device=dev)
+        self._var_degree = torch.as_tensor(np.repeat(degree, z), device=dev)
 
     def _gather(self, total, pad_value):
         """[nb_v, z, B] -> [nb_c, dc, z, B] by the circulant index, padded
@@ -591,14 +605,17 @@ class QCDecoder:
             return self._decode_dense(prior_vb, synd_cb, max_iterations)
 
     def _decode_dense(self, prior_vb, synd_cb, max_iterations: int):
-        """The dense flooding loop: one check-phase kernel call and one
-        host read per iteration (with ``sr_messages``, the stochastically
-        rounded plain check update in place of the kernel)."""
+        """The dense flooding loop: one check-phase kernel call, one
+        variable pass and one host read per iteration (with
+        ``sr_messages``, the stochastically rounded plain check update in
+        place of the kernel).  The check phase's input t is gathered from
+        the totals once a decode, then written by each variable pass
+        (:meth:`_variable_pass`)."""
         z, B = self.z, prior_vb.shape[1]
         max_iterations = int(max_iterations)
         prior = self._own_lanes(
             prior_vb.to(self.device, self.dtype).to(self.acc_dtype)
-            .reshape(self.nb_v, z, B))
+            .reshape(self.nb_v, z, B).contiguous())
         synd_chk = self._check_synd(synd_cb.to(self.device, torch.int32)
                                     .reshape(self.nb_c, z, B).contiguous())
 
@@ -606,6 +623,7 @@ class QCDecoder:
                           dtype=self.dtype, device=self.device)
         total = prior
         final = prior
+        t = None
         done = torch.zeros(B, dtype=torch.bool, device=self.device)
         iters = torch.zeros(B, dtype=torch.int32, device=self.device)
         gen = None
@@ -616,8 +634,9 @@ class QCDecoder:
         all_done = False
         while it < max_iterations and not all_done:
             if gen is None:
-                with span("rr.decoder.gather1"):
-                    t = self._check_inputs(total)
+                if t is None:
+                    with span("rr.decoder.gather1"):
+                        t = self._check_inputs(total)
                 c2v, viol = self.check_phase(
                     t, c2v, synd_chk,
                     rule=self.rule, ms_alpha=self.minsum_alpha,
@@ -626,12 +645,13 @@ class QCDecoder:
             else:
                 c2v, viol = self._sr_check_phase(total, c2v, synd_chk, gen)
             conv = self._frame_violations(viol.sum(0)) == 0
+            # the new totals are enqueued before the host reads the poll,
+            # so that the card works while the host waits and wakes
+            with span("rr.decoder.gather2"):
+                new_total, t = self._variable_pass(prior, c2v, t)
             final, done, iters, all_done = self._record_converged(
                 conv, it, total, final, done, iters)
-            with span("rr.decoder.gather2"):
-                total = (
-                    prior.to(self.sum_dtype) + self._var_sums(c2v)
-                ).to(self.acc_dtype)
+            total = new_total
             it += 1
             self.iterations_run += 1
         return self._finish_flooding(total, final, done, iters, synd_chk, it,
@@ -797,6 +817,25 @@ class QCDecoder:
         """The messages of the lanes updated here -> the sums [nb_v, lanes,
         B] in ``sum_dtype`` of the variable lanes held here."""
         return self.scatter_partials(c2v)
+
+    def _summed_totals(self, prior, c2v):
+        """The new totals [nb_v, lanes, B]: the prior plus the variable
+        sums, rounded once to the totals' dtype."""
+        return (prior.to(self.sum_dtype) + self._var_sums(c2v)).to(
+            self.acc_dtype)
+
+    def _variable_pass(self, prior, c2v, t):
+        """The dense loop's variable side: ``(total, t)``, the new totals
+        and the check phase's next input.  Given the current t, with totals
+        in the message dtype and that one of ``VAR_PASS_DTYPES`` (float32
+        or bfloat16), ``var_pass`` folds the totals and writes them into t
+        in place; otherwise the totals are summed and t is None, so that
+        the next iteration gathers it."""
+        if t is None or self.acc_dtype != self.dtype \
+                or self.dtype not in VAR_PASS_DTYPES:
+            return self._summed_totals(prior, c2v), None
+        return self.var_pass(prior, c2v, self._var_rows, self._var_degree,
+                             t), t
 
     def _own_lanes(self, x):
         """x [nb_v, z, B] of every lane -> the variable lanes held here."""

@@ -15,10 +15,13 @@ Five wrappers of the decoders' kernels, each replacing a Pallas TPU kernel of
   check-major phi check update of the JAX package's
   ``check_node_update_pallas``, in float32 or bfloat16;
 
-one of a generic decoder step that the JAX package leaves to XLA:
+two for decoder steps that the JAX package leaves to XLA:
 
 * ``bp_var_totals_generic`` (``csrc/bp_var_totals_generic.cu``): gather 2,
   each variable's new totals folded from its real edges' messages;
+* ``bp_var_pass_qc`` (the same source's QC entry): the dense QC decoder's
+  variable pass, the same fold plus the prior, its totals also written into
+  the check phase's next input;
 
 and four more replacing the Pallas kernels of the JAX package's probes
 (``scripts/``):
@@ -71,6 +74,7 @@ __all__ = [
     "bp_check_phase_generic", "bp_check_phase_generic_ref",
     "check_node_update_fused", "check_node_update_fused_ref",
     "var_totals_vec", "bp_var_totals_generic", "bp_var_totals_generic_ref",
+    "VAR_PASS_DTYPES", "bp_var_pass_qc", "bp_var_pass_qc_ref",
     "SmemGrants", "PROBE_MATHS", "ProbeTilePlan", "probe_tile_plan",
     "probe_tile_smem", "probe_instance", "check_math_probe",
     "check_math_probe_ref",
@@ -1462,6 +1466,133 @@ def bp_var_totals_generic(prior, c2v, table, degree):
 
 bp_var_totals_generic.launches = 0
 bp_var_totals_generic.vec = None
+
+
+# --------------------------------------------------------------------- #
+# The variable pass of the dense QC decoder: gather 2 and the next gather 1
+# in one (the same source's QC entry)
+
+
+# the dtypes the pass takes, plain or on the card; the dense loop keeps its
+# earlier steps for the others
+VAR_PASS_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _var_pass_args(prior, c2v, rows, degree, t):
+    if c2v.dim() < 2 or rows.dim() != 2 or degree.dim() != 1:
+        raise ValueError(
+            f"c2v must be [..., B], rows [dv_max, V] and degree [V], got "
+            f"{tuple(c2v.shape)}, {tuple(rows.shape)} and "
+            f"{tuple(degree.shape)}")
+    B, V = c2v.shape[-1], rows.shape[1]
+    if t.shape != c2v.shape or prior.shape[-1:] != (B,) \
+            or prior.numel() != V * B or degree.shape[0] != V:
+        raise ValueError(
+            f"t {tuple(t.shape)} must match c2v {tuple(c2v.shape)}, and "
+            f"prior [..., B] {tuple(prior.shape)} and degree "
+            f"{tuple(degree.shape)} the {V} variables of rows")
+    if not (prior.dtype == c2v.dtype == t.dtype):
+        raise TypeError(f"prior, c2v and t must share one dtype, got "
+                        f"{prior.dtype}, {c2v.dtype} and {t.dtype}")
+    if c2v.dtype not in VAR_PASS_DTYPES:
+        raise TypeError(f"the variable pass takes float32 or bfloat16, got "
+                        f"{c2v.dtype}")
+    if not (prior.device == c2v.device == rows.device == degree.device
+            == t.device):
+        raise ValueError("prior, c2v, rows, degree and t must be on one "
+                         "device")
+    _require_contiguous(t=t)
+
+
+def bp_var_pass_qc_ref(prior, c2v, rows, degree, t):
+    """Plain PyTorch variable pass (any device, no host sync): each
+    variable's messages left-folded slot by slot in float32, the order of
+    ``models/qc_decoder.fold_incoming``, plus the prior, then each real
+    row of t set to its variable's total; see :func:`bp_var_pass_qc`."""
+    _var_pass_args(prior, c2v, rows, degree, t)
+    (dv_max, V), B = rows.shape, c2v.shape[-1]
+    flat, t_rows = c2v.reshape(-1, B), t.view(-1, B)
+    real = degree.unsqueeze(0) > torch.arange(
+        dv_max, device=degree.device).unsqueeze(1)            # [dv_max, V]
+    fold = torch.zeros((V, B), dtype=torch.float32, device=c2v.device)
+    for d in range(dv_max):
+        m = flat.index_select(0, rows[d]).float()
+        fold = torch.where(real[d].unsqueeze(1), m if d == 0 else fold + m,
+                           fold)
+    total = (prior.reshape(V, B).float() + fold).to(c2v.dtype)
+    # each row of t -> the variable whose message it holds, -1 for the
+    # padded slots; the table's padded entries land on a spare last row
+    R = t_rows.shape[0]
+    lanes = torch.arange(V, device=c2v.device).expand(dv_max, V)
+    owner = torch.full((R + 1,), -1, dtype=torch.long, device=c2v.device)
+    owner.scatter_(0, torch.where(real, rows.long(), R).reshape(-1),
+                   lanes.reshape(-1))
+    owner = owner[:R]
+    t_rows.copy_(torch.where(owner.unsqueeze(1) >= 0,
+                             total.index_select(0, owner.clamp(min=0)),
+                             t_rows))
+    return total.view(prior.shape)
+
+
+@_spanned
+def bp_var_pass_qc(prior, c2v, rows, degree, t):
+    """The dense QC decoder's variable pass: each variable lane's new
+    totals, also written into the check phase's next input.
+
+    Args:
+      prior:  [..., B] (V flat rows) the decode's prior, in c2v's dtype.
+      c2v:    [nb_c, dc, z, B] (any shape [..., B] whose flat rows ``rows``
+              indexes) check->variable messages.
+      rows:   [dv_max, V] integer: the flat row of c2v of each variable's
+              d-th message, in the fold's order (the check block, then the
+              slot, ascending); 0 on padded slots.
+      degree: [V] integer: each variable's messages, ``rows``' first rows.
+      t:      c2v's shape and dtype, contiguous: the check phase's input,
+              updated in place; the same flat rows as the messages hold
+              each variable's total, other rows (the +1e30 padded slots of
+              short check rows) are not written.
+
+    Returns ``round(prior + fold)`` in prior's shape and c2v's dtype, where
+    ``fold`` is the left fold in float32 of the variable's messages in
+    slot order, +0 for a variable without messages; and writes it to
+    ``t``'s row ``rows[d, v]`` for every ``d < degree[v]``.
+
+    CPU tensors run :func:`bp_var_pass_qc_ref`.  CUDA tensors run the
+    kernel, which is bit-equal to it, zero signs included; it takes
+    contiguous tensors and int32 ``rows`` and ``degree``; anything else
+    raises.  Both take float32 or bfloat16 (``VAR_PASS_DTYPES``).
+    """
+    if c2v.device.type == "cpu":
+        return bp_var_pass_qc_ref(prior, c2v, rows, degree, t)
+    _var_pass_args(prior, c2v, rows, degree, t)
+    _require_cuda("bp_var_pass_qc", c2v)
+    code = _dtype_codes("bp_var_pass_qc", c2v.dtype, c2v.dtype)[0]
+    if rows.dtype != torch.int32 or degree.dtype != torch.int32:
+        raise TypeError(f"rows and degree must be int32, got {rows.dtype} "
+                        f"and {degree.dtype}")
+    _require_contiguous(prior=prior, c2v=c2v, rows=rows, degree=degree)
+    (dv_max, V), B = rows.shape, c2v.shape[-1]
+    out = torch.empty_like(prior)
+    if B == 0:
+        return out
+    aligned = all(x.data_ptr() % 16 == 0 for x in (prior, c2v, out, t))
+    vec = var_totals_vec(B, c2v.element_size(), aligned)
+    lib = _library("bp_var_totals_generic", "pppppp" + "i" * 5 + "p",
+                   "bp_var_pass_qc_launch")
+    with torch.cuda.device(c2v.device):
+        stream = torch.cuda.current_stream(c2v.device).cuda_stream
+        err = lib.bp_var_pass_qc_launch(
+            prior.data_ptr(), c2v.data_ptr(), rows.data_ptr(),
+            degree.data_ptr(), out.data_ptr(), t.data_ptr(), code, V, B,
+            dv_max, vec, stream)
+    _raise_on(err, "bp_var_pass_qc")
+    bp_var_pass_qc.launches += 1
+    bp_var_pass_qc.vec = vec
+    return out
+
+
+bp_var_pass_qc.launches = 0
+bp_var_pass_qc.vec = None
 
 
 # --------------------------------------------------------------------- #

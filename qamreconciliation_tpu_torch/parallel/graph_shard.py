@@ -255,6 +255,12 @@ class ShardedQCDecoder(QCDecoder):
             c2v.dtype)
         return self.plan.var_sums(c2v, recvs, self.sum_dtype)
 
+    def _variable_pass(self, prior, c2v, t):
+        """The sums of this rank's variable lanes from the exchanged
+        messages, plus the prior; no t, so every iteration gathers (and
+        exchanges) the totals' windows again."""
+        return self._summed_totals(prior, c2v), None
+
     def _totals_consistent(self, total, synd):
         """The consistency test of every check, from this rank's windowed
         t: its checks' violations, summed over the ranks."""

@@ -10,14 +10,17 @@ Times kernel 1 (``bp_check_phase_qc``) at the dense QC headline shape
 DVB-S2 rate-1/2 shape [7, 32400, 128], for f32 phi, f32 min-sum and bf16
 tanh-F/B, and kernel 5 (``check_node_update_fused``, f32 phi) at the same
 code's check-major shape [32400, 7, 128] (CUDA events over runs of 10
-calls, the median of 10 runs) and gather 2's fold (``bp_var_totals_generic``,
-f32 and bf16, beside its plain version and its bytes bound) on that code,
+calls, the median of 10 runs), gather 2's fold (``bp_var_totals_generic``,
+f32 and bf16, beside its plain version and its bytes bound) on that code
+and the dense QC variable pass (``bp_var_pass_qc``, the same) on the
+headline code,
 then the softening rounds of the two main paths that run them: the
-dense QC decoder on the headline code and the generic decoder on the exact
-rate-1/2 H, f32 phi, 128 frames at 3.5 and 4.0 dB (host clock over 4
-rounds after a warm-up; preamble, then decode + count, then the counters'
-host read, and the ms per BP iteration).  The resident part times kernel 2 (``bp_decode_rounds_qc``,
-bf16 tanh-F/B, one 50-iteration call) and kernel 3
+dense QC decoder on the headline code (f32 and bf16 messages) and the
+generic decoder on the exact rate-1/2 H, phi, 128 frames at 3.5 and 4.0
+dB (host clock over 4 rounds after a warm-up; preamble, then decode +
+count, then the counters' host read, and the ms per BP iteration).  The
+resident part times kernel 2 (``bp_decode_rounds_qc``, bf16 tanh-F/B,
+one 50-iteration call) and kernel 3
 (``bp_layered_sweeps_qc``, bf16 min-sum, one 4-sweep call) per step on the
 headline code and the z = 360 QC-IRA code (numpy-seeded LLRs, B = 128
 and 8; at B = 128 also calls of 1 and 16 sweeps and of 1 iteration, whose
@@ -136,6 +139,8 @@ def kernel_times():
         lambda: K.check_node_update_fused(*a5), reps=10, run=10)
     if hasattr(K, "bp_var_totals_generic"):
         out.update(fold_times(g, c4, gen))
+    if hasattr(K, "bp_var_pass_qc"):
+        out.update(var_pass_times(c1, gen))
     return out
 
 
@@ -162,6 +167,36 @@ def fold_times(g, c2v, gen):
         nbytes, ops = perf.var_totals_generic_work(
             g.ednum, V, B, dtype, int((g.dv < g.dv_max).sum()))
         out[f"fold bound {dt}"] = perf.bound(nbytes, ops)[0]
+    return out
+
+
+def var_pass_times(c2v, gen):
+    """The dense QC variable pass (``bp_var_pass_qc``) and its plain
+    version on the headline code with the messages ``c2v`` [90, 6, 360,
+    B], float32 and bfloat16, beside the bound of its bytes
+    (``utils/perf``)."""
+    import torch
+
+    from qamreconciliation_tpu_torch.models.qc_decoder import QCDecoder
+    from qamreconciliation_tpu_torch.ops import kernels as K
+    from qamreconciliation_tpu_torch.utils import perf
+
+    dec = QCDecoder(headline_qc(), 360, device="cuda")
+    B = c2v.shape[-1]
+    prior = 3.0 * torch.randn((dec.nb_v, dec.z, B), generator=gen,
+                              device="cuda")
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        t = dec.gather_totals(prior.to(dtype))
+        a = (prior.to(dtype), c2v.to(dtype), dec._var_rows, dec._var_degree,
+             t)
+        out[f"var pass {dt}"], out[f"var pass plain {dt}"] = events_ms(
+            lambda: K.bp_var_pass_qc(*a), lambda: K.bp_var_pass_qc_ref(*a),
+            reps=10, run=10)
+        nbytes, ops = perf.var_pass_qc_work(int(dec._var_degree.sum()),
+                                            dec.vnum, B, dtype)
+        out[f"var pass bound {dt}"] = perf.bound(nbytes, ops)[0]
     return out
 
 
@@ -392,8 +427,10 @@ def round_times():
     from qamreconciliation_tpu_torch.models.qc_decoder import QCDecoder
 
     qc = QCDecoder(headline_qc(), 360, device="cuda")
+    qc16 = QCDecoder(headline_qc(), 360, "bfloat16", device="cuda")
     vid, cid = dvbs2_half()
     paths = {"dense QC f32 phi": (qc, Matrix(qc.vid, qc.cid)),
+             "dense QC bf16 phi": (qc16, Matrix(qc.vid, qc.cid)),
              "generic DVB-S2 1/2 f32 phi": (Decoder(vid, cid,
                                                     device="cuda"),
                                             Matrix(vid, cid))}

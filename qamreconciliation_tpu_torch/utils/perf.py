@@ -33,7 +33,8 @@ __all__ = ["HBM_BYTES_PER_S", "F32_OPS_PER_S", "BF16_OPS_PER_S",
            "OPS_PER_SLOT", "tensor_bytes", "bound", "check_phase_qc_work",
            "decode_rounds_work", "layered_sweeps_work",
            "check_phase_generic_work", "check_node_update_work",
-           "var_totals_generic_work", "check_math_probe_work",
+           "var_totals_generic_work", "var_pass_qc_work",
+           "check_math_probe_work",
            "elementwise_chain_work", "smem_ceiling_probe_work",
            "resident_bookkeeping_work"]
 
@@ -150,6 +151,18 @@ def var_totals_generic_work(E, V, B, m_dtype, padded):
     nbytes = (E * B * size + (B * size if padded else 0) + V * B * 4
               + E * _I32 + V * _I32 + V * B * size)
     return nbytes, (E + V + 2 * padded) * B
+
+
+def var_pass_qc_work(E, V, B, dtype):
+    """The dense QC variable pass (``bp_var_pass_qc``): the E real edges'
+    message rows [E, B] in, the prior [V, B] in, the int32 table entries
+    of the real edges and the degrees [V] in, the totals [V, B] out and
+    the E real rows of t out, all but the int32s in ``dtype``; an f32
+    addition per edge and frame (a lane's fold adds dv - 1, the prior
+    one more)."""
+    size = _size(dtype)
+    nbytes = 2 * (E + V) * B * size + (E + V) * _I32
+    return nbytes, E * B
 
 
 def check_math_probe_work(nb_c, dc, z, B, dtype, math):

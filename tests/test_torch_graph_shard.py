@@ -254,6 +254,7 @@ def _qc_loop_state(mesh):
 
     own, phase, record = dec._own_lanes, dec.check_phase, \
         dec._record_converged
+    gather, var_side = dec._check_inputs, dec._variable_pass
 
     def own_lanes(x):
         y = own(x)
@@ -269,8 +270,19 @@ def _qc_loop_state(mesh):
         seen["state"].add((tuple(total.shape), tuple(final.shape)))
         return record(conv, it, total, final, *rest)
 
+    def check_inputs(total):
+        seen["calls"]["gather"] = seen["calls"].get("gather", 0) + 1
+        return gather(total)
+
+    def variable_pass(prior, c2v, t):
+        total, t_next = var_side(prior, c2v, t)
+        key = "pass, no t" if t_next is None else "pass, t"
+        seen["calls"][key] = seen["calls"].get(key, 0) + 1
+        return total, t_next
+
     dec._own_lanes, dec.check_phase = own_lanes, check_phase
     dec._record_converged = record_converged
+    dec._check_inputs, dec._variable_pass = check_inputs, variable_pass
     for name in ("all_gather", "exchange", "all_reduce_sum"):
         setattr(mesh, name, counting(name, getattr(mesh, name)))
     try:
@@ -549,9 +561,28 @@ def test_sharded_qc_loop_state_has_z_over_d_lanes(ranks, ranks4, world):
         assert st["check"] == {((6, 6, zl, B), (6, 6, zl, B), (6, zl, B))}
         assert st["state"] == {((12, zl, B), (12, zl, B))}
         assert st["final"] == (B, 12 * 16)
-        assert st["calls"] == {"exchange": 2 * its + 1,
-                               "all_reduce_sum": its + 1, "all_gather": 1}
+        calls = {k: v for k, v in st["calls"].items()
+                 if k in ("exchange", "all_reduce_sum", "all_gather")}
+        assert calls == {"exchange": 2 * its + 1,
+                         "all_reduce_sum": its + 1, "all_gather": 1}
         assert st["plan"][0] and st["plan"][1]
+
+
+@pytest.mark.parametrize("world", [WORLD, WORLD4])
+def test_sharded_qc_gathers_its_check_input_every_iteration(ranks, ranks4,
+                                                            world):
+    """The single-device dense loop gathers t once a decode and lets its
+    variable pass write the next; a ShardedQCDecoder rank keeps the two
+    earlier steps: its variable side hands back no t, so it gathers (and
+    exchanges) the totals' windows every iteration, and once more for the
+    end test of every check."""
+    results = ranks[0] if world == WORLD else ranks4
+    for r in results:
+        st = r["state"]
+        its = st["iterations"]
+        assert st["calls"]["gather"] == its + 1
+        assert st["calls"]["pass, no t"] == its
+        assert "pass, t" not in st["calls"]
 
 
 def test_mesh_exchange_moves_raw_bytes(ranks4):

@@ -1,6 +1,7 @@
 """The dense QC flooding loop as the benchmark's ``qc36.dense-3.5dB`` cell
-runs it (bf16, the phi sum-product rule): its two gather spans, once an
-iteration under a profiler and never without one; bit-equality with the
+runs it (bf16, the phi sum-product rule): its gather 1 span once a decode
+and its gather 2 span around the variable pass once an iteration under a
+profiler, and no span without one; bit-equality with the
 benchmark's frozen plain reference (``rrbench/decoders/qc_dense.py``) on a
 small QC (3,6) code, which a planted fault breaks; and the reference's
 copy of kernel 1's work count."""
@@ -107,8 +108,11 @@ def _span_counts(prof, path):
 
 
 @pytest.mark.parametrize("converging", [True, False])
-def test_a_profiled_dense_decode_opens_each_gather_once_an_iteration(
+def test_a_profiled_dense_decode_gathers_once_and_passes_each_iteration(
         converging, tmp_path):
+    """Gather 1 opens once a decode (the first iteration's t); every
+    iteration opens gather 2 around one variable pass, which writes the
+    next t."""
     code = _code()
     dec = _program(code)
     prior, synd = _inputs(code, converging, seed=5)
@@ -118,7 +122,8 @@ def test_a_profiled_dense_decode_opens_each_gather_once_an_iteration(
     iters = dec.iterations_run - it0
     n = _span_counts(prof, tmp_path / "trace.json")
     assert 0 < iters < MAXITER if converging else iters == MAXITER
-    assert n["rr.decoder.gather1"] == n["rr.decoder.gather2"] == iters
+    assert n["rr.decoder.gather1"] == 1
+    assert n["rr.decoder.gather2"] == n["rr.kernel.bp_var_pass_qc"] == iters
     assert n["rr.decoder.poll"] == n["rr.kernel.bp_check_phase_qc"] == iters
     assert n["rr.decoder.decode"] == n["rr.decoder.tail"] == 1
 

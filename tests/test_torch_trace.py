@@ -34,7 +34,7 @@ DECODERS = {
     "generic": None,
 }
 KERNELS = {"qc_resident": ("bp_decode_rounds_qc",),
-           "qc_dense": ("bp_check_phase_qc",),
+           "qc_dense": ("bp_check_phase_qc", "bp_var_pass_qc"),
            "qc_resident_layered": ("bp_layered_sweeps_qc",),
            "generic": ("bp_check_phase_generic", "bp_var_totals_generic")}
 
@@ -116,15 +116,20 @@ def test_a_profiled_point_opens_each_span_in_its_place(kind, tmp_path):
     assert n["rr.engine.dispatch"] == n["rr.engine.read"] == rounds // R
     assert n["rr.decoder.poll"] >= rounds
     if kind in ("generic", "qc_dense"):
-        # the loops with a gather each way and a poll an iteration
-        assert n["rr.decoder.gather1"] == n["rr.decoder.gather2"] == iters
-        assert n["rr.decoder.poll"] == iters
+        # the loops with gather 2 and a poll an iteration; the generic one
+        # gathers its check input every iteration, the dense one once a
+        # decode (its variable pass writes the next)
+        assert n["rr.decoder.gather2"] == n["rr.decoder.poll"] == iters
+        assert n["rr.decoder.gather1"] == (iters if kind == "generic"
+                                           else rounds)
     else:
         assert "rr.decoder.gather2" not in n
-    if kind == "generic":
+    if kind in ("generic", "qc_dense"):
         # gather 2 is one fold call an iteration
-        assert n["rr.kernel.bp_var_totals_generic"] == iters
-        assert _inside(spans["rr.kernel.bp_var_totals_generic"],
+        fold = ("bp_var_totals_generic" if kind == "generic"
+                else "bp_var_pass_qc")
+        assert n[f"rr.kernel.{fold}"] == iters
+        assert _inside(spans[f"rr.kernel.{fold}"],
                        spans["rr.decoder.gather2"])
     if kind == "qc_resident":
         # chunk 50 > 12 iterations: one kernel call and one poll a decode
