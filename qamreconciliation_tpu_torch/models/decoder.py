@@ -16,7 +16,10 @@ iteration is
   reads only each variable's real edges, the masked loop over the dv_max
   slots on the CPU): each variable's incoming messages ``c2v[v_from_c_T]``
   summed in f32 (f64 for float64 decodes) in slot order, plus the prior,
-  rounded once to the storage dtype.
+  rounded once to the storage dtype;
+
+then one host read of "all done?", in the loop every flooding decoder runs
+(``models/flooding.flood``).
 
 Semantics as the JAX decoder: ``iters == 0`` and the LLRs passed through
 for a consistent input; a frame's ``iters`` is the 0-based iteration at
@@ -28,6 +31,8 @@ sum-product ones agree to float rounding.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -35,6 +40,7 @@ from ..config import DEFAULT_DTYPE, as_dtype
 from ..ops.boxplus import MINSUM_ALPHA, box_plus
 from ..ops.kernels import bp_check_phase_generic, bp_var_totals_generic
 from ..utils.trace import span
+from .flooding import flood
 
 __all__ = ["TannerGraph", "Decoder"]
 
@@ -293,75 +299,26 @@ class Decoder:
 
     def decode_batched(self, prior_vb, synd_cb, max_iterations: int):
         """prior [V, B], synd [C, B] -> (success [B], iters [B] int32,
-        final [V, B]), on the decoder's device.
-
-        Flooding BP until every frame satisfies its syndrome or
-        ``max_iterations`` iterations ran, with one host read of "all
-        done?" per iteration.  ``iters`` is the 0-based iteration at which
-        a frame first satisfied its syndrome and ``final`` its totals from
-        that moment (captured at convergence); failures report
-        ``max_iterations`` and the totals after the last iteration.
-        """
+        final [V, B]), on the decoder's device: the flooding loop
+        (:func:`~.flooding.flood`) over this decoder's steps."""
         with span("rr.decoder.decode"):
             dev, B = self.device, prior_vb.shape[1]
-            maxiter = int(max_iterations)
             prior = prior_vb.to(dev, self.dtype)
             # contiguous once a decode, as gather 2's kernel reads it
             prior_sum = prior.to(self.sum_dtype).contiguous()
-            synd = self._check_synd(synd_cb.to(dev, torch.int32))
-
+            synd = self._local(synd_cb.to(dev, torch.int32))
             c2v = torch.zeros((self.graph.dc_max, synd.shape[0], B),
                               dtype=self.dtype, device=dev)
-            total = prior
-            final = prior
-            done = torch.zeros(B, dtype=torch.bool, device=dev)
-            iters = torch.zeros(B, dtype=torch.int32, device=dev)
-            it = 0
-            all_done = False
-            while it < maxiter and not all_done:
-                with span("rr.decoder.gather1"):
-                    t = self._check_inputs(total)
-                # convergence of the current totals (after iteration it; at
-                # it = 0 the test of the prior) and the new messages
-                c2v, viol = self.check_phase(
-                    t, c2v, synd, self._c_mask_T, rule=self.rule,
-                    ms_alpha=self.minsum_alpha, ms_beta=self.minsum_beta,
-                )
-                conv = self._frame_violations(viol.sum(0)) == 0
-                newly = conv & ~done
-                iters = torch.where(newly, it, iters)
-                done = done | conv
-                # one host read per iteration: skip the snapshot when no frame
-                # newly converged, stop when all have
-                with span("rr.decoder.poll"):
-                    any_new, all_done = torch.stack(
-                        [newly.any(), done.all()]
-                    ).tolist()
-                if any_new:
-                    final = torch.where(newly, total, final)
-                with span("rr.decoder.gather2"):
-                    total = self.var_totals(prior_sum, c2v)
-                it += 1
-                self.iterations_run += 1
+            return flood(self, prior, synd, c2v, max_iterations,
+                         self._check_step,
+                         functools.partial(self._variable_side, prior_sum))
 
-            # frames that converged at the last allowed iteration exit the loop
-            # untested: one final syndrome test covers them
-            with span("rr.decoder.tail"):
-                conv = self._consistent(total, synd)
-                newly = conv & ~done
-                iters = torch.where(newly, min(it, maxiter), iters)
-                final = torch.where(newly, total, final)
-                done = done | conv
-                iters = torch.where(done, iters, maxiter)
-                # failures: the totals at max_iterations
-                final = torch.where(done, final, total)
-            return done, iters, final
-
-    # The steps of decode_batched that a mesh of ranks overrides
-    # (parallel/graph_shard.ShardedDecoder): on one device they cover
+    # The decoder's steps of the flooding loop; a mesh of ranks overrides
+    # _local, _check_inputs, _frame_violations and _variable_side
+    # (parallel/graph_shard.ShardedDecoder).  On one device they cover
     # every check.
 
-    def _check_synd(self, synd):
+    def _local(self, synd):
         """synd [C, B] -> the syndrome rows of the checks updated here."""
         return synd.contiguous()
 
@@ -370,17 +327,33 @@ class Decoder:
         updated here (gather 1)."""
         return self.graph.gather_checks(total)
 
+    def _check_step(self, t, c2v, synd):
+        """The fused check phase: ``(c2v, viol)``."""
+        return self.check_phase(
+            t, c2v, synd, self._c_mask_T, rule=self.rule,
+            ms_alpha=self.minsum_alpha, ms_beta=self.minsum_beta,
+        )
+
     def _frame_violations(self, viol):
         """[B] violated checks among those updated here -> among all."""
         return viol
 
-    def _consistent(self, total, synd):
+    def _variable_side(self, prior, c2v, t):
+        """Gather 2: ``(var_totals(prior, c2v), None)``, so that every
+        iteration gathers its t."""
+        return self.var_totals(prior, c2v), None
+
+    def _tail_consistent(self, total, synd):
         """[B] bool: every check's hard-decision parity equals its
         syndrome."""
         bits = (self._check_inputs(total) < 0).to(torch.int32) \
             * self._c_mask_T_i[:, :, None]
         parity = torch.sum(bits, dim=0, dtype=torch.int32) & 1
         return self._frame_violations((parity != synd).sum(0)) == 0
+
+    def _whole_finals(self, final):
+        """The finals [V, B]: every rank holds every variable's."""
+        return final
 
     def _build_decode(self):
         """The [V, B] decode entry the engine calls."""

@@ -17,7 +17,8 @@ layered paths).  The decode loops of
   bf16 message stores stochastically rounded, and the totals are summed
   and gathered again every iteration;
 * compressed-state min-sum flooding: the messages kept as two magnitudes
-  and a packed argmin/sign word per check, in plain PyTorch;
+  and a packed argmin/sign word per check, in plain PyTorch; both flooding
+  loops run ``models/flooding.flood`` with one host read an iteration;
 * resident flooding: ``resident_chunk`` iterations per call of
   ops/kernels.bp_decode_rounds_qc, with one host read per call;
 * layered: serial-C sweeps over the block rows in plain PyTorch, the
@@ -32,6 +33,8 @@ bit-identical to it, sum-product agrees to float rounding.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -44,6 +47,7 @@ from ..ops.kernels import (
     bp_decode_rounds_qc, bp_layered_sweeps_qc, bp_var_pass_qc, layered_sweep,
 )
 from ..utils.trace import span
+from .flooding import flood
 
 __all__ = ["QCDecoder", "make_qc_ldpc", "make_qc_ira", "color_disjoint_rows",
            "layered_plan", "save_qc_csv", "load_qc_csv", "detect_qc",
@@ -573,11 +577,6 @@ class QCDecoder:
             self.cnum, -1
         )
 
-    def _consistent(self, t, synd):
-        """[B] bool: every check's hard-decision parity equals synd."""
-        parity = torch.sum((t < 0).to(torch.int32), dim=1) & 1
-        return torch.all((parity == synd).reshape(-1, t.shape[-1]), dim=0)
-
     def decode_batched(self, prior_vb, synd_cb, max_iterations: int):
         """prior [V, B], synd [C, B] -> (success [B], iters [B] int32,
         final [V, B]), on the decoder's device.
@@ -605,91 +604,30 @@ class QCDecoder:
             return self._decode_dense(prior_vb, synd_cb, max_iterations)
 
     def _decode_dense(self, prior_vb, synd_cb, max_iterations: int):
-        """The dense flooding loop: one check-phase kernel call, one
-        variable pass and one host read per iteration (with
-        ``sr_messages``, the stochastically rounded plain check update in
-        place of the kernel).  The check phase's input t is gathered from
-        the totals once a decode, then written by each variable pass
-        (:meth:`_variable_pass`)."""
+        """The dense flooding loop (:func:`~.flooding.flood`): one
+        check-phase kernel call, one variable pass and one host read per
+        iteration (with ``sr_messages``, the stochastically rounded plain
+        check update in place of the kernel).  The check phase's input t is
+        gathered from the totals once a decode, then written by each
+        variable pass (:meth:`_variable_side`)."""
         z, B = self.z, prior_vb.shape[1]
-        max_iterations = int(max_iterations)
-        prior = self._own_lanes(
-            prior_vb.to(self.device, self.dtype).to(self.acc_dtype)
-            .reshape(self.nb_v, z, B).contiguous())
-        synd_chk = self._check_synd(synd_cb.to(self.device, torch.int32)
-                                    .reshape(self.nb_c, z, B).contiguous())
-
-        c2v = torch.zeros((self.nb_c, self.dc, synd_chk.shape[1], B),
+        prior = self._local(prior_vb.to(self.device, self.dtype)
+                            .to(self.acc_dtype).reshape(self.nb_v, z, B))
+        synd = self._local(synd_cb.to(self.device, torch.int32)
+                           .reshape(self.nb_c, z, B))
+        c2v = torch.zeros((self.nb_c, self.dc, synd.shape[1], B),
                           dtype=self.dtype, device=self.device)
-        total = prior
-        final = prior
-        t = None
-        done = torch.zeros(B, dtype=torch.bool, device=self.device)
-        iters = torch.zeros(B, dtype=torch.int32, device=self.device)
-        gen = None
+        check = self._check_step
         if self.sr_messages:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(0x5eed)
-        it = 0
-        all_done = False
-        while it < max_iterations and not all_done:
-            if gen is None:
-                if t is None:
-                    with span("rr.decoder.gather1"):
-                        t = self._check_inputs(total)
-                c2v, viol = self.check_phase(
-                    t, c2v, synd_chk,
-                    rule=self.rule, ms_alpha=self.minsum_alpha,
-                    ms_beta=self.minsum_beta,
-                )
-            else:
-                c2v, viol = self._sr_check_phase(total, c2v, synd_chk, gen)
-            conv = self._frame_violations(viol.sum(0)) == 0
-            # the new totals are enqueued before the host reads the poll,
-            # so that the card works while the host waits and wakes
-            with span("rr.decoder.gather2"):
-                new_total, t = self._variable_pass(prior, c2v, t)
-            final, done, iters, all_done = self._record_converged(
-                conv, it, total, final, done, iters)
-            total = new_total
-            it += 1
-            self.iterations_run += 1
-        return self._finish_flooding(total, final, done, iters, synd_chk, it,
-                                     max_iterations)
+            check = functools.partial(self._sr_check_phase, gen=gen)
+        done, iters, final = flood(
+            self, prior, synd, c2v, max_iterations, check,
+            functools.partial(self._variable_side, prior))
+        return done, iters, final.reshape(self.vnum, B)
 
-    def _record_converged(self, conv, it, total, final, done, iters):
-        """The flooding loops' bookkeeping of iteration ``it``: frames
-        whose pre-update totals satisfy their syndrome (``conv``) and were
-        not done take ``iters == it`` and ``final == total``.  One host read
-        an iteration: the snapshot is skipped when no frame newly
-        converged, and the last value says whether every frame is done."""
-        newly = conv & ~done
-        iters = torch.where(newly, it, iters)
-        done = done | conv
-        with span("rr.decoder.poll"):
-            any_new, all_done = torch.stack([newly.any(),
-                                             done.all()]).tolist()
-        if any_new:
-            final = torch.where(newly, total, final)
-        return final, done, iters, all_done
-
-    def _finish_flooding(self, total, final, done, iters, synd, it,
-                         max_iterations):
-        """The flooding loops' tail: frames that converge on the last
-        update count ``min(it, max_iterations)``; failed frames report
-        ``max_iterations`` and their last totals.  ``synd`` holds the
-        syndrome lanes of the checks updated here."""
-        with span("rr.decoder.tail"):
-            conv = self._totals_consistent(total, synd)
-            newly = conv & ~done
-            iters = torch.where(newly, min(it, max_iterations), iters)
-            final = torch.where(newly, total, final)
-            done = done | conv
-            iters = torch.where(done, iters, max_iterations)
-            final = self._all_lanes(torch.where(done, final, total))
-            return done, iters, final.reshape(self.vnum, total.shape[-1])
-
-    def _sr_check_phase(self, total, c2v, synd_chk, gen):
+    def _sr_check_phase(self, t, c2v, synd, gen):
         """The check phase of the stochastically rounded loop: the plain
         check update (``bp_check_phase_qc_ref``: f32 subtraction of the
         bf16-stored operands, the rule's magnitudes in f32) with its f32
@@ -702,14 +640,13 @@ class QCDecoder:
         drops its rounding, so the compiled JAX update subtracts in f32
         too: on the same bits the two decodes are bit-equal
         (tests/test_torch_sr.py), and a bf16-rounded ``v2c`` is not."""
-        nb_c, dc, z, B = self.nb_c, self.dc, self.z, total.shape[-1]
+        nb_c, dc, z, B = self.nb_c, self.dc, self.z, t.shape[-1]
         rbits = torch.randint(0, 1 << 16, (nb_c, dc, z, B), generator=gen,
                               device=self.device, dtype=torch.int32)
         new, viol = bp_check_phase_qc_ref(
-            self._check_inputs(total), c2v.float(), synd_chk,
-            rule=self.rule, ms_alpha=self.minsum_alpha,
-            ms_beta=self.minsum_beta)
-        return stochastic_round_bf16(new, self._check_lanes(rbits)), viol
+            t, c2v.float(), synd, rule=self.rule,
+            ms_alpha=self.minsum_alpha, ms_beta=self.minsum_beta)
+        return stochastic_round_bf16(new, self._local(rbits)), viol
 
     def _decode_compressed(self, prior_vb, synd_cb, max_iterations: int):
         """Compressed-state normalized/offset min-sum flooding loop (the JAX
@@ -725,15 +662,15 @@ class QCDecoder:
         the old messages from them, forms ``v2c = t - c2v`` in f32, takes
         the convergence test on the pre-update totals, the new minima and
         signs, and folds the new messages per variable as the dense path
-        does.  Plain PyTorch, as the JAX loop is plain XLA; one host read
-        an iteration.  Message values, schedule and (success, iters,
-        final) are bit-identical to the dense min-sum decode through
-        kernel 1.  The totals ride the message dtype (``totals_dtype`` is
-        not read, as in the JAX loop).
+        does.  Plain PyTorch, as the JAX loop is plain XLA; the bookkeeping
+        and the host read an iteration are :func:`~.flooding.flood`'s.
+        Message values, schedule and (success, iters, final) are
+        bit-identical to the dense min-sum decode through kernel 1.  The
+        totals ride the message dtype (``totals_dtype`` is not read, as in
+        the JAX loop).
         """
         z, B = self.z, prior_vb.shape[1]
         nb_c, dc, dev = self.nb_c, self.dc, self.device
-        maxiter = int(max_iterations)
         f32 = torch.float32
         prior = prior_vb.to(dev, self.dtype).reshape(self.nb_v, z, B)
         synd = synd_cb.to(dev, torch.int32).reshape(nb_c, z, B)
@@ -742,17 +679,11 @@ class QCDecoder:
         big = torch.tensor(BIG, dtype=f32, device=dev)
         alpha, beta = self.minsum_alpha, self.minsum_beta
 
-        m1 = torch.zeros((nb_c, z, B), dtype=self.dtype, device=dev)
-        m2 = torch.zeros_like(m1)
-        meta = torch.full((nb_c, z, B), 31, dtype=torch.int32, device=dev)
-        total = prior
-        final = prior
-        done = torch.zeros(B, dtype=torch.bool, device=dev)
-        iters = torch.zeros(B, dtype=torch.int32, device=dev)
-        it = 0
-        all_done = False
-        while it < maxiter and not all_done:
-            t = self.gather_totals(total).to(f32)       # [nb_c, dc, z, B]
+        def check(t, state, synd):
+            """``((m1, m2, meta, c2v_new), viol)`` from the gathered
+            totals t [nb_c, dc, z, B] and the last state."""
+            m1, m2, meta, _ = state
+            t = t.to(f32)
             # the old messages, rebuilt from (m1, m2, meta)
             idx = (meta & 31)[:, None]
             sgn_old = (meta[:, None] >> shift) & 1
@@ -763,7 +694,7 @@ class QCDecoder:
             # convergence on the pre-update totals (padded slots hold the
             # positive sentinel)
             par_t = torch.sum((t < 0).to(torch.int32), dim=1) & 1
-            conv = torch.all((par_t == synd).reshape(-1, B), dim=0)
+            viol = torch.sum(par_t != synd, dim=1)
             # the minimum, its multiplicity and the second minimum
             absm = torch.abs(v2c)
             min1 = torch.amin(absm, dim=1)
@@ -782,75 +713,75 @@ class QCDecoder:
             c2v_new = (torch.where(idx_new[:, None] == slot,
                                    m2.to(f32)[:, None], m1.to(f32)[:, None])
                        * (1 - 2 * sgn).to(f32)).to(self.dtype)
+            return (m1, m2, meta, c2v_new), viol
 
-            final, done, iters, all_done = self._record_converged(
-                conv, it, total, final, done, iters)
-            total = (prior.to(f32) + self.scatter_partials(c2v_new).to(f32)
-                     ).to(self.dtype)
-            it += 1
-            self.iterations_run += 1
-        return self._finish_flooding(total, final, done, iters, synd, it,
-                                     maxiter)
+        def variable(state, t):
+            """The new totals from the new messages; no t, so that every
+            iteration gathers its own."""
+            sums = self.scatter_partials(state[3]).to(f32)
+            return (prior.to(f32) + sums).to(self.dtype), None
 
-    # The steps of _decode_dense that a mesh of ranks overrides
-    # (parallel/graph_shard.ShardedQCDecoder): on one device they cover
-    # every lane.
+        m1 = torch.zeros((nb_c, z, B), dtype=self.dtype, device=dev)
+        m2 = torch.zeros_like(m1)
+        meta = torch.full((nb_c, z, B), 31, dtype=torch.int32, device=dev)
+        done, iters, final = flood(self, prior, synd, (m1, m2, meta, None),
+                                   max_iterations, check, variable)
+        return done, iters, final.reshape(self.vnum, B)
 
-    def _check_synd(self, synd):
-        """synd [nb_c, z, B] -> the lanes of it updated here."""
-        return synd
+    # The decoder's steps of the flooding loop; a mesh of ranks overrides
+    # _local, _check_inputs, _frame_violations, _variable_side and
+    # _whole_finals (parallel/graph_shard.ShardedQCDecoder).  On one device
+    # they cover every lane.
 
-    def _check_lanes(self, x):
-        """x [nb_c, dc, z, B] of every lane -> the lanes updated here."""
-        return x
+    def _local(self, x):
+        """x [..., z, B] of every lane -> the lanes updated here."""
+        return x.contiguous()
 
     def _check_inputs(self, total):
         """total [nb_v, z, B] -> the check phase's t [nb_c, dc, lanes, B]
         of the lanes updated here."""
         return self.gather_totals(total)
 
+    def _check_step(self, t, c2v, synd):
+        """The fused check phase (kernel 1): ``(c2v, viol)``."""
+        return self.check_phase(
+            t, c2v, synd, rule=self.rule, ms_alpha=self.minsum_alpha,
+            ms_beta=self.minsum_beta,
+        )
+
     def _frame_violations(self, viol):
         """[B] violated checks among the lanes updated here -> among all."""
         return viol
 
-    def _var_sums(self, c2v):
-        """The messages of the lanes updated here -> the sums [nb_v, lanes,
-        B] in ``sum_dtype`` of the variable lanes held here."""
-        return self.scatter_partials(c2v)
-
-    def _summed_totals(self, prior, c2v):
-        """The new totals [nb_v, lanes, B]: the prior plus the variable
-        sums, rounded once to the totals' dtype."""
-        return (prior.to(self.sum_dtype) + self._var_sums(c2v)).to(
-            self.acc_dtype)
-
-    def _variable_pass(self, prior, c2v, t):
+    def _variable_side(self, prior, c2v, t):
         """The dense loop's variable side: ``(total, t)``, the new totals
         and the check phase's next input.  Given the current t, with totals
         in the message dtype and that one of ``VAR_PASS_DTYPES`` (float32
-        or bfloat16), ``var_pass`` folds the totals and writes them into t
-        in place; otherwise the totals are summed and t is None, so that
-        the next iteration gathers it."""
-        if t is None or self.acc_dtype != self.dtype \
+        or bfloat16), and without ``sr_messages``, ``var_pass`` folds the
+        totals and writes them into t in place; otherwise the prior plus
+        the variable sums, rounded once to the totals' dtype, and no t, so
+        that the next iteration gathers it."""
+        if t is None or self.sr_messages or self.acc_dtype != self.dtype \
                 or self.dtype not in VAR_PASS_DTYPES:
-            return self._summed_totals(prior, c2v), None
+            return (prior.to(self.sum_dtype) + self.scatter_partials(c2v)
+                    ).to(self.acc_dtype), None
         return self.var_pass(prior, c2v, self._var_rows, self._var_degree,
                              t), t
 
-    def _own_lanes(self, x):
-        """x [nb_v, z, B] of every lane -> the variable lanes held here."""
-        return x
-
-    def _all_lanes(self, x):
-        """x [nb_v, lanes, B] of the variable lanes held here -> [nb_v, z,
-        B] of every lane."""
-        return x
-
-    def _totals_consistent(self, total, synd):
+    def _tail_consistent(self, total, synd):
         """[B] bool: the hard decision of the totals held here satisfies
         the syndrome (``synd``: the lanes of the checks updated here) at
         every check."""
-        return self._consistent(self.gather_totals(total), synd)
+        parity = torch.sum((self._check_inputs(total) < 0).to(torch.int32),
+                           dim=1) & 1
+        viol = torch.sum((parity != synd).to(torch.int32), dim=(0, 1),
+                         dtype=torch.int32)
+        return self._frame_violations(viol) == 0
+
+    def _whole_finals(self, final):
+        """final [nb_v, lanes, B] of the variable lanes held here ->
+        [nb_v, z, B] of every lane."""
+        return final
 
     def _consistent_flat(self, total, synd):
         """[B] bool: the hard decision of total [nb_v, z, B] satisfies the

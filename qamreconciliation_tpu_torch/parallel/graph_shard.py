@@ -53,12 +53,13 @@ class ShardedDecoder(Decoder):
         ``minsum_alpha``/``minsum_beta``).
       check_phi: sum-product magnitude form, "phi" or "tanhfb".
 
-    The decode loop is the single-device ``Decoder``'s; this rank's block
-    of checks replaces its gather, syndrome rows and masks, and the mesh
-    sums the violation counts and the variable partials.  ``check_phase``
-    is the fused check phase of the block, kernel 4 on the card; a test
-    may put its plain version (``ops.kernels.bp_check_phase_generic_ref``)
-    there to run it on the card.
+    The decode loop is the single-device ``Decoder``'s
+    (``models/flooding.flood``); this rank's block of checks replaces its
+    gather, syndrome rows and masks, and the mesh sums the violation counts
+    and the variable partials.  ``check_phase`` is the fused check phase
+    of the block, kernel 4 on the card; a test may put its plain version
+    (``ops.kernels.bp_check_phase_generic_ref``) there to run it on the
+    card.
     """
 
     def __init__(self, e_to_v, e_to_c, mesh, dtype=DEFAULT_DTYPE,
@@ -113,9 +114,9 @@ class ShardedDecoder(Decoder):
             device=dev).to(self.sum_dtype)
 
     # ------------------------------------------------------------------ #
-    # The steps of Decoder.decode_batched, on this rank's block
+    # The steps of the flooding loop, on this rank's block
 
-    def _check_synd(self, synd):
+    def _local(self, synd):
         """synd [C, B] -> this rank's rows [Cd, B], padded checks 0."""
         block = torch.zeros((self.c_per_dev, synd.shape[1]),
                             dtype=torch.int32, device=synd.device)
@@ -143,11 +144,11 @@ class ShardedDecoder(Decoder):
             acc = x if acc is None else acc + x
         return acc
 
-    def var_totals(self, prior, c2v):
+    def _variable_side(self, prior, c2v, t):
         """``prior`` plus the partial sums of every rank, rounded once to
-        the storage dtype: [V, B], replicated."""
+        the storage dtype: [V, B], replicated; no t."""
         return (prior + self.mesh.all_reduce_sum(self.var_partial(c2v))
-                ).to(self.dtype)
+                ).to(self.dtype), None
 
 
 class ShardedQCDecoder(QCDecoder):
@@ -213,22 +214,11 @@ class ShardedQCDecoder(QCDecoder):
         self._lanes = self.plan.lanes
 
     # ------------------------------------------------------------------ #
-    # The steps of QCDecoder._decode_dense, on this rank's lanes
+    # The steps of the flooding loop, on this rank's lanes
 
-    def _check_synd(self, synd):
-        return synd[:, self._lanes[0]:self._lanes[1]].contiguous()
-
-    def _check_lanes(self, x):
-        return x[:, :, self._lanes[0]:self._lanes[1]]
-
-    def _own_lanes(self, x):
-        return x[:, self._lanes[0]:self._lanes[1]].contiguous()
-
-    def _all_lanes(self, x):
-        """This rank's [nb_v, z / D, B] -> every rank's [nb_v, z, B]: the
-        decode's one all-gather, after its last iteration."""
-        g = self.mesh.all_gather(x)                # [D, nb_v, zl, B]
-        return g.permute(1, 0, 2, 3).reshape(self.nb_v, self.z, x.shape[-1])
+    def _local(self, x):
+        """x [..., z, B] of every lane -> this rank's [..., z / D, B]."""
+        return x[..., self._lanes[0]:self._lanes[1], :].contiguous()
 
     def _check_inputs(self, total):
         """This rank's totals [nb_v, z / D, B] and the check-side windows
@@ -244,28 +234,23 @@ class ShardedQCDecoder(QCDecoder):
     def _frame_violations(self, viol):
         return self.mesh.all_reduce_sum(viol)
 
-    def _var_sums(self, c2v):
+    def _variable_side(self, prior, c2v, t):
         """This rank's messages [nb_c, dc, z / D, B] and the variable-side
-        windows of its peers' -> the sums [nb_v, z / D, B] of its variable
-        lanes, each folded in the single-device (cb, slot) order."""
+        windows of its peers' -> the new totals of its variable lanes, each
+        folded in the single-device (cb, slot) order, plus the prior; no t,
+        so every iteration gathers (and exchanges) the totals' windows
+        again."""
         B = c2v.shape[-1]
         recvs = self.mesh.exchange(
             self.plan.pack_messages(c2v),
             {q: (n, B) for q, n in self.plan.messages_recv.items()},
             c2v.dtype)
-        return self.plan.var_sums(c2v, recvs, self.sum_dtype)
+        sums = self.plan.var_sums(c2v, recvs, self.sum_dtype)
+        return (prior.to(self.sum_dtype) + sums).to(self.acc_dtype), None
 
-    def _variable_pass(self, prior, c2v, t):
-        """The sums of this rank's variable lanes from the exchanged
-        messages, plus the prior; no t, so every iteration gathers (and
-        exchanges) the totals' windows again."""
-        return self._summed_totals(prior, c2v), None
-
-    def _totals_consistent(self, total, synd):
-        """The consistency test of every check, from this rank's windowed
-        t: its checks' violations, summed over the ranks."""
-        t = self._check_inputs(total)
-        parity = torch.sum((t < 0).to(torch.int32), dim=1) & 1
-        viol = torch.sum((parity != synd).to(torch.int32), dim=(0, 1),
-                         dtype=torch.int32)
-        return self._frame_violations(viol) == 0
+    def _whole_finals(self, final):
+        """This rank's [nb_v, z / D, B] -> every rank's [nb_v, z, B]: the
+        decode's one all-gather, after its last iteration."""
+        g = self.mesh.all_gather(final)            # [D, nb_v, zl, B]
+        return g.permute(1, 0, 2, 3).reshape(self.nb_v, self.z,
+                                             final.shape[-1])

@@ -15,9 +15,9 @@ around it.  Names are fixed, so that a reader can count and sum them:
   ``rr.engine.sample``, ``rr.engine.inputs``, ``rr.engine.syndrome`` and
   ``rr.engine.count``;
 * ``rr.decoder.decode`` and in it ``rr.decoder.poll`` (each host read of
-  "all done?"), ``rr.decoder.gather1``, ``rr.decoder.gather2`` (the
-  gathers of the generic loop and of the dense QC loop: the totals to the
-  check layout, the messages folded back with the prior) and
+  "all done?"), ``rr.decoder.gather1``, ``rr.decoder.gather2`` (in the
+  flooding loops, ``models/flooding.flood``: the totals to the check
+  layout, the messages folded back with the prior) and
   ``rr.decoder.tail`` (the consistency test after the loop);
 * ``rr.kernel.<entry>``: each call of a decoder kernel's entry in
   ``ops/kernels.py``.

@@ -238,13 +238,15 @@ def _ranks_body(generic, qc, cli_dir):
 
 def _qc_loop_state(mesh):
     """One min-sum decode of the regular QC case through a ShardedQCDecoder
-    on ``mesh``, recording the shapes of its loop state (the prior it
-    keeps, the check phase's t, messages and syndrome, the totals and
-    finals at each iteration's bookkeeping, the finals returned) and the
-    collectives it issues."""
+    on ``mesh``, recording the shapes of its loop state (the prior its
+    variable side keeps, the check phase's t, messages and syndrome, the
+    totals each gather reads and each variable side makes, and the finals
+    made whole, as pairs of a total's and a final's shape, and the finals
+    returned) and the collectives it issues."""
     base, _, _, llr, synd = qc_inputs(QC["regular-minsum-float32"])
     dec = ShardedQCDecoder(base, 16, mesh, check_rule="minsum")
-    seen = {"prior": set(), "check": set(), "state": set(), "calls": {}}
+    seen = {"prior": set(), "check": set(), "calls": {}}
+    totals, finals = set(), set()
 
     def counting(name, fn):
         def call(*a, **k):
@@ -252,37 +254,33 @@ def _qc_loop_state(mesh):
             return fn(*a, **k)
         return call
 
-    own, phase, record = dec._own_lanes, dec.check_phase, \
-        dec._record_converged
-    gather, var_side = dec._check_inputs, dec._variable_pass
-
-    def own_lanes(x):
-        y = own(x)
-        seen["prior"].add(tuple(y.shape))
-        return y
+    phase, gather = dec.check_phase, dec._check_inputs
+    var_side, whole = dec._variable_side, dec._whole_finals
 
     def check_phase(t, c2v, synd, **kw):
         seen["check"].add((tuple(t.shape), tuple(c2v.shape),
                            tuple(synd.shape)))
         return phase(t, c2v, synd, **kw)
 
-    def record_converged(conv, it, total, final, *rest):
-        seen["state"].add((tuple(total.shape), tuple(final.shape)))
-        return record(conv, it, total, final, *rest)
-
     def check_inputs(total):
         seen["calls"]["gather"] = seen["calls"].get("gather", 0) + 1
+        totals.add(tuple(total.shape))
         return gather(total)
 
-    def variable_pass(prior, c2v, t):
+    def variable_side(prior, c2v, t):
+        seen["prior"].add(tuple(prior.shape))
         total, t_next = var_side(prior, c2v, t)
+        totals.add(tuple(total.shape))
         key = "pass, no t" if t_next is None else "pass, t"
         seen["calls"][key] = seen["calls"].get(key, 0) + 1
         return total, t_next
 
-    dec._own_lanes, dec.check_phase = own_lanes, check_phase
-    dec._record_converged = record_converged
-    dec._check_inputs, dec._variable_pass = check_inputs, variable_pass
+    def whole_finals(final):
+        finals.add(tuple(final.shape))
+        return whole(final)
+
+    dec.check_phase, dec._check_inputs = check_phase, check_inputs
+    dec._variable_side, dec._whole_finals = variable_side, whole_finals
     for name in ("all_gather", "exchange", "all_reduce_sum"):
         setattr(mesh, name, counting(name, getattr(mesh, name)))
     try:
@@ -290,6 +288,7 @@ def _qc_loop_state(mesh):
     finally:
         for name in ("all_gather", "exchange", "all_reduce_sum"):
             delattr(mesh, name)
+    seen["state"] = {(t, f) for t in totals for f in finals}
     seen["iterations"] = dec.iterations_run
     seen["final"] = tuple(out[2].shape)
     seen["plan"] = dict(dec.plan.totals_recv), dict(dec.plan.messages_recv)

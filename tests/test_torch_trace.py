@@ -115,13 +115,14 @@ def test_a_profiled_point_opens_each_span_in_its_place(kind, tmp_path):
                                            else rounds)
     assert n["rr.engine.dispatch"] == n["rr.engine.read"] == rounds // R
     assert n["rr.decoder.poll"] >= rounds
-    if kind in ("generic", "qc_dense"):
-        # the loops with gather 2 and a poll an iteration; the generic one
-        # gathers its check input every iteration, the dense one once a
-        # decode (its variable pass writes the next)
+    if kind in ("generic", "qc_dense", "qc_compressed"):
+        # the flooding loops, with gather 2 and a poll an iteration; the
+        # generic and compressed ones gather their check input every
+        # iteration, the dense one once a decode (its variable pass writes
+        # the next)
         assert n["rr.decoder.gather2"] == n["rr.decoder.poll"] == iters
-        assert n["rr.decoder.gather1"] == (iters if kind == "generic"
-                                           else rounds)
+        assert n["rr.decoder.gather1"] == (rounds if kind == "qc_dense"
+                                           else iters)
     else:
         assert "rr.decoder.gather2" not in n
     if kind in ("generic", "qc_dense"):

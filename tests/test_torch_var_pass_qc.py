@@ -195,7 +195,8 @@ def test_the_loop_runs_the_pass_where_totals_are_stored_f32_or_bf16(kw,
                                                                     runs):
     """The pass (one an iteration, on one t gathered once) where the
     totals ride the message dtype, float32 or bfloat16; elsewhere the
-    earlier steps, and the loop gathers every iteration."""
+    earlier steps, and the loop gathers every iteration.  The end test of
+    every check gathers once more."""
     dec = QCDecoder(ira(), 16, device="cpu", **kw)
     calls = _counting(dec)
     gathers = []
@@ -207,10 +208,10 @@ def test_the_loop_runs_the_pass_where_totals_are_stored_f32_or_bf16(kw,
     assert iters == 12
     if runs:
         assert len(calls) == iters and len(set(calls)) == 1
-        assert len(gathers) == 1
+        assert len(gathers) == 1 + 1
     else:
         assert not calls
-        assert len(gathers) == iters
+        assert len(gathers) == iters + 1
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -221,8 +222,8 @@ def test_the_decode_with_the_pass_equals_the_earlier_loop(dtype):
     base = ira()
     dec = QCDecoder(base, 16, dtype, device="cpu")
     old = QCDecoder(base, 16, dtype, device="cpu")
-    old._variable_pass = lambda prior, c2v, t: (
-        old._summed_totals(prior, c2v), None)
+    side = old._variable_side
+    old._variable_side = lambda prior, c2v, t: side(prior, c2v, None)
     g = torch.Generator().manual_seed(3)
     word = torch.randint(0, 2, (dec.vnum, 12), generator=g)
     prior = (1 - 2 * word).float() * 2.0 + torch.randn(word.shape,
