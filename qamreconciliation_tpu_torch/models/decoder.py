@@ -18,7 +18,8 @@ iteration is
   summed in f32 (f64 for float64 decodes) in slot order, plus the prior,
   rounded once to the storage dtype;
 
-then one host read of "all done?", in the loop every flooding decoder runs
+then one host read of "all done?", taken once the next iteration is
+enqueued, in the loop every flooding decoder runs
 (``models/flooding.flood``).
 
 Semantics as the JAX decoder: ``iters == 0`` and the LLRs passed through
@@ -272,6 +273,11 @@ class Decoder:
         self.var_fold = bp_var_totals_generic
         # BP iterations run on the device by this decoder
         self.iterations_run = 0
+        # of those, iterations the flooding loop ran after its one-late read
+        # found every frame done, and its reads that waited on the device
+        # (models/flooding.flood)
+        self.overrun_iterations = 0
+        self.polls_waited = 0
 
     # Properties of the reference decoder
     @property

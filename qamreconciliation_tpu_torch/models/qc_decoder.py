@@ -494,6 +494,11 @@ class QCDecoder:
         self.sweeps_step = bp_layered_sweeps_qc
         # BP iterations (or layered sweeps) run on the device by this decoder
         self.iterations_run = 0
+        # of those, iterations the flooding loop ran after its one-late read
+        # found every frame done, and its reads that waited on the device
+        # (models/flooding.flood)
+        self.overrun_iterations = 0
+        self.polls_waited = 0
 
     def _resident_layout(self, B: int):
         """``(doubled, totals_f32)`` of the resident flooding state: the

@@ -756,6 +756,63 @@ def test_cuda_generic_decode_matches_plain_and_cpu(kw, dtype):
                                    atol=1e-4)
 
 
+# ----------------------------------- the flooding loop's one-late read
+
+
+def _late_read_decoders(loop, device):
+    """``(decoder, (its check kernel, its variable kernel), llr, synd)``: a
+    bf16 min-sum flooding decoder (min-sum, so that the card and the CPU
+    agree bit for bit) on a small code, and frames whose noise grows frame
+    by frame, so that they converge at staggered iterations."""
+    rng = np.random.default_rng(8)
+    B = 24
+    if loop == "generic":
+        _, vid, cid = make_qc_ira(12, 6, 16, dv=3, seed=1)
+        dec = Decoder(vid, cid, torch.bfloat16, device=device,
+                      check_rule="minsum")
+        ks = (bp_check_phase_generic, kernels.bp_var_totals_generic)
+        n = 18 * 16
+    else:
+        base, vid, cid = make_qc_ldpc(12, 32, 3, 6, seed=7)
+        dec = QCDecoder(base, 32, "bfloat16", device=device,
+                        check_rule="minsum")
+        ks = (bp_check_phase_qc, kernels.bp_var_pass_qc)
+        n = 12 * 32
+    word = rng.integers(0, 2, (B, n))
+    synd = Matrix(vid, cid).eval_syndrome(torch.from_numpy(word))
+    llr = torch.from_numpy(
+        (1 - 2 * word) * 2.5 + rng.normal(0, 1.0, word.shape)
+        * np.linspace(0.4, 1.5, B)[:, None]).float()
+    return dec, ks, llr, synd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loop", ["generic", "dense"])
+def test_the_late_read_on_the_card_equals_the_cpu(loop):
+    """The flooding loop on the card, which reads each iteration's flags
+    after the next iteration is enqueued, returns the CPU twin's (success,
+    iters, final) bit for bit; each kernel launches once an iteration run,
+    one iteration past the slowest frame's, and no more reads waited than
+    ran."""
+    need_cuda()
+    dec, ks, llr, synd = _late_read_decoders(loop, "cuda")
+    cpu_dec, _, _, _ = _late_read_decoders(loop, "cpu")
+    n0 = [k.launches for k in ks]
+    got = dec.decode_batch(llr, synd, 25)
+    want = cpu_dec.decode_batch(llr, synd, 25)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    iters = got[1].cpu()
+    assert bool(got[0].all()) and len(set(iters.tolist())) >= 4
+    runs = dec.iterations_run
+    assert runs == cpu_dec.iterations_run == int(iters.max()) + 2 < 25
+    assert dec.overrun_iterations == cpu_dec.overrun_iterations == 1
+    assert [k.launches - n for k, n in zip(ks, n0)] == [runs, runs]
+    assert 0 <= dec.polls_waited <= runs
+    assert cpu_dec.polls_waited == 0
+
+
 # ------------------------------------ gather 2 (bp_var_totals_generic)
 
 FOLD_BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
