@@ -890,7 +890,8 @@ class QCDecoder:
         total = prior.clone(memory_format=torch.contiguous_format)
         c2v = torch.zeros((self.tables.E, z, B), dtype=self.dtype,
                           device=dev)
-        done = self._consistent_flat(prior, synd).to(torch.int32)
+        with span("rr.decoder.precheck"):
+            done = self._consistent_flat(prior, synd).to(torch.int32)
         iters = torch.zeros(B, dtype=torch.int32, device=dev)
         it = 0
         while it < maxiter and not _all_done(done):
@@ -901,8 +902,9 @@ class QCDecoder:
             )
             self.iterations_run += min(K, maxiter - it)
             it += K
-        done = done.bool()
-        iters = torch.where(done, iters, maxiter)
+        with span("rr.decoder.tail"):
+            done = done.bool()
+            iters = torch.where(done, iters, maxiter)
         return done, iters, total.reshape(self.vnum, B)
 
     def _build_decode(self):

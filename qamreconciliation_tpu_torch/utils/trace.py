@@ -17,8 +17,11 @@ around it.  Names are fixed, so that a reader can count and sum them:
 * ``rr.decoder.decode`` and in it ``rr.decoder.poll`` (each host read of
   "all done?"), ``rr.decoder.gather1``, ``rr.decoder.gather2`` (in the
   flooding loops, ``models/flooding.flood``: the totals to the check
-  layout, the messages folded back with the prior) and
-  ``rr.decoder.tail`` (the consistency test after the loop);
+  layout, the messages folded back with the prior),
+  ``rr.decoder.precheck`` (the resident layered loop's test of the prior
+  before its first sweep) and ``rr.decoder.tail`` (the bookkeeping after
+  the loop: the flooding and resident loops' consistency test, the
+  resident layered loop's ``done`` and ``iters``);
 * ``rr.kernel.<entry>``: each call of a decoder kernel's entry in
   ``ops/kernels.py``.
 """

@@ -1048,6 +1048,57 @@ def test_qc_kernel_at_the_dense_cell_shape():
 
 
 @pytest.mark.cuda
+def test_layered_decoder_at_the_layered_cell_shape():
+    """The resident layered decoder as the benchmark cell
+    ``qc36.layered-4.0dB`` runs it (z = 360, B = 128, bf16 min-sum, 4
+    sweeps a call), bit for bit against the benchmark's plain reference
+    on the card, with frames converging at staggered sweeps, frames
+    running to the limit and one consistent prior; three device launches
+    a call."""
+    need_cuda()
+    from rrbench import codes, decoders
+    from rrbench.decoders import qc_layered
+    from rrbench.ref import Precision
+
+    code = codes.build({"kind": "qc_ldpc", "nb_v": 180, "z": 360, "dv": 3,
+                        "dc": 6, "seed": 12345})
+    spec = {"kind": "qc_layered", "check_rule": "minsum",
+            "minsum_alpha": 0.8125, "minsum_beta": 0.0, "chunk": 4}
+    B, maxiter = 128, 50
+    g = torch.Generator().manual_seed(29)
+    word = torch.randint(0, 2, (code.vnum, B), generator=g,
+                         dtype=torch.int32)
+    sigma = torch.linspace(0.6, 1.6, B)
+    prior = (1 - 2 * word).float() + sigma * torch.randn(
+        (code.vnum, B), generator=g)
+    prior[:, 0] = 2.0 * (1 - 2 * word[:, 0]).float()
+    prior = prior.to(torch.bfloat16).cuda()
+    synd = decoders.syndrome(code, word).cuda()
+    dec = qc_layered.program(code, spec, "bfloat16", "cuda")
+    calls = []
+    step = dec.sweeps_step
+
+    def counted(*args, **kw):
+        calls.append(kw["k_sweeps"])
+        return step(*args, **kw)
+    dec.sweeps_step = counted
+    n0 = bp_layered_sweeps_qc.launches
+    d0 = bp_layered_sweeps_qc.device_launches
+    got = dec.decode_batched(prior, synd, maxiter)
+    want = qc_layered.Reference(code, spec, Precision("bfloat16"),
+                                "cuda").decode(prior, synd, maxiter)
+    torch.cuda.synchronize()
+    assert bp_layered_sweeps_qc.launches - n0 == len(calls) > 0
+    assert bp_layered_sweeps_qc.device_launches - d0 == 3 * len(calls)
+    success, iters = got[0].cpu(), got[1].cpu()
+    assert bool(success[0]) and int(iters[0]) == 0
+    assert len(set(iters[success].tolist())) >= 3
+    assert not bool(success.all())
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B", [8, 64])
 @pytest.mark.parametrize("rule,m_dtype", [("minsum", torch.bfloat16),
                                           ("tanhfb", torch.bfloat16),

@@ -31,11 +31,15 @@ DECODERS = {
     "qc_layered": dict(schedule="layered", layered_chunk=4),
     "qc_resident_layered": dict(schedule="layered", layered_chunk=4,
                                 resident=True),
+    # the benchmark's qc36.layered-4.0dB decoder
+    "qc_resident_layered_minsum": dict(schedule="layered", layered_chunk=4,
+                                       resident=True, check_rule="minsum"),
     "generic": None,
 }
 KERNELS = {"qc_resident": ("bp_decode_rounds_qc",),
            "qc_dense": ("bp_check_phase_qc", "bp_var_pass_qc"),
            "qc_resident_layered": ("bp_layered_sweeps_qc",),
+           "qc_resident_layered_minsum": ("bp_layered_sweeps_qc",),
            "generic": ("bp_check_phase_generic", "bp_var_totals_generic")}
 
 
@@ -110,9 +114,12 @@ def test_a_profiled_point_opens_each_span_in_its_place(kind, tmp_path):
                  "rr.engine.syndrome", "rr.engine.count",
                  "rr.decoder.decode"):
         assert n[name] == rounds, name
-    # the flooding loops end in a consistency test, the layered ones not
-    assert n.get("rr.decoder.tail", 0) == (0 if "layered" in kind
+    # the flooding and resident loops end in a tail, the plain layered one
+    # not; the resident layered one tests the prior before its sweeps
+    assert n.get("rr.decoder.tail", 0) == (0 if kind == "qc_layered"
                                            else rounds)
+    assert n.get("rr.decoder.precheck", 0) == (
+        rounds if kind.startswith("qc_resident_layered") else 0)
     assert n["rr.engine.dispatch"] == n["rr.engine.read"] == rounds // R
     assert n["rr.decoder.poll"] >= rounds
     if kind in ("generic", "qc_dense", "qc_compressed"):
@@ -136,6 +143,11 @@ def test_a_profiled_point_opens_each_span_in_its_place(kind, tmp_path):
         # chunk 50 > 12 iterations: one kernel call and one poll a decode
         assert n["rr.kernel.bp_decode_rounds_qc"] == rounds
         assert n["rr.decoder.poll"] == rounds
+    if kind.startswith("qc_resident_layered"):
+        # a poll before each call, and one after a decode's last call when
+        # every frame is done
+        calls = n["rr.kernel.bp_layered_sweeps_qc"]
+        assert calls <= n["rr.decoder.poll"] <= calls + rounds
     kernels = sorted(k for k in n if k.startswith("rr.kernel."))
     assert kernels == sorted(f"rr.kernel.{k}" for k in KERNELS.get(kind, ()))
     assert _inside(spans["rr.engine.setup"], spans["rr.engine.point"])
@@ -145,7 +157,8 @@ def test_a_profiled_point_opens_each_span_in_its_place(kind, tmp_path):
                  "rr.engine.count"):
         assert _inside(spans[name], spans["rr.engine.round"]), name
     for name in kernels + ["rr.decoder.poll", "rr.decoder.gather1",
-                           "rr.decoder.gather2", "rr.decoder.tail"]:
+                           "rr.decoder.gather2", "rr.decoder.precheck",
+                           "rr.decoder.tail"]:
         assert _inside(spans.get(name, []), spans["rr.decoder.decode"]), name
     assert not _inside(spans["rr.engine.read"], spans["rr.engine.dispatch"])
     assert _inside(spans["rr.engine.read"], spans["rr.engine.point"])
