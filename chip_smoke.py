@@ -13,7 +13,10 @@ Phases (each must pass, or the script exits non-zero):
      loop's variable pass (bp_var_pass_qc) against its plain version at
      the same shape, B = 128, float32 and bfloat16 with planted -0 priors
      and messages: the totals and the t it writes, bit for bit
-     (phase_var_pass);
+     (phase_var_pass); then the softening inputs (softening_inputs)
+     against their plain version at [32400, 128], bfloat16 and float32,
+     bit for bit, and one launch a round of a softening point
+     (phase_softening);
   4. kernel 2 (bp_decode_rounds_qc) against its plain version, bit for bit
      on all four state tensors: one K = 45 call at the headline shape [180,
      360, 128] (E = 540) from a mid-decode state, up to maxiter 50 as the
@@ -260,12 +263,17 @@ KERNELS = {
     "smem_ceiling_probe": ("smem_ceiling_probe", "scripts/probe_vmem.py:32"),
     "resident_bookkeeping_probe": ("resident_bookkeeping_probe",
                                    "scripts/probe_resident_vmem.py:155"),
+    "softening_inputs": ("softening_inputs",
+                         "qamreconciliation_tpu/sims/engine.py:262"),
 }
-# kernels 6-9 run only in their probes (phases 20 and 21); the rest are the
-# decode paths' kernels
+# kernels 6-9 run only in their probes (phases 20 and 21); the softening
+# inputs run before the decode (phase_softening); the rest are the decode
+# paths' kernels
 PROBE_KERNELS = ("check_math_probe", "elementwise_chain",
                  "smem_ceiling_probe", "resident_bookkeeping_probe")
-DECODE_KERNELS = tuple(n for n in KERNELS if n not in PROBE_KERNELS)
+PREAMBLE_KERNELS = ("softening_inputs",)
+DECODE_KERNELS = tuple(n for n in KERNELS
+                       if n not in PROBE_KERNELS + PREAMBLE_KERNELS)
 
 
 def log(msg):
@@ -573,6 +581,96 @@ def phase_var_pass(kernels):
         if dtype == torch.bfloat16:
             record(kernels, "bp_var_pass_qc", max_abs_err=0.0, ms=ms,
                    plain_ms=plain_ms, bytes=nbytes, ops=ops)
+
+
+def phase_softening(kernels):
+    """The softening inputs against their plain version at the cells'
+    shape [32400, 128] (4-PAM), bfloat16 and float32, at 3.5 and 4.0 dB,
+    with the sign configurations 0 and alternating, 4 rounds each and 1
+    sample in 32 on a threshold or a constellation point: the LLRs and the
+    word bit for bit; the kernel's ms beside the plain version's and the
+    bytes bound (the bfloat16 case is the kernel's record); then a
+    softening point through the engine, one launch a round."""
+    from qamreconciliation_tpu_torch.models.alphabet import PAMAlphabet
+    from qamreconciliation_tpu_torch.models.matrix import Matrix
+    from qamreconciliation_tpu_torch.models.noisemapper import NoiseMapper
+    from qamreconciliation_tpu_torch.models.qc_decoder import (
+        QCDecoder, make_qc_ldpc,
+    )
+    from qamreconciliation_tpu_torch.ops.kernels import (
+        softening_inputs, softening_inputs_ref,
+    )
+    from qamreconciliation_tpu_torch.sims.engine import (
+        ReconciliationEngine, bf16_normal,
+    )
+
+    pa = PAMAlphabet(2, 2.0)
+    S, B = CODE["nb_v"] * CODE["z"] // 2, SHAPE[-1]
+    s2b = torch.as_tensor(pa.s_to_b.astype(np.int32), device="cuda")
+    spots = [float(t) for t in pa.thresholds[1:-1]] + list(pa.constellation)
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    for dtype in (torch.bfloat16, torch.float32):
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        for snr in (3.5, 4.0):
+            sigma = math.sqrt(pa.variance * 10 ** (-snr / 10) / 2)
+            for signs in (None, ALTERNATING):
+                nm = NoiseMapper(pa, sigma ** 2, signs, dtype=dtype,
+                                 device="cuda")
+                for r in range(4):
+                    x = pa.random_symbols(gen, (S, B), "cuda")
+                    noise = (bf16_normal(gen, (S, B), "cuda")
+                             if dtype == torch.bfloat16 else
+                             torch.randn((S, B), generator=gen,
+                                         device="cuda"))
+                    y = pa.index_to_value(x, dtype) \
+                        + torch.tensor(sigma, dtype=dtype) * noise
+                    pick = torch.randint(0, len(spots), (S, B),
+                                         generator=gen, device="cuda")
+                    y = torch.where(
+                        torch.rand((S, B), generator=gen, device="cuda")
+                        < 1 / 32,
+                        torch.tensor(spots, dtype=dtype,
+                                     device="cuda")[pick], y).contiguous()
+                    args = (nm, x, y, 1.0 if r else 0.8, s2b)
+                    got, word = softening_inputs(*args)
+                    want, wword = softening_inputs_ref(*args)
+                    torch.cuda.synchronize()
+                    name = (f"{str(dtype)[6:]} {snr} dB signs "
+                            f"{'alt' if signs is not None else 0} round {r}")
+                    assert torch.equal(got.view(bits), want.view(bits)), \
+                        f"softening inputs {name}: LLRs not bit-equal"
+                    assert torch.equal(word, wword), \
+                        f"softening inputs {name}: word not bit-equal"
+            args = (nm, x, y, 1.0, s2b)
+            ms, plain_ms = events_ms(lambda: softening_inputs(*args),
+                                     lambda: softening_inputs_ref(*args),
+                                     reps=10, run=10)
+            nbytes, ops = perf.softening_inputs_work(S, B, pa.order,
+                                                     pa.bit_per_symbol,
+                                                     dtype)
+            bound_ms = perf.bound(nbytes, ops)[0]
+            log(f"[softening] {str(dtype)[6:]} {snr} dB [{S}, {B}] LLRs and "
+                f"word bit-equal (16 rounds) kernel {ms:.4f} ms  plain "
+                f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
+                f"({100 * bound_ms / ms:.1f}%)  "
+                f"{softening_inputs.vec} frames a thread")
+            if dtype == torch.bfloat16 and snr == 3.5:
+                record(kernels, "softening_inputs", max_abs_err=0.0, ms=ms,
+                       plain_ms=plain_ms, bytes=nbytes, ops=ops)
+    # the main path: a softening point through the engine, a launch a round
+    base, vid, cid = make_qc_ldpc(CODE["nb_v"], CODE["z"], CODE["dv"],
+                                  CODE["dc"], seed=CODE["seed"])
+    dec = QCDecoder(base, CODE["z"], "bfloat16", device="cuda",
+                    resident=True)
+    eng = ReconciliationEngine(dec, Matrix(vid, cid), pa, batch=B,
+                               dtype="bfloat16", rounds_per_dispatch=2)
+    reset_counts()
+    res = eng.run_point("softening", 4.0, 50, 4 * B, 4 * B + 1,
+                        nmconfig=[0] * 4, seed=2 ** 31 + 27)
+    launches = counts()["softening_inputs"]
+    assert res.frames == 4 * B and launches == 4, (res.frames, launches)
+    log(f"[softening] a 4-round softening point: {launches} launches")
+    record(kernels, "softening_inputs", launches=launches)
 
 
 def compare_state(got, want, what):
@@ -1433,7 +1531,9 @@ def phase_modes(kernels):
     def note(label, res, launches):
         rounds = sum(r.frames for r in res) / 128
         for name, n in launches.items():
-            if n:
+            # the decode kernels only: a softening point also launches the
+            # preamble's kernel, which phase_softening times
+            if n and name in per_round:
                 per_round[name][label] = n / rounds
 
     base, _, _ = make_qc_ldpc(CODE["nb_v"], CODE["z"], CODE["dv"],
@@ -1642,7 +1742,9 @@ def phase_sweep_surface(kernels):
     def note(label, res, launches):
         rounds = sum(r.frames for r in res) / 128
         for name, n in launches.items():
-            if n:
+            # the decode kernels only: a softening point also launches the
+            # preamble's kernel, which phase_softening times
+            if n and name in per_round:
                 per_round[name][label] = n / rounds
 
     base, _, _ = make_qc_ldpc(CODE["nb_v"], CODE["z"], CODE["dv"],
@@ -2661,7 +2763,8 @@ def _multidevice_rank(work, fps1, knee1):
         got = {n: c for n, c in counts().items() if c}
         log(f"[multi] rank {rank} {label}: launches {got}")
         for name, c in got.items():
-            launches[name][label] = c
+            if name in launches:     # the decode kernels only
+                launches[name][label] = c
         return result
 
     # what gloo does with CUDA tensors, and the collectives' cost at the
@@ -2853,7 +2956,7 @@ def _multidevice_rank(work, fps1, knee1):
         stream, f"rank {rank} frame-sharded stream_fused, resident min-sum "
         f"chunk 25, {STREAM['batch'] // world} frames a rank")
     for name, c in slaunch.items():
-        if c:
+        if c and name in launches:
             launches[name]["stream_fused frame-sharded"] = c
     out["stream"] = (stream_view(res), rate)
 
@@ -3976,6 +4079,7 @@ def main(argv=None):
     kernels = {}
     for phase, args in ((phase_kernel, (kernels,)),
                         (phase_var_pass, (kernels,)),
+                        (phase_softening, (kernels,)),
                         (phase_rounds, (kernels,)),
                         (phase_sweeps, (kernels,)),
                         (phase_decoder, ()),

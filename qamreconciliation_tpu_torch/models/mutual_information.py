@@ -302,7 +302,8 @@ def row_view(nms):
 
 
 # a mapper's lazily built fits: functions of its tables, built on first use
-_FITS = ("_ginv_poly", "_fy_poly", "_fy_dom", "_llr_tab", "_llr_poly")
+_FITS = ("_ginv_poly", "_fy_poly", "_fy_dom", "_llr_tab", "_llr_poly",
+         "_softening_tab")
 
 
 def _tables(nm):

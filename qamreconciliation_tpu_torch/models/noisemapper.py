@@ -246,6 +246,9 @@ class NoiseMapper:
         self._llr_K = 1 << 13
         self._llr_tab = None
         self._llr_poly = None
+        # the softening kernel's table (_ensure_softening_tab), built on
+        # first use; it holds the sign configuration too
+        self._softening_tab = None
         self._llr_tab_inputs = (F_thr, delta_F_Y, y_of_u, c, p, bits, llr_cap)
         # the fits of the inverse CDF and of the CDF, built on first use;
         # they do not depend on the sign configuration (clones share them)
@@ -274,6 +277,7 @@ class NoiseMapper:
                                           device=self.device)
         clone._llr_tab = None
         clone._llr_poly = None
+        clone._softening_tab = None
         return clone
 
     # ------------------------------------------------------------------ #
@@ -455,6 +459,28 @@ class NoiseMapper:
             )
         pdt = torch.float64 if self.dtype == torch.float64 else torch.float32
         self._llr_poly = torch.as_tensor(C, dtype=pdt, device=self.device)
+
+    def _ensure_softening_tab(self):
+        """Build the table of the fused softening kernel
+        (``ops/kernels.softening_inputs``): float32 on the mapper's device,
+        with no host read, laid out as ``csrc/softening_inputs.cu`` reads
+        it.  It holds the interior thresholds as the hard decision rounds
+        them, the constellation, ``p / 2``, the lower and upper threshold
+        CDFs and the interval masses in the mapper's dtype, g's signs,
+        ``sqrt(2) * sigma`` as ``F_Y`` forms it, and the poly LLR
+        coefficients ``[nseg * M, (deg + 1) * bps]``."""
+        if self._softening_tab is not None:
+            return
+        self._ensure_llr_poly()
+        f32 = torch.float32
+        thr = torch.stack([torch.tensor(t, dtype=self.dtype)
+                           for t in self._thr_tuple])
+        den = math.sqrt(2.0) * self._sigma_dev.to(f32)
+        parts = (thr.to(self.device), self._c, self._p * 0.5,
+                 self._F_thr[:-1], self._F_thr[1:], self._delta_F_Y,
+                 self._g_signs(), den, self._llr_poly)
+        self._softening_tab = torch.cat([t.reshape(-1).to(f32)
+                                         for t in parts])
 
     def _poly_llr_bits(self, n, j):
         """Per-bit softening LLRs from the piecewise-Chebyshev fit: list of

@@ -15,13 +15,15 @@ Five wrappers of the decoders' kernels, each replacing a Pallas TPU kernel of
   check-major phi check update of the JAX package's
   ``check_node_update_pallas``, in float32 or bfloat16;
 
-two for decoder steps that the JAX package leaves to XLA:
+three for steps that the JAX package leaves to XLA:
 
 * ``bp_var_totals_generic`` (``csrc/bp_var_totals_generic.cu``): gather 2,
   each variable's new totals folded from its real edges' messages;
 * ``bp_var_pass_qc`` (the same source's QC entry): the dense QC decoder's
   variable pass, the same fold plus the prior, its totals also written into
   the check phase's next input;
+* ``softening_inputs`` (``csrc/softening_inputs.cu``): a softening round's
+  hard decision, softening metric, word and poly LLRs in one pass;
 
 and four more replacing the Pallas kernels of the JAX package's probes
 (``scripts/``):
@@ -75,6 +77,8 @@ __all__ = [
     "check_node_update_fused", "check_node_update_fused_ref",
     "var_totals_vec", "bp_var_totals_generic", "bp_var_totals_generic_ref",
     "VAR_PASS_DTYPES", "bp_var_pass_qc", "bp_var_pass_qc_ref",
+    "SOFTENING_DTYPES", "SOFTENING_ORDERS", "softening_takes",
+    "softening_table_size", "softening_inputs", "softening_inputs_ref",
     "SmemGrants", "PROBE_MATHS", "ProbeTilePlan", "probe_tile_plan",
     "probe_tile_smem", "probe_instance", "check_math_probe",
     "check_math_probe_ref",
@@ -93,7 +97,7 @@ MAX_DC = 32
 
 
 def _spanned(entry):
-    """A decoder kernel's entry, each call inside the profiler span
+    """A kernel's entry, each call inside the profiler span
     ``rr.kernel.<name>`` (:func:`~qamreconciliation_tpu_torch.utils.trace.
     span`), on the card and on the CPU alike."""
     name = f"rr.kernel.{entry.__name__}"
@@ -1593,6 +1597,149 @@ def bp_var_pass_qc(prior, c2v, rows, degree, t):
 
 bp_var_pass_qc.launches = 0
 bp_var_pass_qc.vec = None
+
+
+# --------------------------------------------------------------------- #
+# The softening round's inputs: hard decision, softening metric, word and
+# poly LLRs in one pass (csrc/softening_inputs.cu; no Pallas kernel: the JAX
+# package leaves this step to XLA)
+
+
+# the sample dtypes and the orders M whose kernel was shown bit-equal to the
+# plain version on the card; other mappers keep the plain version
+SOFTENING_DTYPES = (torch.float32, torch.bfloat16)
+SOFTENING_ORDERS = (2, 4, 8, 16)
+# the kernel's grid: at most this many blocks of 256 threads an SM (the
+# blocks stride over the rows, so each fills its table once)
+SOFTENING_BLOCKS_PER_SM = 8
+# the kernel's sample dtypes, in its numbering
+_SAMPLE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def softening_takes(nm, llr_mode: str) -> bool:
+    """Whether :func:`softening_inputs` takes a softening round of mapper
+    ``nm`` with ``llr_mode`` LLRs: poly LLRs on the erf marginal CDF, a
+    float32 or bfloat16 mapper, an order in ``SOFTENING_ORDERS``.  Every
+    other round runs :func:`softening_inputs_ref`."""
+    return (llr_mode == "poly" and nm.fy_mode == "erf"
+            and nm.dtype in SOFTENING_DTYPES
+            and nm.order in SOFTENING_ORDERS)
+
+
+def softening_table_size(M: int, bps: int) -> int:
+    """Floats of the kernel's table (``NoiseMapper._ensure_softening_tab``)
+    at order ``M``."""
+    from ..models.noisemapper import _POLY_DEG, _POLY_NSEG
+
+    return 7 * M + _POLY_NSEG * M * (_POLY_DEG + 1) * bps
+
+
+def _softening_args(nm, x, y, s2b):
+    if y.dim() != 2 or x.shape != y.shape:
+        raise ValueError(f"x and y must be [S, B] of one shape, got "
+                         f"{tuple(x.shape)} and {tuple(y.shape)}")
+    if y.dtype != nm.dtype or x.dtype != torch.int32:
+        raise TypeError(f"y must be in the mapper's dtype {nm.dtype} and x "
+                        f"int32, got {y.dtype} and {x.dtype}")
+    if tuple(s2b.shape) != (nm.order, nm.bit_per_symbol) \
+            or s2b.dtype != torch.int32:
+        raise ValueError(f"s2b must be int32 [{nm.order}, "
+                         f"{nm.bit_per_symbol}], got {s2b.dtype} "
+                         f"{tuple(s2b.shape)}")
+    if not (x.device == y.device == s2b.device == nm._c.device):
+        raise ValueError("x, y, s2b and the mapper must be on one device")
+    if not softening_takes(nm, "poly"):
+        raise TypeError(
+            f"softening_inputs takes float32 or bfloat16 mappers of order "
+            f"{SOFTENING_ORDERS} on the erf CDF, got {nm.dtype}, order "
+            f"{nm.order}, fy_mode {nm.fy_mode!r}")
+
+
+def softening_inputs_ref(nm, x, y, alpha, s2b):
+    """Plain PyTorch softening inputs with poly LLRs (any device, any
+    mapper): Bob's word [N, B] and Alice's softening LLRs [N, B] from the
+    transmitted symbols ``x`` and received samples ``y`` ([S, B]),
+    ``N = S * bps``; the engine's plain poly path."""
+    bps = nm.bit_per_symbol
+    shape_nb = (x.shape[0] * bps, x.shape[1])
+
+    def bits_nb(table_col_fn, idx_sb):
+        cols = [table_col_fn(b, idx_sb) for b in range(bps)]
+        return torch.stack(cols, dim=1).reshape(shape_nb)
+
+    x_hat = nm.hard_decide_index(y)
+    n_hat = nm.map_noise(y, x_hat)
+    word = bits_nb(lambda b, idx: s2b[:, b][idx.long()], x_hat)
+    alpha = torch.tensor(alpha, dtype=nm.dtype)
+    llr_bits = nm._poly_llr_bits(n_hat, x)
+    lappr = alpha * bits_nb(lambda b, _: llr_bits[b], x_hat)
+    return lappr, word
+
+
+@_spanned
+def softening_inputs(nm, x, y, alpha, s2b):
+    """A softening round's inputs with poly LLRs on the erf CDF: Bob's word
+    and Alice's LLRs, as :func:`softening_inputs_ref` computes them.
+
+    Args:
+      nm:    the point's NoiseMapper (``softening_takes(nm, "poly")``).
+      x:     [S, B] int32 Alice's symbols.
+      y:     [S, B] Bob's samples, in the mapper's dtype.
+      alpha: the LLR scale (a Python number).
+      s2b:   [M, bps] int32 each symbol's Gray bits.
+
+    Returns ``(lappr, word)``, each [S * bps, B]: row ``s * bps + b`` holds
+    bit ``b`` of symbol ``s``; the LLRs in y's dtype, the word int32.
+
+    CPU tensors run :func:`softening_inputs_ref`.  CUDA tensors run the
+    kernel on the mapper's table (``NoiseMapper._ensure_softening_tab``,
+    built at the point's set-up, else on the first call), bit-equal to it;
+    it takes contiguous
+    x and y; anything else, and any mapper ``softening_takes`` refuses,
+    raises on either device.
+    """
+    _softening_args(nm, x, y, s2b)
+    if y.device.type == "cpu":
+        return softening_inputs_ref(nm, x, y, alpha, s2b)
+    _require_cuda("softening_inputs", y)
+    _require_contiguous(x=x, y=y, s2b=s2b)
+    from ..models.noisemapper import _POLY_D, _POLY_NSEG
+
+    (S, B), M, bps = y.shape, nm.order, nm.bit_per_symbol
+    nm._ensure_softening_tab()
+    tab = nm._softening_tab
+    if tab.numel() != softening_table_size(M, bps):
+        raise ValueError(f"the mapper's table holds {tab.numel()} floats, "
+                         f"not {softening_table_size(M, bps)}")
+    lappr = torch.empty((S * bps, B), dtype=y.dtype, device=y.device)
+    word = torch.empty((S * bps, B), dtype=torch.int32, device=y.device)
+    if S == 0 or B == 0:
+        return lappr, word
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, y, lappr, word))
+    vec = var_totals_vec(B, y.element_size(), aligned)
+    # each host constant as the plain version's Python float operand
+    d = _POLY_D
+    wlo = float(np.log(d) - np.log1p(d))
+    scale = float(1.0 / (-2.0 * wlo)) * _POLY_NSEG
+    tmax = _POLY_NSEG * (1.0 - 1e-7)
+    alpha_dt = float(torch.tensor(alpha, dtype=y.dtype))   # a host tensor
+    sms = torch.cuda.get_device_properties(y.device).multi_processor_count
+    lib = _library("softening_inputs", "pppppp" + "i" * 6 + "f" * 6 + "p")
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        err = lib.softening_inputs_launch(
+            y.data_ptr(), x.data_ptr(), tab.data_ptr(), s2b.data_ptr(),
+            lappr.data_ptr(), word.data_ptr(), _SAMPLE_CODES[y.dtype], M, S,
+            B, vec, SOFTENING_BLOCKS_PER_SM * sms, d, 1.0 + d, wlo, scale,
+            tmax, alpha_dt, stream)
+    _raise_on(err, "softening_inputs")
+    softening_inputs.launches += 1
+    softening_inputs.vec = vec
+    return lappr, word
+
+
+softening_inputs.launches = 0
+softening_inputs.vec = None
 
 
 # --------------------------------------------------------------------- #

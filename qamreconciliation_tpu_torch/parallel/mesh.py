@@ -233,7 +233,13 @@ def make_mesh(n_devices: int | None = None, axis_name: str = "dp",
 
 def _rank_main(rank, world, store, device, timeout, out_dir, fn, args):
     """One rank started by :func:`run_ranks`: join the group through the
-    file store, run ``fn(*args)``, write its result for the parent."""
+    file store, run ``fn(*args)``, write its result for the parent.
+
+    A rank whose result is written leaves by ``os._exit(0)`` once its group
+    is destroyed, past the interpreter's teardown: there torch's static
+    state is destroyed, and on gloo under CPU load that now and then aborts
+    the rank ("terminate called without an active exception", exit code
+    -6) after its work is done."""
     backend = backend_for(world, device)
     dist.init_process_group(
         backend, init_method=f"file://{store}", rank=rank, world_size=world,
@@ -245,6 +251,9 @@ def _rank_main(rank, world, store, device, timeout, out_dir, fn, args):
             pickle.dump(result, f)
     finally:
         dist.destroy_process_group()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def run_ranks(fn, world: int, args=(), device="cuda",

@@ -36,6 +36,7 @@ from ..config import DEFAULT_DTYPE, as_dtype
 from ..models.alphabet import PAMAlphabet
 from ..models.matrix import Matrix
 from ..models.noisemapper import NoiseMapper
+from ..ops import kernels
 from ..ops.llr import y_to_lappr_gray_bits
 from ..utils.trace import span
 
@@ -347,9 +348,13 @@ class ReconciliationEngine:
 
     def _softening_inputs(self, nm, x, y, alpha):
         """Bob's word [N, B] and Alice's softening LLRs [N, B] from the
-        transmitted symbols x and received samples y ([S, B]).  The
-        "interp"/"search" LLRs are the JAX package's [B, N] function
-        (``demap_lappr_array``) on the samples' transpose."""
+        transmitted symbols x and received samples y ([S, B]): the fused
+        kernel (``ops/kernels.softening_inputs``) where it takes the
+        mapper and the LLR mode.  The "interp"/"search" LLRs are the JAX
+        package's [B, N] function (``demap_lappr_array``) on the samples'
+        transpose."""
+        if kernels.softening_takes(nm, self.llr_mode):
+            return kernels.softening_inputs(nm, x, y, alpha, self._s2b)
         x_hat = nm.hard_decide_index(y)
         n_hat = nm.map_noise(y, x_hat)
         word = self._bits_nb(
@@ -426,6 +431,9 @@ class ReconciliationEngine:
             nm._ensure_llr_tab()
         elif self.llr_mode == "poly":
             nm._ensure_llr_poly()
+        if nm.device.type == "cuda" and kernels.softening_takes(
+                nm, self.llr_mode):
+            nm._ensure_softening_tab()
         if self.fy_mode == "poly":
             nm._ensure_fy_poly()
         return nm

@@ -26,7 +26,9 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.kernels import BOOKKEEPING_VARIANTS, GENERIC_BLOCK_C
+from ..ops.kernels import (
+    BOOKKEEPING_VARIANTS, GENERIC_BLOCK_C, softening_table_size,
+)
 
 __all__ = ["HBM_BYTES_PER_S", "F32_OPS_PER_S", "BF16_OPS_PER_S",
            "SFU_OPS_PER_S",
@@ -34,6 +36,7 @@ __all__ = ["HBM_BYTES_PER_S", "F32_OPS_PER_S", "BF16_OPS_PER_S",
            "decode_rounds_work", "layered_sweeps_work",
            "check_phase_generic_work", "check_node_update_work",
            "var_totals_generic_work", "var_pass_qc_work",
+           "softening_inputs_ops", "softening_inputs_work",
            "check_math_probe_work",
            "elementwise_chain_work", "smem_ceiling_probe_work",
            "resident_bookkeeping_work"]
@@ -163,6 +166,31 @@ def var_pass_qc_work(E, V, B, dtype):
     size = _size(dtype)
     nbytes = 2 * (E + V) * B * size + (E + V) * _I32
     return nbytes, E * B
+
+
+def softening_inputs_ops(M: int, bps: int) -> int:
+    """Operations of :func:`softening_inputs_work` a sample: the hard
+    decision's M - 1 compares and adds; each of the M erf terms'
+    difference, division, erf, 1 + erf, product and the sum's add to 0, and
+    the M - 1 adds of the sum; g's difference and division; the clamp; the
+    warped coordinate's two adds, two logs and difference; the segment's
+    difference, product, clamp, floor and the abscissa's difference,
+    product, subtraction and doubling; and per bit 10 Clenshaw steps of a
+    product, a difference and an add, the last step's three and the scale's
+    product."""
+    return (2 * (M - 1) + 6 * M + (M - 1) + 2 + 2 + 5 + 9
+            + bps * (10 * 3 + 3 + 1))
+
+
+def softening_inputs_work(S, B, M, bps, dtype):
+    """The softening inputs (``softening_inputs``): y [S, B] in ``dtype``
+    and the int32 symbols x in, the LLRs [S * bps, B] in ``dtype`` and the
+    int32 word out, the mapper's f32 table and the int32 bit table [M,
+    bps] in once; :func:`softening_inputs_ops` a sample."""
+    size = _size(dtype)
+    nbytes = (S * B * (size + _I32) + S * bps * B * (size + _I32)
+              + 4 * softening_table_size(M, bps) + _I32 * M * bps)
+    return nbytes, softening_inputs_ops(M, bps) * S * B
 
 
 def check_math_probe_work(nb_c, dc, z, B, dtype, math):

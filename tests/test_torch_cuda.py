@@ -1535,3 +1535,146 @@ def test_last_probe_kernels_reject_what_they_do_not_take():
     strided[1] = state[1].transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError):
         kernels.resident_bookkeeping_probe(tables, 0, 9, *strided)
+
+
+# --------------------------------------------------------------------- #
+# The softening inputs (csrc/softening_inputs.cu) against their plain
+# version, bit for bit, and their launches on the main path
+
+SOFT_ALT = [0, 1] * 8
+
+
+def soft_round(bps, dtype, S, B, snr, seed, planted=True):
+    """The symbols, samples and bit table of a round drawn as the engine
+    draws them, with 1 sample in 32 set to an interior threshold or a
+    constellation point."""
+    from qamreconciliation_tpu_torch.models.alphabet import PAMAlphabet
+    from qamreconciliation_tpu_torch.sims.engine import bf16_normal
+
+    pa = PAMAlphabet(bps, 2.0)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = pa.random_symbols(gen, (S, B), "cuda")
+    sigma = float(np.sqrt(pa.variance * 10 ** (-snr / 10) / 2))
+    noise = (bf16_normal(gen, (S, B), "cuda") if dtype == torch.bfloat16
+             else torch.randn((S, B), generator=gen, device="cuda",
+                              dtype=dtype))
+    y = pa.index_to_value(x, dtype) + torch.tensor(sigma, dtype=dtype) * noise
+    if planted:
+        spots = torch.tensor([float(t) for t in pa.thresholds[1:-1]]
+                             + list(pa.constellation), dtype=dtype,
+                             device="cuda")
+        pick = torch.randint(0, spots.numel(), (S, B), generator=gen,
+                             device="cuda")
+        y = torch.where(torch.rand((S, B), generator=gen, device="cuda")
+                        < 1 / 32, spots[pick], y)
+    s2b = torch.as_tensor(pa.s_to_b.astype(np.int32), device="cuda")
+    return pa, x, y.contiguous(), s2b
+
+
+def soft_mapper(pa, snr, signs, dtype):
+    from qamreconciliation_tpu_torch.models.noisemapper import NoiseMapper
+
+    return NoiseMapper(pa, pa.variance * 10 ** (-snr / 10) / 2, signs,
+                       dtype=dtype, device="cuda")
+
+
+def soft_equal(nm, x, y, alpha, s2b):
+    got = kernels.softening_inputs(nm, x, y, alpha, s2b)
+    want = kernels.softening_inputs_ref(nm, x, y, alpha, s2b)
+    torch.cuda.synchronize()
+    bits = torch.int16 if y.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got[0].view(bits), want[0].view(bits)), \
+        int((got[0].view(bits) != want[0].view(bits)).sum())
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("signs", [None, SOFT_ALT], ids=["zeros", "alt"])
+@pytest.mark.parametrize("snr", [3.5, 4.0])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_softening_inputs_kernel_bit_equal_at_the_cells_shape(dtype, snr,
+                                                               signs):
+    need_cuda()
+    for r in range(4):
+        pa, x, y, s2b = soft_round(2, dtype, 32400, 128, snr, 100 + r)
+        nm = soft_mapper(pa, snr, signs, dtype)
+        for alpha in ((1.0, 0.8) if r == 0 else (1.0,)):
+            soft_equal(nm, x, y, alpha, s2b)
+            assert kernels.softening_inputs.vec == 16 // y.element_size()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(333, 37), (5, 8), (64, 24), "unaligned"],
+                         ids=str)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bps", [1, 2, 3, 4])
+def test_softening_inputs_kernel_bit_equal_on_ragged_shapes(bps, dtype,
+                                                             shape):
+    need_cuda()
+    S, B = (97, 128) if shape == "unaligned" else shape
+    pa, x, y, s2b = soft_round(bps, dtype, S, B, 12.0 if bps == 4 else 4.0,
+                               7 * bps + S)
+    if shape == "unaligned":
+        xb = torch.empty(S * B + 1, dtype=x.dtype, device="cuda")[1:]
+        yb = torch.empty(S * B + 1, dtype=y.dtype, device="cuda")[1:]
+        x = xb.view(S, B).copy_(x)
+        y = yb.view(S, B).copy_(y)
+    nm = soft_mapper(pa, 4.0, SOFT_ALT[:pa.order], dtype)
+    soft_equal(nm, x, y, 0.7, s2b)
+    wide = 16 // y.element_size()
+    assert kernels.softening_inputs.vec == (
+        wide if shape != "unaligned" and B % wide == 0 else 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("snr", [3.5, 4.0])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bps", [3, 4])
+def test_softening_inputs_kernel_bit_equal_at_eight_and_sixteen_levels(
+        bps, dtype, snr):
+    """8- and 16-PAM at low SNR, each at its own variance, a code of 64800
+    bits: most erf terms lie inside (0, p), so the order in which the M
+    terms are summed shows in the LLRs."""
+    need_cuda()
+    for r in range(2):
+        pa, x, y, s2b = soft_round(bps, dtype, 64800 // bps, 128, snr,
+                                   300 + 10 * bps + r)
+        nm = soft_mapper(pa, snr, SOFT_ALT[:pa.order] if r else None, dtype)
+        soft_equal(nm, x, y, 1.0 if r else 0.75, s2b)
+
+
+@pytest.mark.cuda
+def test_softening_inputs_launch_once_a_softening_round():
+    need_cuda()
+    base, vid, cid = make_qc_ldpc(24, 16, 3, 6, seed=5)
+    dec = QCDecoder(base, 16, "bfloat16", device="cuda")
+    from qamreconciliation_tpu_torch.models.alphabet import PAMAlphabet
+    from qamreconciliation_tpu_torch.sims.engine import ReconciliationEngine
+
+    eng = ReconciliationEngine(dec, Matrix(vid, cid), PAMAlphabet(2, 2.0),
+                               batch=8, dtype="bfloat16",
+                               rounds_per_dispatch=2)
+    for mode, rounds in (("softening", 6), ("hard", 0)):
+        n0 = kernels.softening_inputs.launches
+        res = eng.run_point(mode, 3.5, 12, 48, 49, nmconfig=[0, 0, 0, 0],
+                            seed=2 ** 31 + 9)
+        assert res.frames == 48
+        assert kernels.softening_inputs.launches - n0 == rounds, mode
+    # the point's set-up built the table on the card
+    nm = eng.make_noisemapper(3.5, [0, 1, 0, 1])
+    assert nm._softening_tab is not None and nm._softening_tab.is_cuda
+
+
+@pytest.mark.cuda
+def test_softening_inputs_refuse_what_they_do_not_take_on_the_card():
+    need_cuda()
+    pa, x, y, s2b = soft_round(2, torch.float32, 64, 16, 4.0, 3)
+    nm64 = soft_mapper(pa, 4.0, None, torch.float64)
+    with pytest.raises(TypeError):
+        kernels.softening_inputs(nm64, x, y.double(), 1.0, s2b)
+    nm = soft_mapper(pa, 4.0, None, torch.float32)
+    with pytest.raises(ValueError):
+        kernels.softening_inputs(nm, x.t().contiguous().t(),
+                                 y.t().contiguous().t(), 1.0, s2b)
+    with pytest.raises(ValueError):
+        kernels.softening_inputs(nm, x.cpu(), y, 1.0, s2b)

@@ -148,7 +148,12 @@ def test_a_profiled_point_opens_each_span_in_its_place(kind, tmp_path):
         # every frame is done
         calls = n["rr.kernel.bp_layered_sweeps_qc"]
         assert calls <= n["rr.decoder.poll"] <= calls + rounds
-    kernels = sorted(k for k in n if k.startswith("rr.kernel."))
+    # the softening inputs: one kernel call a round, inside its inputs
+    assert n["rr.kernel.softening_inputs"] == rounds
+    assert _inside(spans["rr.kernel.softening_inputs"],
+                   spans["rr.engine.inputs"])
+    kernels = sorted(k for k in n if k.startswith("rr.kernel.")
+                     and k != "rr.kernel.softening_inputs")
     assert kernels == sorted(f"rr.kernel.{k}" for k in KERNELS.get(kind, ()))
     assert _inside(spans["rr.engine.setup"], spans["rr.engine.point"])
     assert _inside(spans["rr.engine.round"], spans["rr.engine.dispatch"])
