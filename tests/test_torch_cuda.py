@@ -1099,6 +1099,56 @@ def test_layered_decoder_at_the_layered_cell_shape():
 
 
 @pytest.mark.cuda
+def test_resident_minsum_decoder_at_the_cell_widths():
+    """Kernel 2's min-sum instance as the benchmark cell
+    ``qc36.minsum-3.5dB`` runs it (z = 360, N = 64800, bf16, alpha 13/16,
+    50 steps a call), at B = 8, bit for bit against the benchmark's plain
+    reference on the card, with frames converging at staggered steps,
+    frames running to the limit and one consistent prior."""
+    need_cuda()
+    from rrbench import codes, decoders
+    from rrbench.decoders import qc_resident_minsum
+    from rrbench.ref import Precision
+
+    code = codes.build({"kind": "qc_ldpc", "nb_v": 180, "z": 360, "dv": 3,
+                        "dc": 6, "seed": 12345})
+    spec = {"kind": "qc_resident_minsum", "check_rule": "minsum",
+            "minsum_alpha": 0.8125, "minsum_beta": 0.0, "chunk": 50}
+    B, maxiter = 8, 50
+    g = torch.Generator().manual_seed(31)
+    word = torch.randint(0, 2, (code.vnum, B), generator=g,
+                         dtype=torch.int32)
+    sigma = torch.linspace(0.5, 1.3, B)
+    prior = (1 - 2 * word).float() + sigma * torch.randn(
+        (code.vnum, B), generator=g)
+    prior[:, 0] = 2.0 * (1 - 2 * word[:, 0]).float()
+    prior = prior.to(torch.bfloat16).cuda()
+    synd = decoders.syndrome(code, word).cuda()
+    dec = qc_resident_minsum.program(code, spec, "bfloat16", "cuda")
+    rules = []
+    step = dec.rounds_step
+
+    def recorded(*args, **kw):
+        rules.append(kw["rule"])
+        return step(*args, **kw)
+    dec.rounds_step = recorded
+    n0 = bp_decode_rounds_qc.launches
+    got = dec.decode_batched(prior, synd, maxiter)
+    want = qc_resident_minsum.Reference(
+        code, spec, Precision("bfloat16"), "cuda").decode(prior, synd,
+                                                          maxiter)
+    torch.cuda.synchronize()
+    assert rules == ["minsum"]
+    assert bp_decode_rounds_qc.launches - n0 == 1
+    success, iters = got[0].cpu(), got[1].cpu()
+    assert bool(success[0]) and int(iters[0]) == 0
+    assert len(set(iters[success].tolist())) >= 3
+    assert not bool(success.all())
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[2].view(torch.int16), want[2].view(torch.int16))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B", [8, 64])
 @pytest.mark.parametrize("rule,m_dtype", [("minsum", torch.bfloat16),
                                           ("tanhfb", torch.bfloat16),
